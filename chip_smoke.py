@@ -1,33 +1,59 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``k8s1m_tpu_torch``).
 
-Drives the port's main path — the packed scheduling wave
-``engine.cycle.schedule_batch_packed`` — on one CUDA card, at the
-deployment ``bench.py`` runs by default: 1,048,576 KWOK nodes, waves of
-4096 uniform 100m/200Mi pods, k=4, chunk 4096, a rotating 5%
-percentageOfNodesToScore window, on the plain and the packed table layout.
+Drives the port's main paths — the packed scheduling wave
+``engine.cycle.schedule_batch_packed`` — on one CUDA card at 1,048,576
+KWOK nodes, k=4, chunk 4096, a rotating 5% percentageOfNodesToScore
+window, on the plain and the packed table layout: the uniform wave
+``bench.py`` runs by default (base stage of the kernel), the NodeAffinity
+wave of ``bench.py --affinity`` (path A, BASELINE config 2) and the
+constrained wave of ``bench.py --constraints`` (path B, configs 3-4).
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device  — the card's name, and its name and power limit as
                ``nvidia-smi --query-gpu=name,power.limit`` reports them;
-  2. build   — ``nvcc`` builds every kernel of the path from ``csrc/``;
+  2. build   — ``nvcc`` builds every kernel of the paths from ``csrc/``
+               (one process per translation unit, all at once);
   3. kernel vs plain — ``fused_topk`` (CUDA) against
                ``fused_topk_reference`` (plain PyTorch) on the card,
                bit-equal idx and prio: N=65,536, B=512, k=4, both layouts,
                a tainted fleet with tolerating pods, stratum bits 0 and 11,
                and a near-full fleet where pods have fewer than K nodes;
-  4. main path — warm-up and timed waves with seeds from
-               ``numpy.random.default_rng(0)``; one launch of the kernel per
-               wave (launch counter reset just before, read just after);
+  3b. affinity stage vs plain — a labeled fleet (numeric label > 2^24),
+               nodeSelector, all six ops, OR of terms, preferred weights,
+               an unsatisfiable selector, plain pods; plain, packed and
+               packed-unfused layouts; stratum bits 0 and 11, hash bases;
+  3c. constraint stage vs plain — count tables from two earlier waves,
+               missing zone/region labels, spread (zone and region),
+               required affinity with bootstrap, anti-affinity, preferred
+               terms, symmetric own counts, a wave with selectors as well
+               (both stages in one launch); both layouts, whole table and
+               a window view;
+  4. main path — uniform pods, 20 timed waves per layout with seeds from
+               ``numpy.random.default_rng(0)``; one launch of the base stage
+               per wave (launch counts reset just before, read just after);
                one wave re-run through the plain version from a clone of the
                table must give identical rows and request columns; both
                layouts must bind identically; no node over-committed;
                binds > 0.  Prints binds/s, p50 wave ms, kernel ms/wave,
-               greedy-assign ms/wave and table MB per layout.
-The next-to-last line is ``{"kernels": [...]}`` (times, bound, launches);
-the last is ``{"ok": true, "device": {...}}``.
+               greedy-assign ms/wave and table MB per layout;
+  5. path A  — ``node_affinity_pods(4096)``, Profile without constraint
+               plugins; 10 timed waves per layout, one ``aff`` launch per
+               wave; the plain-version re-run and layout checks of phase 4;
+               every bound pod sits in one of its two zones and outside its
+               excluded region;
+  6. path B  — 2048 ``bench-spread`` (zone spread) + 2048 ``bench-anti``
+               (required hostname anti-affinity) pods, the full Profile,
+               constraint state carried across waves; one ``cons`` launch
+               per wave; the re-run also compares the nine count tables;
+               every anti pod lands on a node whose matching count was 0 at
+               the start of its wave; count totals equal the binds.
+               Also prints prologue and constraint-commit ms/wave.
+The next-to-last line is ``{"kernels": [...]}`` (one entry per stage
+configuration the paths ran: times, bound, launches); the last is
+``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py [--steps 20] [--warmup 2] [--out results.json]
+    python3 chip_smoke.py [--steps 20] [--path-steps 10] [--warmup 2] [--out results.json]
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -116,10 +142,13 @@ def phase_build() -> dict:
     report = _build.build("fused_topk")
     _build.load("fused_topk")
     secs = time.perf_counter() - t0
+    kernel = ""
     for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
-    log(f"[build] fused_topk.cu built and loaded in {secs:.1f}s")
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "registers" in line:
+            log(f"[build] {kernel[:72]}: {line.split(':', 1)[-1].strip()}")
+    log(f"[build] csrc/fused_topk*.cu built (in parallel) and loaded in {secs:.1f}s")
     return {"build_s": secs}
 
 
@@ -267,7 +296,12 @@ def phase_main_path(device, *, steps: int, warmup: int) -> dict:
         sample_rows_for,
         schedule_batch_packed,
     )
-    from k8s1m_tpu_torch.ops.fused_topk import candidates, fused_topk, fused_topk_reference
+    from k8s1m_tpu_torch.ops.fused_topk import (
+        candidates,
+        fused_topk,
+        fused_topk_reference,
+        reset_launches,
+    )
     from k8s1m_tpu_torch.plugins.registry import Profile
     from k8s1m_tpu_torch.snapshot.node_table import NodeTableHost
     from k8s1m_tpu_torch.snapshot.packing import (
@@ -299,7 +333,7 @@ def phase_main_path(device, *, steps: int, warmup: int) -> dict:
     results: dict = {}
     tables: dict = {}
     first_rows: list = []
-    fused_topk.launches = 0            # the main path's launch count starts here
+    reset_launches()                   # the main path's launch counts start here
     for layout, make in layouts.items():
         table = make()
         check(is_packed(table) == (layout == "packed"), f"{layout} layout not built")
@@ -355,8 +389,10 @@ def phase_main_path(device, *, steps: int, warmup: int) -> dict:
             "table_mb": table_bytes(table) / 2**20,
         }
     launches = fused_topk.launches     # read just after the main path
-    check(launches == 2 * (warmup + steps),
-          f"main path launched the kernel {launches} times for {2 * (warmup + steps)} waves")
+    by_stage = dict(fused_topk.launches_by_stage)
+    check(launches == 2 * (warmup + steps) == by_stage["base"],
+          f"main path launched the kernel {launches} times for {2 * (warmup + steps)} "
+          f"waves (by stage {by_stage})")
     results["launches"] = launches
 
     # Per-layer times at the main-path shape (launches here are not counted).
@@ -398,14 +434,456 @@ def phase_main_path(device, *, steps: int, warmup: int) -> dict:
     return results
 
 
+# ---- phases 3b / 3c: the affinity and constraint stages vs plain ----------
+
+
+def _compare(idx, prio, ridx, rprio) -> int:
+    return max(int((idx.long() - ridx.long()).abs().max()),
+               int((prio.long() - rprio.long()).abs().max()))
+
+
+def phase_affinity_vs_plain(device, n: int = 65536, b: int = 512) -> float:
+    """The kernel's NodeAffinity stage against the plain version: a labeled
+    fleet (a numeric label beyond 2^24), every selector shape, the default
+    PodSpec (36 selector slots, V=8), plain / packed / packed-unfused."""
+    import torch
+
+    from k8s1m_tpu_torch.cluster.testbeds import affinity_pods, labeled_fleet
+    from k8s1m_tpu_torch.config import PodSpec
+    from k8s1m_tpu_torch.ops.fused_topk import fused_topk, fused_topk_reference
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.snapshot.packing import build_packing_spec, pack_table_host
+    from k8s1m_tpu_torch.snapshot.pod_encoding import PodBatchHost, unpack_pod_batch
+
+    profile = Profile(topology_spread=0, interpod_affinity=0)
+    spec, host = labeled_fleet(n, seed=7)
+    pb = PodBatchHost(PodSpec(batch=b), spec, host.vocab).encode_packed(affinity_pods(b - 5, n))
+    check({"sel", "req", "pref"} <= pb.groups, "affinity batch lacks selector groups")
+    batch = unpack_pod_batch(pb.ints, pb.bools, pb.spec, pb.table_spec, pb.groups, device)
+    tables = {
+        "plain": host.to_device(device),
+        "packed": pack_table_host(host, build_packing_spec(spec, host.vocab), device),
+        "packed-unfused": pack_table_host(
+            host, build_packing_spec(spec, host.vocab, fuse_labels=False), device),
+    }
+    check(tables["packed"].spec.fuse_labels and not tables["packed-unfused"].spec.fuse_labels,
+          "packed layouts do not cover fused and unfused labels")
+    worst = 0
+    for layout, table in tables.items():
+        for sb, seed, rb, cb in ((0, 2024, 0, 0), (11, -31337, 9, 4096)):
+            kw = dict(k=K, row_base=rb, col_base=cb, stratum_bits=sb, with_affinity=True)
+            idx, prio = fused_topk(table, batch, seed, profile, **kw)
+            torch.cuda.synchronize()
+            ridx, rprio = fused_topk_reference(table, batch, seed, profile, **kw)
+            err = _compare(idx, prio, ridx, rprio)
+            worst = max(worst, err)
+            feasible = int((rprio >= 0).sum())
+            short = int(((rprio < 0).sum(1) > 0).sum())
+            log(f"[aff-vs-plain] {layout:14s} stratum={sb:2d}: max_abs_err={err} "
+                f"feasible_slots={feasible} pods_short_of_k={short}")
+            check(err == 0, f"affinity stage disagrees with plain version ({layout}, {sb})")
+            check(feasible > 0 and short > 0, "affinity batch is all-feasible or all-infeasible")
+    return float(worst)
+
+
+def phase_constraints_vs_plain(device, n: int = 65536, b: int = 512) -> float:
+    """The kernel's constraint stage against the plain version: count
+    tables populated by two earlier waves, a fleet with missing zone and
+    region labels, spread / affinity (bootstrap) / anti / preferred refs
+    with symmetric own counts, a wave that also carries NodeAffinity
+    terms (both stages in one launch), both layouts, whole table and a
+    window view (row stride != width)."""
+    import torch
+
+    from k8s1m_tpu_torch.cluster.testbeds import constraint_fleet, constraint_pods
+    from k8s1m_tpu_torch.config import PodSpec
+    from k8s1m_tpu_torch.engine.cycle import (
+        AFFINITY_GROUPS,
+        _prologue_stats,
+        schedule_batch_packed,
+    )
+    from k8s1m_tpu_torch.ops.fused_topk import fused_topk, fused_topk_reference
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.snapshot.constraints import (
+        ConstraintTracker,
+        empty_constraints,
+        slice_constraints,
+    )
+    from k8s1m_tpu_torch.snapshot.packing import build_packing_spec, pack_table_host
+    from k8s1m_tpu_torch.snapshot.pod_encoding import PodBatchHost, unpack_pod_batch
+
+    spec, host = constraint_fleet(n)
+    tracker = ConstraintTracker(spec)
+    pods = constraint_pods(tracker, 3 * b, seed=1)
+    mixed = constraint_pods(tracker, b, seed=2, with_selectors=True)
+    enc = PodBatchHost(PodSpec(batch=b), spec, host.vocab)
+    waves = {"cons": enc.encode_packed(pods[2 * b:]), "aff+cons": enc.encode_packed(mixed)}
+    check(not waves["cons"].groups & AFFINITY_GROUPS and waves["aff+cons"].groups & AFFINITY_GROUPS,
+          "constraint waves do not cover both stage configurations")
+    worst = 0
+    for layout in ("plain", "packed"):
+        table = (host.to_device(device) if layout == "plain" else
+                 pack_table_host(host, build_packing_spec(spec, host.vocab), device))
+        cons = empty_constraints(spec, device)
+        for w in range(2):      # two earlier waves populate the count tables
+            schedule_batch_packed(table, enc.encode_packed(pods[w * b:(w + 1) * b]), 100 + w,
+                                  profile=Profile(), constraints=cons, chunk=CHUNK,
+                                  reference=True)
+        check(int(cons.tgt_node.sum()) > 0 and int(cons.own_node.sum()) > 0
+              and int(cons.spread_zone.sum()) > 0 and int(cons.spread_region.sum()) > 0,
+              "earlier waves left a count table empty")
+        stats = _prologue_stats(table, cons)
+        for stage, pb in waves.items():
+            batch = unpack_pod_batch(pb.ints, pb.bools, pb.spec, pb.table_spec, pb.groups,
+                                     device)
+            for off, rows in ((0, n), (n // 16, n // 2)):
+                view = table.narrow(off, rows)
+                vcons = slice_constraints(cons, off, rows)
+                check(rows == n or not vcons.tgt_node.is_contiguous(), "window view is a copy")
+                kw = dict(k=K, with_affinity=stage == "aff+cons", constraints=vcons,
+                          stats=stats, stratum_bits=11 if off else 0, row_base=3 if off else 0,
+                          col_base=off)
+                idx, prio = fused_topk(view, batch, -777 - off, Profile(), **kw)
+                torch.cuda.synchronize()
+                ridx, rprio = fused_topk_reference(view, batch, -777 - off, Profile(), **kw)
+                err = _compare(idx, prio, ridx, rprio)
+                worst = max(worst, err)
+                log(f"[cons-vs-plain] {layout:6s} {stage:8s} rows={rows:6d} offset={off:5d}: "
+                    f"max_abs_err={err} feasible_slots={int((rprio >= 0).sum())}")
+                check(err == 0, f"constraint stage disagrees with plain version "
+                                f"({layout}, {stage}, offset {off})")
+                check(bool((rprio >= 0).any()), "no feasible candidate at all")
+    return float(worst)
+
+
+# ---- phases 5 / 6: paths A (NodeAffinity) and B (constraints) at 1M nodes --
+
+
+# Operations the added stages need, counted like the base stage's:
+# - affinity, per pair and live selector expression: three shared loads,
+#   the op dispatch, V value compares, the AND/OR into the term masks and
+#   the bit extract (10 + V); per row and 128-pod tile, the resolve of
+#   every query key against every label slot (L x Q compares);
+# - constraints, per pair and live ref: the record loads, the slot/domain
+#   checks, the count load, the skew or (anti-)affinity test (~15);
+# - per feasible pair, each added score: conversion, multiply, IEEE
+#   division, clip, floor and weight (~10).
+AFF_OPS_PER_EXPR_PAIR = 10
+CONS_OPS_PER_REF_PAIR = 15
+STAGE_SCORE_OPS_PER_FEASIBLE_PAIR = 10
+
+
+def _stage_bound(view, batch, k: int, *, vcons=None, stats=None) -> tuple[float, str, dict]:
+    """The least time the card needs for one launch at this wave's data:
+    the larger of bytes over HBM bandwidth and operations over the scalar
+    peak.  Feasible pairs are counted with the plain filters."""
+    import torch
+
+    from k8s1m_tpu_torch.config import EFFECT_NO_EXECUTE, EFFECT_NO_SCHEDULE
+    from k8s1m_tpu_torch.ops.fused_topk import POD_TILE
+    from k8s1m_tpu_torch.ops.label_match import resolve_query_keys
+    from k8s1m_tpu_torch.plugins import topology
+    from k8s1m_tpu_torch.plugins.filters import node_affinity
+    from k8s1m_tpu_torch.snapshot.constraints import slice_constraints
+    from k8s1m_tpu_torch.snapshot.packing import DomainView, is_packed, unpack_chunk
+
+    check(not bool(batch.tolerated.any()) and not bool((batch.node_name_id != 0).any()),
+          "feasible-pair count assumes pods without tolerations or nodeName")
+    with_aff = vcons is None
+    t = unpack_chunk(view) if is_packed(view) else view
+    n, b = view.num_rows, batch.batch
+    hard = ((t.taint_id != 0) & ((t.taint_effect == EFFECT_NO_SCHEDULE)
+                                 | (t.taint_effect == EFFECT_NO_EXECUTE))).any(1)
+    row_ok = (t.pods_alloc - t.pods_req >= 1) & ~hard & t.valid
+    feasible = 0
+    for c0 in range(0, n, CHUNK):
+        c1 = min(c0 + CHUNK, n)
+        ok = ((batch.cpu[:, None] <= (t.cpu_alloc - t.cpu_req)[None, c0:c1])
+              & (batch.mem[:, None] <= (t.mem_alloc - t.mem_req)[None, c0:c1])
+              & row_ok[None, c0:c1] & batch.valid[:, None])
+        if with_aff:
+            ok &= node_affinity(batch, resolve_query_keys(
+                t.label_key[c0:c1], t.label_val[c0:c1], t.label_num[c0:c1], batch.qkey))
+        else:
+            dom = DomainView(valid=row_ok[c0:c1], zone=t.zone[c0:c1], region=t.region[c0:c1])
+            ok &= topology.filter_and_score(dom, batch, slice_constraints(vcons, c0, c1 - c0),
+                                            stats, 0, 0)[0]
+        feasible += int(ok.sum())
+    valid = batch.valid[:, None]
+    pairs = int(batch.valid.sum()) * n
+    if with_aff:
+        v = batch.req_vals.shape[-1]
+        live_exprs = int((batch.req_expr_valid & batch.req_term_valid[:, :, None]
+                          & valid[:, :, None]).sum()
+                         + (batch.pref_expr_valid & batch.pref_term_valid[:, :, None]
+                            & valid[:, :, None]).sum())
+        stage_ops = (AFF_OPS_PER_EXPR_PAIR + v) * live_exprs * n
+        stage_ops += view.label_key.shape[1] * batch.qkey.shape[0] * n * -(-b // POD_TILE)
+        cols = ("label_key", "label_val", "label_num")
+    else:
+        live_refs = int((batch.spread_valid & valid).sum()
+                        + ((batch.ipa_valid & (batch.ipa_required | (batch.ipa_weight != 0)))
+                           & valid).sum()
+                        + (batch.iinc_valid & valid).sum())
+        stage_ops = CONS_OPS_PER_REF_PAIR * live_refs * n
+        cols = ("zone", "region")
+    ops = (FILTER_OPS_PER_PAIR * pairs + stage_ops
+           + (SCORE_OPS_PER_FEASIBLE_PAIR + STAGE_SCORE_OPS_PER_FEASIBLE_PAIR) * feasible)
+    base_cols = ("cpu_alloc", "mem_alloc", "pods_alloc", "cpu_req", "mem_req", "pods_req",
+                 "name_id", "taint_id", "meta" if is_packed(view) else "taint_effect")
+    tensors = [getattr(view, c) for c in base_cols + cols]
+    tensors += [f for f in vars(batch).values() if isinstance(f, torch.Tensor)]
+    if vcons is not None:
+        tensors += [getattr(vcons, f) for f in vars(vcons)]
+    nbytes = sum(x.numel() * x.element_size() for x in tensors) + 2 * b * k * 4
+    t_ops, t_bytes = ops / PEAK_SCALAR_OPS, nbytes / PEAK_BYTES
+    detail = {"pairs": pairs, "feasible_pairs": feasible, "stage_ops": stage_ops,
+              "ops": ops, "bytes": nbytes}
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", detail
+
+
+def phase_path(device, path: str, *, steps: int, warmup: int) -> dict:
+    """Path A (``bench.py --affinity``, BASELINE config 2) or path B
+    (``bench.py --constraints``, configs 3-4) at 1,048,576 KWOK nodes,
+    both layouts, through ``schedule_batch_packed``."""
+    import torch
+
+    from k8s1m_tpu_torch.cluster import (
+        affinity_deployment,
+        node_affinity_pods,
+        populate_kwok_nodes,
+        spread_deployment,
+    )
+    from k8s1m_tpu_torch.config import (
+        TOPO_HOSTNAME,
+        TOPO_ZONE,
+        PodSpec,
+        TableSpec,
+    )
+    from k8s1m_tpu_torch.engine.assign import greedy_assign
+    from k8s1m_tpu_torch.engine.cycle import (
+        _prologue_stats,
+        commit_constraints_for_batch,
+        commit_fields_of,
+        finalize_batch,
+        sample_offset_for,
+        sample_rows_for,
+        schedule_batch_packed,
+    )
+    from k8s1m_tpu_torch.ops.fused_topk import (
+        candidates,
+        fused_topk,
+        fused_topk_reference,
+        reset_launches,
+    )
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.snapshot.constraints import (
+        FIELDS,
+        ConstraintTracker,
+        empty_constraints,
+        slice_constraints,
+    )
+    from k8s1m_tpu_torch.snapshot.node_table import NodeTableHost
+    from k8s1m_tpu_torch.snapshot.packing import build_packing_spec, pack_table_host, table_bytes
+    from k8s1m_tpu_torch.snapshot.pod_encoding import PodBatchHost, unpack_pod_batch
+
+    tag = f"path-{path}"
+    half = BATCH // 2
+    if path == "A":
+        stage = "aff"
+        spec = TableSpec()
+        profile = Profile(topology_spread=0, interpod_affinity=0)
+        pods = node_affinity_pods(BATCH)
+        pod_spec = PodSpec(batch=BATCH, aff_terms=1, aff_exprs=2, aff_values=2, pref_terms=1)
+    else:
+        stage = "cons"
+        spec = TableSpec(max_nodes=NODES, max_zones=128, max_regions=16)
+        profile = Profile()
+        tracker = ConstraintTracker(spec)
+        pods = (spread_deployment(tracker, "bench-spread", half, topo=TOPO_ZONE)
+                + affinity_deployment(tracker, "bench-anti", BATCH - half, anti=True))
+        anti_tid = tracker.affinity_slot("default", {"app": "bench-anti"}, TOPO_HOSTNAME)
+        pod_spec = PodSpec(batch=BATCH, spread_refs=1, affinity_refs=1, spread_incs=1,
+                           ipa_incs=1)
+    host = NodeTableHost(spec)
+    t0 = time.perf_counter()
+    populate_kwok_nodes(host, NODES)
+    log(f"[{tag}] populated {NODES} KWOK nodes in {time.perf_counter() - t0:.1f}s")
+    packed = PodBatchHost(pod_spec, spec, host.vocab).encode_packed(pods)
+    check(bool(packed.groups & {"sel", "req", "pref"}) == (path == "A"),
+          f"{tag}: wrong selector groups {sorted(packed.groups)}")
+    if path == "A":
+        # Each pod requires zone z1 or z2 and excludes one region.
+        zid = [host.vocab.zones.lookup(f"zone-{z}") for z in range(64)]
+        rid = [host.vocab.regions.lookup(f"region-{r}") for r in range(8)]
+        allowed = torch.tensor([[zid[i % 64], zid[(i + 32) % 64]] for i in range(BATCH)],
+                               dtype=torch.int32, device=device)
+        excluded = torch.tensor([rid[(i + 1) % 8] for i in range(BATCH)], dtype=torch.int32,
+                                device=device)
+    rows_s = sample_rows_for(NODES, SCORE_PCT, CHUNK)
+    seeds = [int(s) for s in np.random.default_rng(1 if path == "A" else 2).integers(
+        -(1 << 31), 1 << 31, size=warmup + steps)]
+    ref_wave = warmup - 1
+    layouts = {
+        "plain": lambda: host.to_device(device),
+        "packed": lambda: pack_table_host(host, build_packing_spec(spec, host.vocab), device),
+    }
+    results: dict = {}
+    states: dict = {}
+    first_rows: list = []
+    reset_launches()                   # this path's launch counts start here
+    for layout, make in layouts.items():
+        table = make()
+        cons = empty_constraints(spec, device) if path == "B" else None
+        wave_ms, binds = [], torch.zeros((), dtype=torch.int64, device=device)
+        kind_binds = torch.zeros(2, dtype=torch.int64, device=device)  # spread, anti
+        for i in range(warmup + steps):
+            off = sample_offset_for(i, NODES, rows_s)
+            ref = None
+            if i == ref_wave:
+                ref = (table.clone(), cons.clone() if cons is not None else None)
+            start_tgt = cons.tgt_node[anti_tid].clone() if cons is not None else None
+            before = fused_topk.launches_by_stage[stage]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            table, _asg, rows = schedule_batch_packed(
+                table, packed, seeds[i], profile=profile, constraints=cons, chunk=CHUNK, k=K,
+                sample_rows=rows_s, sample_offset=off,
+            )
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            check(fused_topk.launches_by_stage[stage] == before + 1,
+                  f"{tag} wave {i} did not launch the {stage} stage once")
+            bound = rows >= 0
+            bound_rows = rows[bound].long()
+            check(bool(((bound_rows >= off) & (bound_rows < off + rows_s)).all()),
+                  f"{tag} wave {i} bound outside its window")
+            if path == "A":
+                zone = table.zone[rows.clamp(min=0).long()].to(torch.int32)
+                region = table.region[rows.clamp(min=0).long()].to(torch.int32)
+                ok = ((zone[:, None] == allowed).any(1) & (region != excluded)) | ~bound
+                check(bool(ok.all()), f"{tag} wave {i}: a pod bound outside its affinity")
+            else:
+                anti = bound.clone()
+                anti[:half] = False
+                check(bool((start_tgt[rows[anti].long()] == 0).all()),
+                      f"{tag} wave {i}: an anti-affinity pod bound next to a matching pod")
+                kind_binds[0] += bound[:half].sum()
+                kind_binds[1] += anti.sum()
+            if layout == "plain":
+                first_rows.append(rows.clone())
+            else:
+                check(torch.equal(rows, first_rows[i]), f"{tag} packed wave {i} differs from plain")
+            if ref is not None:
+                rtable, rcons = ref
+                rtable, _ra, ref_rows = schedule_batch_packed(
+                    rtable, packed, seeds[i], profile=profile, constraints=rcons, chunk=CHUNK,
+                    k=K, sample_rows=rows_s, sample_offset=off, reference=True,
+                )
+                same = torch.equal(ref_rows, rows) and all(
+                    torch.equal(getattr(rtable, c), getattr(table, c))
+                    for c in ("cpu_req", "mem_req", "pods_req")
+                ) and (cons is None or all(
+                    torch.equal(getattr(rcons, f), getattr(cons, f)) for f in FIELDS))
+                check(same, f"{tag} {layout} wave {i}: kernel wave != plain-version wave")
+                log(f"[{tag}] {layout}: wave {i} identical to its plain-version re-run"
+                    + (" (rows, request columns, 9 count tables)" if cons is not None else ""))
+                del ref, rtable, rcons
+            if i >= warmup:
+                wave_ms.append(1e3 * dt)
+                binds += bound.sum()
+        free_cpu, free_mem, free_pods = table.free()
+        check(bool((free_cpu >= 0).all() & (free_mem >= 0).all() & (free_pods >= 0).all()),
+              f"{tag} {layout}: a node is over-committed")
+        n_binds = int(binds)
+        check(n_binds > 0, f"{tag} {layout}: no pod bound")
+        res = {
+            "binds_per_s": n_binds / (sum(wave_ms) / 1e3),
+            "binds": n_binds,
+            "waves": steps,
+            "p50_wave_ms": float(np.percentile(wave_ms, 50)),
+            "wave_ms": wave_ms,
+            "table_mb": table_bytes(table) / 2**20,
+        }
+        if cons is not None:
+            spread_b, anti_b = (int(x) for x in kind_binds)
+            totals = {f: int(getattr(cons, f).sum()) for f in FIELDS}
+            want = dict.fromkeys(FIELDS, 0)
+            want.update(spread_zone=spread_b, tgt_node=anti_b, own_node=anti_b)
+            check(totals == want, f"{tag} {layout}: count totals {totals} != binds {want}")
+            res.update(spread_binds=spread_b, anti_binds=anti_b, count_totals=totals,
+                       constraint_mb=sum(getattr(cons, f).numel() * 4 for f in FIELDS) / 2**20)
+        results[layout] = res
+        states[layout] = (table, cons)
+    by_stage = dict(fused_topk.launches_by_stage)     # read just after the path
+    check(by_stage[stage] == 2 * (warmup + steps) == sum(by_stage.values()),
+          f"{tag} launched {by_stage} for {2 * (warmup + steps)} waves")
+    results["launches"] = by_stage[stage]
+
+    # Per-layer times at the path's shape (launches here are not counted).
+    batch = unpack_pod_batch(packed.ints, packed.bools, packed.spec,
+                             packed.table_spec, packed.groups, device)
+    seed = seeds[-1]
+    off = sample_offset_for(warmup + steps, NODES, rows_s)
+    for layout, (table, cons) in states.items():
+        view = table.narrow(off, rows_s)
+        stats = vcons = None
+        if cons is not None:
+            stats = _prologue_stats(table, cons)
+            vcons = slice_constraints(cons, off, rows_s)
+        kw = dict(k=K, with_affinity=path == "A", constraints=vcons, stats=stats)
+        idx, prio = fused_topk(view, batch, seed, profile, **kw)
+        ridx, rprio = fused_topk_reference(view, batch, seed, profile, chunk=CHUNK, **kw)
+        err = _compare(idx, prio, ridx, rprio)
+        check(err == 0, f"{tag} {layout}: kernel != plain version at the path's shape")
+        kernel_ms = cuda_ms(lambda: fused_topk(view, batch, seed, profile, **kw), 20)
+        plain_ms = cuda_ms(
+            lambda: fused_topk_reference(view, batch, seed, profile, chunk=CHUNK, **kw), 3)
+        cand = candidates(view, batch, seed, profile, chunk=CHUNK, **kw)
+        greedy_ms = cuda_ms(lambda: greedy_assign(
+            cand.idx, cand.prio, cand.cpu, cand.mem, cand.pods,
+            batch.cpu, batch.mem, batch.valid), 3)
+        bound_ms, bound_by, bound_detail = _stage_bound(view, batch, K, vcons=vcons, stats=stats)
+        res = results[layout]
+        res.update({
+            "kernel_ms_per_wave": kernel_ms,
+            "plain_ms_per_wave": plain_ms,
+            "greedy_assign_ms_per_wave": greedy_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bound_detail": bound_detail,
+            "max_abs_err": err,
+        })
+        line = (f"[{tag}] {layout}: binds/s={res['binds_per_s']:.1f} "
+                f"p50_wave_ms={res['p50_wave_ms']:.3f} kernel_ms/wave={kernel_ms:.4f} "
+                f"bound_ms={bound_ms:.5f} ({bound_by}) plain_ms/wave={plain_ms:.3f} "
+                f"greedy_assign_ms/wave={greedy_ms:.3f} table_MB={res['table_mb']:.1f}")
+        if cons is not None:
+            prologue_ms = cuda_ms(lambda: _prologue_stats(table, cons), 3)
+            scratch = cons.clone()
+            fields = commit_fields_of(batch)
+            _t, _c, asg = finalize_batch(table.clone(), None, cand, fields)
+            local = torch.where(asg.bound, asg.node_row, torch.zeros_like(asg.node_row))
+            commit_ms = cuda_ms(lambda: commit_constraints_for_batch(
+                scratch, fields, asg, local, asg.bound, asg.bound), 3)
+            res.update(prologue_ms_per_wave=prologue_ms, commit_ms_per_wave=commit_ms)
+            line += (f" prologue_ms/wave={prologue_ms:.3f} constraint_commit_ms/wave="
+                     f"{commit_ms:.3f} constraint_MB={res['constraint_mb']:.1f} "
+                     f"binds spread/anti={res['spread_binds']}/{res['anti_binds']}")
+        log(line)
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, default=20, help="timed waves per layout")
+    ap.add_argument("--steps", type=int, default=20, help="timed waves per layout (phase 4)")
+    ap.add_argument("--path-steps", type=int, default=10,
+                    help="timed waves per layout of paths A and B (phases 5, 6)")
     ap.add_argument("--warmup", type=int, default=2, help="warm-up waves per layout")
     ap.add_argument("--out", default=None, help="also write the full results as JSON here")
     args = ap.parse_args(argv)
-    if args.steps < 1 or args.warmup < 1:
-        ap.error("--steps and --warmup must be >= 1")
+    if args.steps < 1 or args.path_steps < 1 or args.warmup < 1:
+        ap.error("--steps, --path-steps and --warmup must be >= 1")
 
     import torch
 
@@ -415,31 +893,48 @@ def main(argv=None) -> int:
         return 2
     import k8s1m_tpu_torch  # noqa: F401  (fails here, before any output, outside the repo)
 
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     dev = phase_device()
     build = phase_build()
     err3 = phase_kernel_vs_plain(device)
+    err3b = phase_affinity_vs_plain(device)
+    err3c = phase_constraints_vs_plain(device)
     main_res = phase_main_path(device, steps=args.steps, warmup=args.warmup)
-    prod = main_res["packed"]
-    kernels = {"kernels": [{
-        "name": "fused_topk",
-        "route": "cuda",
-        "source": "k8s1m_tpu_torch/csrc/fused_topk.cu",
-        "replaces": "k8s1m_tpu/ops/pallas_topk.py:139",
-        "launches": main_res["launches"],
-        "max_abs_err": max(err3, float(main_res["plain"]["max_abs_err"]),
-                           float(prod["max_abs_err"])),
-        "ms": prod["kernel_ms_per_wave"],
-        "plain_ms": prod["plain_ms_per_wave"],
-        "bound_ms": prod["bound_ms"],
-        "bound_by": prod["bound_by"],
-        "library_ms": None,
-    }]}
+    path_a = phase_path(device, "A", steps=args.path_steps, warmup=args.warmup)
+    path_b = phase_path(device, "B", steps=args.path_steps, warmup=args.warmup)
+    log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
+
+    def entry(stage, replaces, res, err):
+        prod = res["packed"]
+        return {
+            "name": f"fused_topk[{stage}]",
+            "route": "cuda",
+            "source": "k8s1m_tpu_torch/csrc/fused_topk.cuh",
+            "replaces": replaces,
+            "launches": res["launches"],
+            "max_abs_err": max(err, float(res["plain"]["max_abs_err"]),
+                               float(prod["max_abs_err"])),
+            "ms": prod["kernel_ms_per_wave"],
+            "plain_ms": prod["plain_ms_per_wave"],
+            "bound_ms": prod["bound_ms"],
+            "bound_by": prod["bound_by"],
+            "library_ms": None,
+        }
+
+    kernels = {"kernels": [
+        entry("base", "k8s1m_tpu/ops/pallas_topk.py:139", main_res, err3),
+        entry("aff", "k8s1m_tpu/ops/pallas_topk.py:285", path_a, err3b),
+        entry("cons", "k8s1m_tpu/ops/pallas_topk.py:448", path_b, err3c),
+    ]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"device": dev, "build": build, "kernel_vs_plain_max_abs_err": err3,
-                       "main_path": main_res, **kernels}, f, indent=1, default=str)
+                       "affinity_vs_plain_max_abs_err": err3b,
+                       "constraints_vs_plain_max_abs_err": err3c,
+                       "main_path": main_res, "path_a": path_a, "path_b": path_b,
+                       **kernels}, f, indent=1, default=str)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,16 +6,23 @@ it on the same inputs: the same candidate ``idx``/``prio``, the same
 bound rows, the same table after commit.  It imports ``torch`` and
 numpy only — never JAX, and nothing of ``k8s1m_tpu``.
 
-This slice carries the packed scheduling wave
-(``engine.cycle.schedule_batch_packed``) on the base plugin stage:
+It carries the packed scheduling wave
+(``engine.cycle.schedule_batch_packed``) with every plugin stage of the
+fused kernel — the base plugins, NodeAffinity, and the PodTopologySpread /
+InterPodAffinity constraint stage over count tables:
 
 - ``snapshot``  — host numpy mirrors and device tensor tables (plain and
-                  packed layouts), the pod-batch encoder;
-- ``ops``       — the tie-break hash and the fused filter+score+top-K,
-                  a hand-written CUDA kernel (``csrc/fused_topk.cu``)
-                  with its plain PyTorch version beside it;
+                  packed layouts), the pod-batch encoder, the constraint
+                  count tables;
+- ``ops``       — the tie-break hash, label matching, and the fused
+                  filter+score+top-K, a hand-written CUDA kernel
+                  (``csrc/fused_topk*.cu``) with its plain PyTorch version
+                  beside it;
+- ``plugins``   — the profile, NodeAffinity filter/score and the topology
+                  prologue/filter/score in plain PyTorch;
 - ``engine``    — the greedy in-batch conflict scan and the wave;
-- ``cluster``   — the KWOK fleet and the uniform-pod workload;
+- ``cluster``   — the KWOK fleet, the workloads of BASELINE configs 1-4 and
+                  the fleets the kernel is checked on;
 - ``interop``   — converters from the JAX package's state (as numpy).
 
 Entry points take ``device="cuda"`` unless the caller asks for

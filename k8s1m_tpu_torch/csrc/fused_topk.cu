@@ -1,294 +1,21 @@
-// Fused filter + score + hashed priority + running top-K over the node table.
+// Entry point of the fused filter + score + top-K kernel (fused_topk.cuh),
+// bound with ctypes, and the merge of the per-split partial lists.
 //
-// Replaces: k8s1m_tpu/ops/pallas_topk.py::_kernel, base stage (no
-// NodeAffinity, no constraint plugins), plain and packed table layouts.
-// For each pod and each node row of the window it computes exactly what
-// the Pallas kernel computes:
-//   row validity   plain: pods_alloc - pods_req >= 1 (no `valid` read);
-//                  packed: that AND meta bit 0;
-//   NodeResourcesFit, NodeName, TaintToleration (hard filter, soft score
-//   from untolerated PreferNoSchedule counts), LeastAllocated and
-//   BalancedAllocation in f32 then floor;
-//   prio = clip(score, 0, 2047) << 20 | hash_jitter(seed, pod + row_base,
-//          col + col_base, stratum_bits), -1 where infeasible;
-// and keeps each pod's top K by (prio descending, row ascending); slots
-// without a feasible node come back as prio -1, idx -1.  Emitted rows are
-// window-local; the caller adds its window offset.
-//
-// Bound on an H100: at the main-path shape (B = 4096 pods x a 53,248-row
-// window, 5% of 1M nodes) a wave evaluates ~2.2e8 pod-node pairs over
-// ~5 MB of node columns, tens of scalar ops per pair against ~40 bytes of
-// node data per ~4096 pods: it is bound by operations and instruction
-// issue, not by memory bandwidth.
-//
-// Design, and what it does about that bound:
-// - A block owns 128 pods (one per thread) x one contiguous split of the
-//   node range; the split count is chosen by the wrapper so that several
-//   blocks per SM are in flight.  Nothing carries between blocks.
-// - The block stages 128-node tiles in shared memory, with every per-node
-//   quantity that does not depend on the pod precomputed once per tile
-//   (free capacity, f32 allocatable, the column half of the hash, the
-//   decoded taint slots), so the per-pair work is only what depends on
-//   both.  All threads read the same shared word at once (a broadcast).
-// - Filters run first and skip the f32 scoring of infeasible pairs.
-// - Each thread walks its split in increasing row order and keeps its
-//   pod's top K in registers; insertion compares (prio, row), so an
-//   earlier row wins a tie and a candidate that does not beat the K-th
-//   entry costs one compare.
-// - The pod's tolerated row (max_taint_ids <= 128 bits) sits in four
-//   registers; the taint check is a direct indexed test per live taint
-//   slot (the Pallas kernel's one-hot matmul has no reason to exist here).
-// - Partial [splits, B, K] lists are merged by a second small kernel with
-//   the same (prio, row) insertion, which keeps earlier-split-wins.
-//
-// Exactness: build with IEEE division and --fmad=false (never fast math)
-// so the f32 scores match XLA-CPU digit for digit before the floor; ints
-// convert to float round-to-nearest; the hash is uint32 with logical
-// shifts.
+// The kernel itself, its design and what it replaces are described in
+// fused_topk.cuh.  Each stage configuration is instantiated in its own
+// translation unit (fused_topk_base.cu, _aff.cu, _cons.cu, _affcons.cu),
+// so nvcc builds them in parallel.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_topk.cuh"
+
+namespace k8s {
+
+extern template cudaError_t launch_stage<false, false>(const Args&, bool, int, int, cudaStream_t);
+extern template cudaError_t launch_stage<true, false>(const Args&, bool, int, int, cudaStream_t);
+extern template cudaError_t launch_stage<false, true>(const Args&, bool, int, int, cudaStream_t);
+extern template cudaError_t launch_stage<true, true>(const Args&, bool, int, int, cudaStream_t);
 
 namespace {
-
-constexpr int kPods = 128;        // pods per block, one per thread
-constexpr int kTile = kPods;      // nodes staged per shared-memory tile
-constexpr int kMaxTaintSlots = 16;
-constexpr int kTolWords = 4;      // tolerated bits per pod: max_taint_ids <= 128
-constexpr int kJitterBits = 20;
-constexpr int kMaxScore = 2047;
-constexpr uint16_t kHardBit = 0x8000;
-
-struct Args {
-  const int* cpu_alloc;
-  const int* mem_alloc;
-  const void* pods_alloc;   // i32[N] plain, i16[N] packed
-  const int* cpu_req;
-  const int* mem_req;
-  const int* pods_req;
-  const int* name_id;
-  const void* taint_id;     // i32[N, TS] plain, i16[N, TS] packed
-  const int* taint_eff;     // i32[N, TS] plain only
-  const int* meta;          // i32[N] packed only
-  int n;
-  int ts;
-  const int* p_cpu;
-  const int* p_mem;
-  const uint8_t* p_valid;
-  const int* p_nnid;
-  const uint8_t* tolerated; // bool[B, M]
-  int b;
-  int m;
-  uint32_t seed;
-  int row_base;
-  int col_base;
-  int stratum_bits;
-  int w_la;
-  int w_ba;
-  int w_tt;
-  int k;
-  int rows_per_split;
-  int* part_idx;            // i32[splits, B, K]
-  int* part_prio;
-};
-
-__device__ __forceinline__ uint32_t mix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  h ^= h >> 16;
-  return h;
-}
-
-// (p, r) ranks before (q, s): higher priority, then the earlier row.
-__device__ __forceinline__ bool beats(int p, int r, int q, int s) {
-  return p > q || (p == q && r < s);
-}
-
-// Insert into a list sorted by `beats`; the last entry falls off.  Fully
-// unrolled so the list stays in registers.
-template <int KMAX>
-__device__ __forceinline__ void insert(int (&tp)[KMAX], int (&ti)[KMAX], int p, int r) {
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (beats(p, r, tp[j], ti[j])) {
-      const int tq = tp[j];
-      const int tr = ti[j];
-      tp[j] = p;
-      ti[j] = r;
-      p = tq;
-      r = tr;
-    }
-  }
-}
-
-template <bool PACKED, int KMAX>
-__global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
-  __shared__ int s_free_cpu[kTile];
-  __shared__ int s_free_mem[kTile];
-  __shared__ int s_cpu_req[kTile];
-  __shared__ int s_mem_req[kTile];
-  __shared__ int s_name[kTile];
-  __shared__ float s_alloc_cpu[kTile];
-  __shared__ float s_alloc_mem[kTile];
-  __shared__ uint32_t s_col_hash[kTile];
-  __shared__ uint32_t s_stratum[kTile];
-  __shared__ int s_flags[kTile];                 // bit 0 row usable, bits 8+ taint count
-  __shared__ uint16_t s_taints[kTile][kMaxTaintSlots];  // tid | kHardBit
-
-  const int split = blockIdx.y;
-  const int pod = blockIdx.x * kPods + threadIdx.x;
-  const int row0 = split * a.rows_per_split;
-  const int row1 = min(row0 + a.rows_per_split, a.n);
-  const int low = kJitterBits - a.stratum_bits;
-  const uint32_t low_mask = (1u << low) - 1u;
-
-  bool live = false;
-  int pcpu = 0, pmem = 0, pnn = 0;
-  uint32_t tol[kTolWords];
-#pragma unroll
-  for (int w = 0; w < kTolWords; ++w) tol[w] = 0u;
-  uint32_t row_hash = 0u;
-  if (pod < a.b) {
-    live = a.p_valid[pod] != 0;
-    pcpu = a.p_cpu[pod];
-    pmem = a.p_mem[pod];
-    pnn = a.p_nnid[pod];
-    const uint8_t* trow = a.tolerated + (size_t)pod * a.m;
-#pragma unroll
-    for (int w = 0; w < kTolWords; ++w) {
-      uint32_t word = 0u;
-      for (int bit = 0; bit < 32; ++bit) {
-        const int t = w * 32 + bit;
-        if (t < a.m && trow[t]) word |= 1u << bit;
-      }
-      tol[w] = word;
-    }
-    const uint32_t row_id = (uint32_t)pod + (uint32_t)a.row_base;
-    row_hash = mix32(a.seed ^ (row_id * 0x9E3779B9u));
-  }
-
-  int tp[KMAX];
-  int ti[KMAX];
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    tp[j] = -1;
-    ti[j] = -1;
-  }
-
-  for (int base = row0; base < row1; base += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    const int r = base + threadIdx.x;
-    if (r < row1) {
-      const int pods_alloc = PACKED ? (int)((const int16_t*)a.pods_alloc)[r]
-                                    : ((const int*)a.pods_alloc)[r];
-      const int meta = PACKED ? a.meta[r] : 0;
-      bool usable = pods_alloc - a.pods_req[r] >= 1;
-      if (PACKED) usable = usable && (meta & 1);
-      const int cpu_alloc = a.cpu_alloc[r];
-      const int mem_alloc = a.mem_alloc[r];
-      s_free_cpu[threadIdx.x] = cpu_alloc - a.cpu_req[r];
-      s_free_mem[threadIdx.x] = mem_alloc - a.mem_req[r];
-      s_cpu_req[threadIdx.x] = a.cpu_req[r];
-      s_mem_req[threadIdx.x] = a.mem_req[r];
-      s_name[threadIdx.x] = a.name_id[r];
-      s_alloc_cpu[threadIdx.x] = __int2float_rn(max(cpu_alloc, 1));
-      s_alloc_mem[threadIdx.x] = __int2float_rn(max(mem_alloc, 1));
-      const uint32_t col = (uint32_t)r + (uint32_t)a.col_base;
-      s_col_hash[threadIdx.x] = mix32(a.seed ^ (col * 0x85EBCA6Bu));
-      s_stratum[threadIdx.x] =
-          a.stratum_bits ? (mix32(col * 0xC2B2AE35u) >> (32 - a.stratum_bits)) << low : 0u;
-      int nt = 0;
-      for (int t = 0; t < a.ts; ++t) {
-        const size_t at = (size_t)r * a.ts + t;
-        const int tid = PACKED ? (int)((const int16_t*)a.taint_id)[at]
-                               : ((const int*)a.taint_id)[at];
-        const int eff = PACKED ? (meta >> (1 + 2 * t)) & 3 : a.taint_eff[at];
-        const bool hard = eff == 1 || eff == 3;   // NoSchedule, NoExecute
-        const bool soft = eff == 2;               // PreferNoSchedule
-        // Slot id 0 is "no taint"; ids outside [0, M) match no toleration
-        // column, as the Pallas one-hot gather counts nothing for them.
-        if (tid > 0 && tid < a.m && (hard || soft)) {
-          s_taints[threadIdx.x][nt++] = (uint16_t)(tid | (hard ? kHardBit : 0));
-        }
-      }
-      s_flags[threadIdx.x] = (usable ? 1 : 0) | (nt << 8);
-    } else {
-      s_flags[threadIdx.x] = 0;
-    }
-    __syncthreads();
-
-    if (!live) continue;
-    const int count = min(kTile, row1 - base);
-    for (int j = 0; j < count; ++j) {
-      const int flags = s_flags[j];
-      if (!(flags & 1)) continue;
-      if (pcpu > s_free_cpu[j] || pmem > s_free_mem[j]) continue;
-      if (pnn != 0 && pnn != s_name[j]) continue;
-      const int nt = flags >> 8;
-      int soft_cnt = 0;
-      bool hard_hit = false;
-      for (int t = 0; t < nt; ++t) {
-        const int e = s_taints[j][t];
-        const int tid = e & 0x7FFF;
-        uint32_t word = 0u;
-#pragma unroll
-        for (int w = 0; w < kTolWords; ++w) word = (w == (tid >> 5)) ? tol[w] : word;
-        if (!((word >> (tid & 31)) & 1u)) {
-          if (e & kHardBit) hard_hit = true;
-          else ++soft_cnt;
-        }
-      }
-      if (hard_hit) continue;
-
-      int score = 0;
-      if (a.w_la || a.w_ba) {
-        const float alloc_cpu = s_alloc_cpu[j];
-        const float alloc_mem = s_alloc_mem[j];
-        const float cpu_after = __int2float_rn(s_cpu_req[j] + pcpu);
-        const float mem_after = __int2float_rn(s_mem_req[j] + pmem);
-        if (a.w_la) {
-          const float la = 50.0f * (fmaxf((alloc_cpu - cpu_after) / alloc_cpu, 0.0f) +
-                                    fmaxf((alloc_mem - mem_after) / alloc_mem, 0.0f));
-          score += (int)floorf(la) * a.w_la;
-        }
-        if (a.w_ba) {
-          const float f_cpu = fminf(fmaxf(cpu_after / alloc_cpu, 0.0f), 1.0f);
-          const float f_mem = fminf(fmaxf(mem_after / alloc_mem, 0.0f), 1.0f);
-          const float ba = 100.0f * (1.0f - fabsf(f_cpu - f_mem) / 2.0f);
-          score += (int)floorf(ba) * a.w_ba;
-        }
-      }
-      if (a.w_tt) {
-        const float tt = 100.0f * (1.0f - __int2float_rn(soft_cnt) / __int2float_rn(a.ts));
-        score += (int)floorf(tt) * a.w_tt;
-      }
-      score = min(max(score, 0), kMaxScore);
-      const uint32_t jitter = s_stratum[j] | ((row_hash ^ s_col_hash[j]) & low_mask);
-      const int prio = (score << kJitterBits) | (int)jitter;
-      const int row = base + j;
-      if (beats(prio, row, tp[KMAX - 1], ti[KMAX - 1])) insert<KMAX>(tp, ti, prio, row);
-    }
-  }
-
-  if (pod < a.b) {
-    const size_t out = ((size_t)split * a.b + pod) * a.k;
-    for (int j = 0; j < a.k; ++j) {
-      // Register arrays must be indexed statically: select slot j.
-      int p = -1, r = -1;
-#pragma unroll
-      for (int q = 0; q < KMAX; ++q) {
-        if (q == j) {
-          p = tp[q];
-          r = ti[q];
-        }
-      }
-      a.part_prio[out + j] = p;
-      a.part_idx[out + j] = p >= 0 ? r : -1;
-    }
-  }
-}
 
 template <int KMAX>
 __global__ void merge_splits_kernel(const int* part_idx, const int* part_prio, int b, int k,
@@ -326,83 +53,180 @@ __global__ void merge_splits_kernel(const int* part_idx, const int* part_prio, i
 }
 
 template <int KMAX>
-cudaError_t launch(const Args& a, bool packed, int splits, int* out_idx, int* out_prio,
-                   cudaStream_t stream) {
-  const dim3 grid((a.b + kPods - 1) / kPods, splits);
-  if (packed) {
-    fused_topk_kernel<true, KMAX><<<grid, kPods, 0, stream>>>(a);
-  } else {
-    fused_topk_kernel<false, KMAX><<<grid, kPods, 0, stream>>>(a);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+cudaError_t merge(const Args& a, int splits, int* out_idx, int* out_prio, cudaStream_t stream) {
   const int threads = 128;
   merge_splits_kernel<KMAX><<<(a.b + threads - 1) / threads, threads, 0, stream>>>(
       a.part_idx, a.part_prio, a.b, a.k, splits, out_idx, out_prio);
   return cudaGetLastError();
 }
 
-}  // namespace
+// Pointer and integer arguments, in the order the wrapper
+// (ops/fused_topk.py _PTRS / _INTS) passes them.
+enum Ptr {
+  P_CPU_ALLOC, P_MEM_ALLOC, P_PODS_ALLOC, P_CPU_REQ, P_MEM_REQ, P_PODS_REQ, P_NAME_ID,
+  P_TAINT_ID, P_TAINT_EFF, P_META,
+  P_P_CPU, P_P_MEM, P_P_VALID, P_P_NNID, P_TOLERATED,
+  P_PART_IDX, P_PART_PRIO, P_OUT_IDX, P_OUT_PRIO,
+  P_LABEL_KEY, P_LABEL_VAL, P_LABEL_NUM, P_QKEY,
+  P_SEL_VALID, P_SEL_QIDX, P_SEL_VAL,
+  P_REQ_TV, P_REQ_EV, P_REQ_QIDX, P_REQ_OP, P_REQ_NUM, P_REQ_VALS,
+  P_PREF_TV, P_PREF_W, P_PREF_EV, P_PREF_QIDX, P_PREF_OP, P_PREF_NUM, P_PREF_VALS,
+  P_ZONE, P_REGION, P_SPREAD_NODE, P_TGT_NODE, P_OWN_NODE,
+  P_SPREAD_ZONE, P_SPREAD_REGION, P_TGT_ZONE, P_TGT_REGION, P_OWN_ZONE, P_OWN_REGION,
+  P_SP, P_IA, P_II, P_CS,
+  P_COUNT
+};
+enum Int {
+  I_PACKED, I_N, I_TS, I_B, I_M, I_SEED, I_ROW_BASE, I_COL_BASE, I_STRATUM_BITS,
+  I_W_LA, I_W_BA, I_W_TT, I_K, I_SPLITS,
+  I_WITH_AFF, I_L, I_FUSED, I_KEY_BITS, I_Q, I_S, I_T, I_E, I_V, I_P, I_W_NA,
+  I_WITH_CONS, I_ZONE_BYTES, I_REGION_BYTES, I_LD, I_SS, I_AS, I_ZD, I_RD, I_SR, I_AR, I_AI,
+  I_W_TS, I_W_IPA,
+  I_COUNT
+};
 
-// Plain C entry point, bound with ctypes.  Every pointer is a device
-// pointer on the current device; the launches go to `stream` and nothing
-// synchronises.  Returns cudaGetLastError() after the launches (0 = ok);
-// the wrapper has validated shapes, dtypes and contiguity.
-extern "C" int k8s_fused_topk(
-    const void* cpu_alloc, const void* mem_alloc, const void* pods_alloc,
-    const void* cpu_req, const void* mem_req, const void* pods_req, const void* name_id,
-    const void* taint_id, const void* taint_eff, const void* meta,
-    int packed, int n, int ts,
-    const void* p_cpu, const void* p_mem, const void* p_valid, const void* p_nnid,
-    const void* tolerated, int b, int m,
-    unsigned int seed, int row_base, int col_base, int stratum_bits,
-    int w_la, int w_ba, int w_tt, int k, int splits,
-    void* part_idx, void* part_prio, void* out_idx, void* out_prio, void* stream) {
+bool width_ok(long long w) { return w == 1 || w == 2 || w == 4; }
+
+}  // namespace
+}  // namespace k8s
+
+// Plain C entry point, bound with ctypes.  `ptrs` holds P_COUNT device
+// pointers (0 for an argument the stage does not read), `ints` holds
+// I_COUNT integers; the launches go to `stream` and nothing synchronises.
+// Returns cudaGetLastError() after the launches (0 = ok); the wrapper has
+// validated shapes, dtypes and strides.
+extern "C" int k8s_fused_topk(const long long* ptrs, int n_ptrs, const long long* ints,
+                              int n_ints, void* stream) {
+  using namespace k8s;
+  if (n_ptrs != P_COUNT || n_ints != I_COUNT) return (int)cudaErrorInvalidValue;
+  auto ptr = [&](int i) { return (const void*)(uintptr_t)ptrs[i]; };
+  auto iv = [&](int i) { return (int)ints[i]; };
+  const int n = iv(I_N), ts = iv(I_TS), b = iv(I_B), m = iv(I_M), k = iv(I_K);
+  const int splits = iv(I_SPLITS), sb = iv(I_STRATUM_BITS);
+  const bool with_aff = iv(I_WITH_AFF) != 0, with_cons = iv(I_WITH_CONS) != 0;
   if (ts < 0 || ts > kMaxTaintSlots || m < 1 || m > 32 * kTolWords || k < 1 || k > 128 ||
-      splits < 1 || b < 1 || n < 0 || stratum_bits < 0 || stratum_bits > kJitterBits) {
+      splits < 1 || b < 1 || n < 0 || sb < 0 || sb > kJitterBits) {
     return (int)cudaErrorInvalidValue;
   }
-  Args a;
-  a.cpu_alloc = (const int*)cpu_alloc;
-  a.mem_alloc = (const int*)mem_alloc;
-  a.pods_alloc = pods_alloc;
-  a.cpu_req = (const int*)cpu_req;
-  a.mem_req = (const int*)mem_req;
-  a.pods_req = (const int*)pods_req;
-  a.name_id = (const int*)name_id;
-  a.taint_id = taint_id;
-  a.taint_eff = (const int*)taint_eff;
-  a.meta = (const int*)meta;
+  if (with_aff && (iv(I_Q) < 1 || iv(I_Q) > kMaxQueryKeys || iv(I_V) < 0 ||
+                   iv(I_V) > kMaxValues || iv(I_P) < 0 || iv(I_P) > kMaxPrefTerms ||
+                   iv(I_L) < 0 || iv(I_S) < 0 || iv(I_T) < 0 || iv(I_E) < 0 ||
+                   iv(I_KEY_BITS) < 1 || iv(I_KEY_BITS) > 30)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (with_cons && (!width_ok(ints[I_ZONE_BYTES]) || !width_ok(ints[I_REGION_BYTES]) ||
+                    ints[I_LD] < n || iv(I_SR) < 0 || iv(I_AR) < 0 || iv(I_AI) < 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Args a{};
+  a.cpu_alloc = (const int*)ptr(P_CPU_ALLOC);
+  a.mem_alloc = (const int*)ptr(P_MEM_ALLOC);
+  a.pods_alloc = ptr(P_PODS_ALLOC);
+  a.cpu_req = (const int*)ptr(P_CPU_REQ);
+  a.mem_req = (const int*)ptr(P_MEM_REQ);
+  a.pods_req = (const int*)ptr(P_PODS_REQ);
+  a.name_id = (const int*)ptr(P_NAME_ID);
+  a.taint_id = ptr(P_TAINT_ID);
+  a.taint_eff = (const int*)ptr(P_TAINT_EFF);
+  a.meta = (const int*)ptr(P_META);
   a.n = n;
   a.ts = ts;
-  a.p_cpu = (const int*)p_cpu;
-  a.p_mem = (const int*)p_mem;
-  a.p_valid = (const uint8_t*)p_valid;
-  a.p_nnid = (const int*)p_nnid;
-  a.tolerated = (const uint8_t*)tolerated;
+  a.p_cpu = (const int*)ptr(P_P_CPU);
+  a.p_mem = (const int*)ptr(P_P_MEM);
+  a.p_valid = (const uint8_t*)ptr(P_P_VALID);
+  a.p_nnid = (const int*)ptr(P_P_NNID);
+  a.tolerated = (const uint8_t*)ptr(P_TOLERATED);
   a.b = b;
   a.m = m;
-  a.seed = seed;
-  a.row_base = row_base;
-  a.col_base = col_base;
-  a.stratum_bits = stratum_bits;
-  a.w_la = w_la;
-  a.w_ba = w_ba;
-  a.w_tt = w_tt;
+  a.seed = (uint32_t)ints[I_SEED];
+  a.row_base = iv(I_ROW_BASE);
+  a.col_base = iv(I_COL_BASE);
+  a.stratum_bits = sb;
+  a.w_la = iv(I_W_LA);
+  a.w_ba = iv(I_W_BA);
+  a.w_tt = iv(I_W_TT);
   a.k = k;
   a.rows_per_split = (n + splits - 1) / splits;
-  a.part_idx = (int*)part_idx;
-  a.part_prio = (int*)part_prio;
-  int* oi = (int*)out_idx;
-  int* op = (int*)out_prio;
+  a.part_idx = (int*)ptr(P_PART_IDX);
+  a.part_prio = (int*)ptr(P_PART_PRIO);
+
+  a.label_key = (const int*)ptr(P_LABEL_KEY);
+  a.label_val = (const int*)ptr(P_LABEL_VAL);
+  a.label_num = (const int*)ptr(P_LABEL_NUM);
+  a.l = iv(I_L);
+  a.fused = iv(I_FUSED);
+  a.key_bits = iv(I_KEY_BITS);
+  a.qkey = (const int*)ptr(P_QKEY);
+  a.q = iv(I_Q);
+  a.sel_valid = (const uint8_t*)ptr(P_SEL_VALID);
+  a.sel_qidx = (const int*)ptr(P_SEL_QIDX);
+  a.sel_val = (const int*)ptr(P_SEL_VAL);
+  a.s = iv(I_S);
+  a.req_tv = (const uint8_t*)ptr(P_REQ_TV);
+  a.req_ev = (const uint8_t*)ptr(P_REQ_EV);
+  a.req_qidx = (const int*)ptr(P_REQ_QIDX);
+  a.req_op = (const int*)ptr(P_REQ_OP);
+  a.req_num = (const int*)ptr(P_REQ_NUM);
+  a.req_vals = (const int*)ptr(P_REQ_VALS);
+  a.t = iv(I_T);
+  a.e = iv(I_E);
+  a.v = iv(I_V);
+  a.pref_tv = (const uint8_t*)ptr(P_PREF_TV);
+  a.pref_w = (const int*)ptr(P_PREF_W);
+  a.pref_ev = (const uint8_t*)ptr(P_PREF_EV);
+  a.pref_qidx = (const int*)ptr(P_PREF_QIDX);
+  a.pref_op = (const int*)ptr(P_PREF_OP);
+  a.pref_num = (const int*)ptr(P_PREF_NUM);
+  a.pref_vals = (const int*)ptr(P_PREF_VALS);
+  a.p = iv(I_P);
+  a.w_na = iv(I_W_NA);
+
+  a.zone = ptr(P_ZONE);
+  a.region = ptr(P_REGION);
+  a.zone_bytes = iv(I_ZONE_BYTES);
+  a.region_bytes = iv(I_REGION_BYTES);
+  a.spread_node = (const int*)ptr(P_SPREAD_NODE);
+  a.tgt_node = (const int*)ptr(P_TGT_NODE);
+  a.own_node = (const int*)ptr(P_OWN_NODE);
+  a.ld = ints[I_LD];
+  a.ss = iv(I_SS);
+  a.as = iv(I_AS);
+  a.spread_zone = (const int*)ptr(P_SPREAD_ZONE);
+  a.spread_region = (const int*)ptr(P_SPREAD_REGION);
+  a.tgt_zone = (const int*)ptr(P_TGT_ZONE);
+  a.tgt_region = (const int*)ptr(P_TGT_REGION);
+  a.own_zone = (const int*)ptr(P_OWN_ZONE);
+  a.own_region = (const int*)ptr(P_OWN_REGION);
+  a.zd = iv(I_ZD);
+  a.rd = iv(I_RD);
+  a.sp = (const int*)ptr(P_SP);
+  a.sr = iv(I_SR);
+  a.ia = (const int*)ptr(P_IA);
+  a.ar = iv(I_AR);
+  a.ii = (const int*)ptr(P_II);
+  a.ai = iv(I_AI);
+  a.cs = (const int*)ptr(P_CS);
+  a.w_ts = iv(I_W_TS);
+  a.w_ipa = iv(I_W_IPA);
+
+  const bool packed = iv(I_PACKED) != 0;
+  const int kmax = k <= 4 ? 4 : k <= 8 ? 8 : k <= 16 ? 16 : k <= 32 ? 32 : k <= 64 ? 64 : 128;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool pk = packed != 0;
   cudaError_t err;
-  if (k <= 4) err = launch<4>(a, pk, splits, oi, op, s);
-  else if (k <= 8) err = launch<8>(a, pk, splits, oi, op, s);
-  else if (k <= 16) err = launch<16>(a, pk, splits, oi, op, s);
-  else if (k <= 32) err = launch<32>(a, pk, splits, oi, op, s);
-  else if (k <= 64) err = launch<64>(a, pk, splits, oi, op, s);
-  else err = launch<128>(a, pk, splits, oi, op, s);
+  if (with_aff && with_cons) err = launch_stage<true, true>(a, packed, splits, kmax, s);
+  else if (with_aff) err = launch_stage<true, false>(a, packed, splits, kmax, s);
+  else if (with_cons) err = launch_stage<false, true>(a, packed, splits, kmax, s);
+  else err = launch_stage<false, false>(a, packed, splits, kmax, s);
+  if (err != cudaSuccess) return (int)err;
+  int* oi = (int*)(uintptr_t)ptrs[P_OUT_IDX];
+  int* op = (int*)(uintptr_t)ptrs[P_OUT_PRIO];
+  switch (kmax) {
+    case 4: err = merge<4>(a, splits, oi, op, s); break;
+    case 8: err = merge<8>(a, splits, oi, op, s); break;
+    case 16: err = merge<16>(a, splits, oi, op, s); break;
+    case 32: err = merge<32>(a, splits, oi, op, s); break;
+    case 64: err = merge<64>(a, splits, oi, op, s); break;
+    default: err = merge<128>(a, splits, oi, op, s); break;
+  }
   return (int)err;
 }

@@ -1,15 +1,16 @@
 """The scheduling wave: filter -> score -> top-K -> assign -> commit.
 
 Port of the packed production step of ``k8s1m_tpu/engine/cycle.py``
-(``schedule_batch_packed``), fused backend, base plugin stage.  One call
-schedules a whole batch of pods against the node table (or a rotating
+(``schedule_batch_packed``), fused backend.  One call schedules a whole
+batch of pods against the node table (or a rotating
 percentageOfNodesToScore window of it) and folds the binds into the table
-in place.
+— and, with constraint state, into the count tables — in place.
 
-Later slices: the NodeAffinity stage (waves with ``sel``/``req``/``pref``
-groups), constraint state, ownership row masks and the mesh.  Each is
-refused with ``NotImplementedError`` — a wave the port cannot compute
-exactly fails loudly, never approximately.
+Every plugin stage of the fused kernel runs: the NodeAffinity stage for
+waves whose pods carry ``sel``/``req``/``pref`` groups, the constraint
+stage when ``constraints=`` is given.  Ownership row masks and the mesh
+are later slices and are refused with ``NotImplementedError`` — a wave
+the port cannot compute exactly fails loudly, never approximately.
 """
 
 from __future__ import annotations
@@ -20,11 +21,18 @@ import torch
 
 from k8s1m_tpu_torch.engine.assign import greedy_assign
 from k8s1m_tpu_torch.ops.fused_topk import candidates, supports
+from k8s1m_tpu_torch.plugins import topology
 from k8s1m_tpu_torch.plugins.registry import Profile
+from k8s1m_tpu_torch.snapshot.constraints import (
+    ConstraintState,
+    commit_constraint_binds,
+    slice_constraints,
+)
 from k8s1m_tpu_torch.snapshot.node_table import commit_binds
+from k8s1m_tpu_torch.snapshot.packing import is_packed
 from k8s1m_tpu_torch.snapshot.pod_encoding import PodBatch, unpack_pod_batch
 
-# Pod field groups whose plugins (NodeAffinity) are not ported yet.
+# Pod field groups that need the NodeAffinity stage of the kernel.
 AFFINITY_GROUPS = frozenset({"sel", "req", "pref"})
 
 
@@ -50,12 +58,73 @@ class Assignment:
     region: torch.Tensor    # i32[B]
 
 
-def finalize_batch(table, cand: Candidates, batch: PodBatch):
-    """Greedy conflict resolution + capacity commit (in place, see
-    ``commit_binds``).  Returns (table, Assignment)."""
+@dataclasses.dataclass
+class CommitFields:
+    """The slice of a PodBatch the post-candidate epilogue needs."""
+
+    cpu: torch.Tensor            # i32[B]
+    mem: torch.Tensor            # i32[B]
+    valid: torch.Tensor          # bool[B]
+    sinc_valid: torch.Tensor     # spread-constraint commit increments
+    sinc_cid: torch.Tensor
+    sinc_topo: torch.Tensor
+    iinc_valid: torch.Tensor     # affinity-term commit increments
+    iinc_tid: torch.Tensor
+    iinc_topo: torch.Tensor
+    ipa_own_valid: torch.Tensor  # pod's own required anti-affinity terms
+    ipa_tid: torch.Tensor
+    ipa_topo: torch.Tensor
+
+
+def commit_fields_of(batch: PodBatch) -> CommitFields:
+    return CommitFields(
+        cpu=batch.cpu,
+        mem=batch.mem,
+        valid=batch.valid,
+        sinc_valid=batch.sinc_valid,
+        sinc_cid=batch.sinc_cid,
+        sinc_topo=batch.sinc_topo,
+        iinc_valid=batch.iinc_valid,
+        iinc_tid=batch.iinc_tid,
+        iinc_topo=batch.iinc_topo,
+        ipa_own_valid=batch.ipa_valid & batch.ipa_required & batch.ipa_anti,
+        ipa_tid=batch.ipa_tid,
+        ipa_topo=batch.ipa_topo,
+    )
+
+
+def _prologue_stats(table, constraints: ConstraintState):
+    """``topology.prologue`` over either layout: a packed table decodes
+    its full valid/zone/region columns once per wave (``domain_view``)."""
+    view = table.domain_view() if is_packed(table) else table
+    return topology.prologue(view, constraints)
+
+
+def commit_constraints_for_batch(
+    constraints: ConstraintState,
+    fields: CommitFields,
+    asg: Assignment,
+    node_row,       # i32[B] rows to scatter node-domain counts into
+    bound_node,     # bool[B] gate for node-domain tables
+    bound_domain,   # bool[B] gate for zone/region tables
+) -> ConstraintState:
+    return commit_constraint_binds(
+        constraints,
+        bound_node, bound_domain, node_row, asg.zone, asg.region,
+        fields.sinc_valid, fields.sinc_cid, fields.sinc_topo,
+        fields.iinc_valid, fields.iinc_tid, fields.iinc_topo,
+        fields.ipa_own_valid, fields.ipa_tid, fields.ipa_topo,
+    )
+
+
+def finalize_batch(table, constraints: ConstraintState | None, cand: Candidates,
+                   fields: CommitFields):
+    """Greedy conflict resolution + capacity and constraint commit, all in
+    place (``commit_binds``, ``commit_constraint_binds``).  Returns
+    (table, constraints, Assignment)."""
     node_row, bound, score, chosen_k = greedy_assign(
         cand.idx, cand.prio, cand.cpu, cand.mem, cand.pods,
-        batch.cpu, batch.mem, batch.valid,
+        fields.cpu, fields.mem, fields.valid,
     )
     at = chosen_k[:, None].to(torch.int64)
     zero = torch.zeros_like(node_row)
@@ -64,10 +133,11 @@ def finalize_batch(table, cand: Candidates, batch: PodBatch):
         zone=torch.where(bound, cand.zone.gather(1, at)[:, 0], zero),
         region=torch.where(bound, cand.region.gather(1, at)[:, 0], zero),
     )
-    commit_binds(
-        table, torch.where(bound, node_row, zero), batch.cpu, batch.mem, bound
-    )
-    return table, asg
+    local_row = torch.where(bound, node_row, zero)
+    commit_binds(table, local_row, fields.cpu, fields.mem, bound)
+    if constraints is not None:
+        commit_constraints_for_batch(constraints, fields, asg, local_row, bound, bound)
+    return table, constraints, asg
 
 
 def sample_rows_for(nodes: int, score_pct: int, chunk: int) -> int | None:
@@ -95,12 +165,12 @@ def schedule_batch_packed(
     seed: int,
     *,
     profile: Profile,
+    constraints: ConstraintState | None = None,
     chunk: int = 16384,
     k: int = 4,
     sample_rows: int | None = None,
     sample_offset: int = 0,
     stratum_bits: int = 0,
-    constraints=None,
     row_mask=None,
     mesh=None,
     reference: bool = False,
@@ -112,48 +182,46 @@ def schedule_batch_packed(
     from its key with ``seed_of``).  ``sample_rows``/``sample_offset``
     restrict filter+score to rows ``[offset, offset+sample_rows)``; the
     hash's node coordinate is window-local and emitted rows are shifted
-    back to global.  The binds commit into ``table`` IN PLACE.
-    ``reference=True`` runs the top-K through the plain version (the
-    comparison path).
+    back to global.  ``constraints`` (a ConstraintState) turns on the
+    constraint stage: the domain statistics come from the FULL table and
+    count tables, and only the node count columns follow the window.
+    The binds commit into ``table`` — and the constraint counts into
+    ``constraints`` — IN PLACE.  ``reference=True`` runs the top-K
+    through the plain version (the comparison path).
 
     Returns (table, Assignment, rows i32[B] — bound row per pod, -1 unbound).
     """
-    if constraints is not None:
-        raise NotImplementedError("constraint state (with_cons stage) is not ported yet")
     if row_mask is not None:
         raise NotImplementedError("row_mask ownership views are not ported yet")
     if mesh is not None:
         raise NotImplementedError("the sharded mesh step is not ported yet")
-    if packed.groups & AFFINITY_GROUPS:
-        raise NotImplementedError(
-            "waves with nodeSelector/affinity groups "
-            f"{sorted(packed.groups & AFFINITY_GROUPS)} need the with_aff "
-            "stage, which is not ported yet"
-        )
-    if not supports(profile):
+    if constraints is None and not supports(profile):
         raise ValueError(
             "profile enables constraint plugins but no constraint state "
-            "can be passed (see ops/fused_topk.py)"
+            "was passed (see ops/fused_topk.py)"
         )
     device = table.cpu_req.device
     batch = unpack_pod_batch(
         packed.ints, packed.bools, packed.spec, packed.table_spec,
         packed.groups, device=device,
     )
+    # Waves whose pods carry no selectors skip the affinity stage; the
+    # packed field groups already say so.
+    kw = dict(chunk=chunk, k=k, stratum_bits=stratum_bits, reference=reference,
+              with_affinity=bool(packed.groups & AFFINITY_GROUPS))
+    stats = None if constraints is None else _prologue_stats(table, constraints)
     if sample_rows is None:
-        cand = candidates(
-            table, batch, seed, profile, chunk=chunk, k=k,
-            stratum_bits=stratum_bits, reference=reference,
-        )
+        cand = candidates(table, batch, seed, profile, constraints=constraints,
+                          stats=stats, **kw)
     else:
         view = table.narrow(sample_offset, sample_rows)
-        cand = candidates(
-            view, batch, seed, profile, chunk=chunk, k=k,
-            stratum_bits=stratum_bits, reference=reference,
-        )
+        view_cons = (None if constraints is None
+                     else slice_constraints(constraints, sample_offset, sample_rows))
+        cand = candidates(view, batch, seed, profile, constraints=view_cons,
+                          stats=stats, **kw)
         cand.idx = torch.where(
             cand.idx >= 0, cand.idx + sample_offset, torch.full_like(cand.idx, -1)
         )
-    table, asg = finalize_batch(table, cand, batch)
+    table, _cons, asg = finalize_batch(table, constraints, cand, commit_fields_of(batch))
     rows = torch.where(asg.bound, asg.node_row, torch.full_like(asg.node_row, -1))
     return table, asg, rows

@@ -16,6 +16,8 @@ import torch
 
 from k8s1m_tpu_torch.config import PodSpec, TableSpec
 from k8s1m_tpu_torch.device import resolve_device, to_tensor
+from k8s1m_tpu_torch.snapshot.constraints import FIELDS as CONSTRAINT_FIELDS
+from k8s1m_tpu_torch.snapshot.constraints import ConstraintState
 from k8s1m_tpu_torch.snapshot.node_table import COLUMNS, NodeTable
 from k8s1m_tpu_torch.snapshot.packing import (
     PackedNodeTable,
@@ -52,6 +54,17 @@ def node_table_from_numpy(
     dev = resolve_device(device)
     return NodeTable(**{
         c: to_tensor(cols[c], dev) for c in COLUMNS
+    })
+
+
+def constraints_from_numpy(
+    cols: dict, device: str | torch.device = "cuda"
+) -> ConstraintState:
+    """The port's ConstraintState from the nine count tables as numpy
+    arrays (``{f: np.asarray(getattr(jax_state, f))}``)."""
+    dev = resolve_device(device)
+    return ConstraintState(**{
+        f: to_tensor(np.asarray(cols[f], np.int32), dev) for f in CONSTRAINT_FIELDS
     })
 
 

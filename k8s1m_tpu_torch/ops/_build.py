@@ -1,13 +1,17 @@
 """Build and bind the port's CUDA kernels: ``nvcc`` into a shared library
 with a plain C interface, loaded with ``ctypes``.
 
-Each ``csrc/<name>.cu`` becomes ``build/lib<name>.so`` inside the package
-(the directory is listed in ``.gitignore``), compiled at first use for
-``sm_90a``.  A library is rebuilt when its source is newer.  Flags keep
-the arithmetic exact: IEEE division and square root, no denormal flush,
-``--fmad=false`` (no contraction of a*b+c into one rounding) — never
-fast math, since the f32 scores must match the reference digit for digit
-before their floor.
+A library ``<name>`` is built from ``csrc/<name>.cu`` plus every
+``csrc/<name>_*.cu`` beside it (one translation unit per stage
+configuration): each source compiles to an object file, all at once in
+parallel, and the objects link into ``build/lib<name>.so`` inside the
+package (the directory is listed in ``.gitignore``), for ``sm_90a``, at
+first use.  A library is rebuilt when any of its sources, or any file of
+``csrc/`` they include (``#include "..."``, followed recursively), is
+newer than it.  Flags keep the arithmetic exact: IEEE division and square
+root, no denormal flush, ``--fmad=false`` (no contraction of a*b+c into
+one rounding) — never fast math, since the f32 scores must match the
+reference digit for digit before their floor.
 
 Nothing here runs at import: the tests import every module on machines
 without ``nvcc``.
@@ -18,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -26,13 +31,15 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS,
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "--fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
     "-Xptxas", "-v",
 )
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -55,32 +62,90 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> pathlib.Path:
-    return BUILD_DIR / f"lib{name}.so"
+def library_path(name: str, build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
+    return build_dir / f"lib{name}.so"
+
+
+def sources(name: str, csrc_dir: pathlib.Path = CSRC_DIR) -> list[pathlib.Path]:
+    """The translation units of library ``name``: ``<name>.cu`` first,
+    then ``<name>_*.cu`` in name order."""
+    main = csrc_dir / f"{name}.cu"
+    if not main.exists():
+        raise FileNotFoundError(f"no CUDA source {main}")
+    return [main, *sorted(csrc_dir.glob(f"{name}_*.cu"))]
+
+
+def inputs(name: str, csrc_dir: pathlib.Path = CSRC_DIR) -> list[pathlib.Path]:
+    """Every file the library is built from: its sources and, recursively,
+    the files of ``csrc_dir`` they include."""
+    seen: dict[pathlib.Path, None] = {}
+    todo = list(sources(name, csrc_dir))
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen[path] = None
+        for inc in _INCLUDE.findall(path.read_text()):
+            dep = (path.parent / inc).resolve()
+            if dep.is_file() and csrc_dir.resolve() in dep.parents:
+                todo.append(dep)
+    return list(seen)
+
+
+def is_stale(name: str, csrc_dir: pathlib.Path = CSRC_DIR,
+             build_dir: pathlib.Path = BUILD_DIR) -> bool:
+    """True when the library is missing or older than any of its inputs."""
+    out = library_path(name, build_dir)
+    if not out.exists():
+        return True
+    built = out.stat().st_mtime
+    return any(p.stat().st_mtime > built for p in inputs(name, csrc_dir))
 
 
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` into ``build/lib<name>.so`` if it is
-    missing or older than its source; returns nvcc's output (the
-    ``-Xptxas -v`` register and shared-memory report), "" when current."""
-    src = CSRC_DIR / f"{name}.cu"
-    out = library_path(name)
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    """Compile library ``name`` into ``build/lib<name>.so`` if it is stale;
+    returns nvcc's output (the ``-Xptxas -v`` register and shared-memory
+    report of every kernel), "" when the library is current."""
+    if not is_stale(name):
         return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    obj_dir = BUILD_DIR / f"{name}.{os.getpid()}.obj"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in sources(name):
+        obj = obj_dir / (src.stem + ".o")
+        log = obj_dir / (src.stem + ".log")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        with open(log, "w") as f:   # a file, not a pipe: no process blocks on output
+            procs.append((src, obj, log, subprocess.Popen(
+                cmd, stdout=f, stderr=subprocess.STDOUT,
+            )))
+    report, failed = [], []
+    for src, _obj, log, proc in procs:
+        proc.wait()
+        text = log.read_text()
+        report.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) for {src}:\n{text}")
+    if failed:
+        shutil.rmtree(obj_dir, ignore_errors=True)
+        raise RuntimeError("\n".join(failed))
+    out = library_path(name)
     tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) for {src}:\n{proc.stdout}{proc.stderr}"
-        )
+    link = subprocess.run(
+        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for _s, o, _l, _p in procs)],
+        capture_output=True, text=True, check=False,
+    )
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}) for {out}:\n"
+                           f"{link.stdout}{link.stderr}")
     os.replace(tmp, out)
-    return proc.stdout + proc.stderr
+    return "\n".join(report)
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    """The loaded library ``name``, built at first use."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

@@ -98,6 +98,16 @@ def build_packing_spec(
 
 
 @dataclasses.dataclass
+class DomainView:
+    """The three full columns ``topology.prologue`` needs, decoded once
+    per wave (global domain statistics do not belong in a chunk decode)."""
+
+    valid: torch.Tensor    # bool[N]
+    zone: torch.Tensor     # i32[N]
+    region: torch.Tensor   # i32[N]
+
+
+@dataclasses.dataclass
 class PackedNodeTable:
     """Device-resident packed snapshot (the production layout).
 
@@ -141,6 +151,13 @@ class PackedNodeTable:
 
     def clone(self):
         return _map_tensors(self, torch.clone)
+
+    def domain_view(self) -> DomainView:
+        return DomainView(
+            valid=(self.meta & 1) != 0,
+            zone=self.zone.to(torch.int32),
+            region=self.region.to(torch.int32),
+        )
 
 
 def is_packed(table) -> bool:

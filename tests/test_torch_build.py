@@ -1,0 +1,56 @@
+"""The kernel build's staleness rule, without a compiler: a library is
+rebuilt when it is missing or older than any of its translation units or
+any file of ``csrc/`` they include (followed recursively)."""
+
+import os
+
+from k8s1m_tpu_torch.ops import _build
+
+
+def _touch(path, t):
+    path.write_text(path.read_text() if path.exists() else "")
+    os.utime(path, (t, t))
+
+
+def _tree(tmp_path):
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    (csrc / "k.cu").write_text('#include "k.cuh"\n#include <cuda_runtime.h>\n')
+    (csrc / "k_a.cu").write_text('#include "k.cuh"\n')
+    (csrc / "k.cuh").write_text('#pragma once\n#include "util.cuh"\n')
+    (csrc / "util.cuh").write_text("// helpers\n")
+    (csrc / "other.cu").write_text("")
+    (csrc / "unused.cuh").write_text("")
+    for p in csrc.iterdir():
+        os.utime(p, (1000, 1000))
+    return csrc, build
+
+
+def test_sources_and_inputs(tmp_path):
+    csrc, _build_dir = _tree(tmp_path)
+    assert [p.name for p in _build.sources("k", csrc)] == ["k.cu", "k_a.cu"]
+    names = sorted(p.name for p in _build.inputs("k", csrc))
+    assert names == ["k.cu", "k.cuh", "k_a.cu", "util.cuh"]
+
+
+def test_rebuild_when_any_input_is_newer(tmp_path):
+    csrc, build = _tree(tmp_path)
+    lib = _build.library_path("k", build)
+    assert _build.is_stale("k", csrc, build)             # missing
+    _touch(lib, 2000)
+    assert not _build.is_stale("k", csrc, build)
+    _touch(csrc / "unused.cuh", 3000)                     # not included: no rebuild
+    _touch(csrc / "other.cu", 3000)
+    assert not _build.is_stale("k", csrc, build)
+    for name in ("util.cuh", "k.cuh", "k_a.cu", "k.cu"):  # each input alone
+        _touch(csrc / name, 3000)
+        assert _build.is_stale("k", csrc, build), name
+        _touch(csrc / name, 1000)
+    assert not _build.is_stale("k", csrc, build)
+
+
+def test_package_library_inputs():
+    names = {p.name for p in _build.inputs("fused_topk")}
+    assert {"fused_topk.cu", "fused_topk.cuh", "fused_topk_base.cu", "fused_topk_aff.cu",
+            "fused_topk_cons.cu", "fused_topk_affcons.cu"} == names

@@ -323,15 +323,12 @@ def _packed_for(selector):
     return th, enc.encode_packed(_pods(tpe, 8, selector))
 
 
-@pytest.mark.parametrize("bad", ["selector", "constraints", "row_mask", "mesh"])
+@pytest.mark.parametrize("bad", ["row_mask", "mesh"])
 def test_unsupported_waves_raise(bad):
-    th, packed = _packed_for(bad == "selector")
+    th, packed = _packed_for(True)
     table = th.to_device("cpu")
-    kw = {}
-    if bad in ("constraints", "row_mask", "mesh"):
-        kw[bad] = object()
     with pytest.raises(NotImplementedError):
-        schedule_batch_packed(table, packed, 1, profile=BASE, chunk=32, **kw)
+        schedule_batch_packed(table, packed, 1, profile=BASE, chunk=32, **{bad: object()})
 
 
 def test_constraint_profile_raises():

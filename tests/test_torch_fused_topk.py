@@ -13,6 +13,7 @@ tests/test_torch_gpu.py and chip_smoke.py.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -241,3 +242,104 @@ def test_candidates_reject_ragged_chunk(rng):
     with pytest.raises(ValueError):
         candidates(port_table(host.to_device()), port_batch(pb), 1, BASE,
                    chunk=100, k=K)
+
+
+# ---- the affinity stage -----------------------------------------------------
+
+AFF = Profile(topology_spread=0, interpod_affinity=0)
+JAX_AFF = JaxProfile(topology_spread=0, interpod_affinity=0)
+
+
+def _to_jax(x):
+    """A port PodInfo (and its nested terms) rebuilt with the JAX classes."""
+    from k8s1m_tpu.snapshot import pod_encoding as jpe
+
+    if isinstance(x, list):
+        return [_to_jax(y) for y in x]
+    if dataclasses.is_dataclass(x):
+        cls = getattr(jpe, type(x).__name__)
+        return cls(**{f.name: _to_jax(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    return x
+
+
+@functools.lru_cache(maxsize=1)
+def build_labeled():
+    """Tier/disk/gpu labels and a numeric label beyond 2^24, invalid tail
+    rows (tests/test_pallas_topk.py build_labeled)."""
+    spec = TableSpec(max_nodes=N, max_taint_ids=16)
+    host = NodeTableHost(spec)
+    rng = np.random.default_rng(5)
+    for i in range(N - 8):
+        labels = {"tier": ("web", "db", "cache")[i % 3], "disk": ("ssd", "hdd")[i % 2],
+                  "gen": str(100_000_000 + i * 7_919)}
+        if i % 4 == 0:
+            labels["gpu"] = "true"
+        host.upsert(NodeInfo(f"node-{i}", cpu_milli=int(rng.integers(500, 8000)),
+                             mem_kib=int(rng.integers(1 << 20, 16 << 20)), pods=8,
+                             labels=labels))
+    return spec, host
+
+
+# Slot dims that fit every selector shape of the mix (the interpreted
+# Pallas kernel's time grows with the slot count); the numpy oracle test
+# keeps the default PodSpec (36 slots, V=8).
+SMALL_AFF = dict(aff_terms=2, aff_exprs=2, aff_values=2, pref_terms=2)
+
+
+def encode_affinity(host, spec, **dims):
+    from k8s1m_tpu_torch.cluster.testbeds import affinity_pods
+
+    enc = PodBatchHost(PodSpec(batch=24, **dims), spec, host.vocab)
+    return enc.encode_packed(_to_jax(affinity_pods(21, N)))
+
+
+AFF_CASES = [
+    # (layout, fuse_labels, seed, row_base, col_base, stratum_bits)
+    ("plain", True, 99, 0, 0, 0),
+    ("plain", True, -41, 7, 900, 11),
+    ("packed", True, -(1 << 31), 2, 64, 11),
+    ("packed", False, 123, 3, 500, 9),
+]
+
+
+@pytest.mark.parametrize("layout,fuse,seed,row_base,col_base,stratum_bits", AFF_CASES)
+def test_affinity_reference_matches_pallas(layout, fuse, seed, row_base, col_base,
+                                           stratum_bits):
+    spec, host = build_labeled()
+    pb = encode_affinity(host, spec, **SMALL_AFF)
+    assert {"sel", "req", "pref"} <= pb.groups
+    jt = (host.to_device() if layout == "plain"
+          else pack_table_host(host, build_packing_spec(spec, host.vocab, fuse_labels=fuse)))
+    assert layout == "plain" or jt.spec.fuse_labels == fuse
+    jb = unpack_pod_batch(pb.ints, pb.bools, pb.spec, pb.table_spec, pb.groups)
+    kw = dict(row_base=row_base, col_base=col_base, stratum_bits=stratum_bits)
+    want_i, want_p = pallas_topk.fused_topk(
+        jt, jb, jnp.int32(seed), JAX_AFF, chunk=CHUNK, k=K, with_affinity=True,
+        interpret=True, **kw)
+    got_i, got_p = fused_topk(port_table(jt), port_batch(pb), seed, AFF, k=K,
+                              with_affinity=True, **kw)
+    np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    want_p = np.asarray(want_p)
+    assert (want_p >= 0).any() and (want_p < 0).any()
+
+
+@pytest.mark.parametrize("stratum_bits", [0, 11])
+def test_affinity_reference_matches_numpy_oracle(stratum_bits):
+    spec, host = build_labeled()
+    pb = encode_affinity(host, spec)
+    jb = unpack_pod_batch(pb.ints, pb.bools, pb.spec, pb.table_spec, pb.groups)
+    want_i, want_p = pallas_topk.np_reference_topk(
+        host.to_device(), jb, 77, JAX_AFF, k=K, with_affinity=True, stratum_bits=stratum_bits)
+    got_i, got_p = fused_topk(port_table(host.to_device()), port_batch(pb), 77, AFF, k=K,
+                              with_affinity=True, stratum_bits=stratum_bits)
+    np.testing.assert_array_equal(got_p.numpy(), want_p)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+
+
+def test_wrapper_requires_stats_with_constraints(rng):
+    spec, host = build_host(rng)
+    pb = encode(host, spec)
+    with pytest.raises(ValueError):
+        fused_topk(port_table(host.to_device()), port_batch(pb), 1, Profile(), k=K,
+                   constraints=object())

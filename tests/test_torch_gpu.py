@@ -15,15 +15,27 @@ import pytest
 import torch
 
 from k8s1m_tpu_torch.cluster import populate_kwok_nodes, uniform_pods
+from k8s1m_tpu_torch.cluster.testbeds import (
+    affinity_pods,
+    constraint_fleet,
+    constraint_pods,
+    labeled_fleet,
+)
 from k8s1m_tpu_torch.config import (
     EFFECT_NO_EXECUTE,
     EFFECT_PREFER_NO_SCHEDULE,
     PodSpec,
     TableSpec,
 )
-from k8s1m_tpu_torch.engine.cycle import schedule_batch_packed
+from k8s1m_tpu_torch.engine.cycle import _prologue_stats, schedule_batch_packed
 from k8s1m_tpu_torch.ops.fused_topk import fused_topk, fused_topk_reference
 from k8s1m_tpu_torch.plugins.registry import Profile
+from k8s1m_tpu_torch.snapshot.constraints import FIELDS as CONSTRAINT_FIELDS
+from k8s1m_tpu_torch.snapshot.constraints import (
+    ConstraintTracker,
+    empty_constraints,
+    slice_constraints,
+)
 from k8s1m_tpu_torch.snapshot.node_table import NodeTableHost
 from k8s1m_tpu_torch.snapshot.packing import build_packing_spec, pack_table_host
 from k8s1m_tpu_torch.snapshot.pod_encoding import (
@@ -118,6 +130,133 @@ def test_wave_matches_plain_version(cuda, layout):
         for c in ("cpu_req", "mem_req", "pods_req"):
             assert torch.equal(getattr(table, c), getattr(ref, c))
         assert 0 < int((rows >= 0).sum()) < 500
+
+
+AFF = Profile(topology_spread=0, interpod_affinity=0)
+AN = 2048        # affinity and constraint fleets
+AB = 300
+
+
+def _aff_tables(cuda):
+    spec, host = labeled_fleet(AN, seed=3)
+    pb = PodBatchHost(PodSpec(batch=AB), spec, host.vocab).encode_packed(affinity_pods(AB - 7, AN))
+    assert {"sel", "req", "pref", "qkey"} <= pb.groups
+    tables = {
+        "plain": host.to_device(cuda),
+        "packed": pack_table_host(host, build_packing_spec(spec, host.vocab), cuda),
+        "packed-unfused": pack_table_host(
+            host, build_packing_spec(spec, host.vocab, fuse_labels=False), cuda),
+    }
+    assert tables["packed"].spec.fuse_labels and not tables["packed-unfused"].spec.fuse_labels
+    batch = unpack_pod_batch(pb.ints, pb.bools, pb.spec, pb.table_spec, pb.groups, cuda)
+    return tables, batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["plain", "packed", "packed-unfused"])
+@pytest.mark.parametrize("k,stratum_bits,row_base,col_base", [
+    (4, 0, 0, 0), (4, 11, 5, 300), (9, 3, 0, 0),
+])
+def test_affinity_stage_matches_plain_version(cuda, layout, k, stratum_bits, row_base,
+                                              col_base):
+    tables, batch = _aff_tables(cuda)
+    table = tables[layout]
+    kw = dict(k=k, row_base=row_base, col_base=col_base, stratum_bits=stratum_bits,
+              with_affinity=True)
+    for t in (table, table.narrow(700, 1024)):
+        before = dict(fused_topk.launches_by_stage)
+        idx, prio = fused_topk(t, batch, 424242, AFF, **kw)
+        torch.cuda.synchronize()
+        assert fused_topk.launches_by_stage["aff"] == before["aff"] + 1
+        ridx, rprio = fused_topk_reference(t, batch, 424242, AFF, **kw)
+        assert torch.equal(prio, rprio)
+        assert torch.equal(idx, ridx)
+        assert (rprio >= 0).any() and (rprio < 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["plain", "packed", "packed-unfused"])
+def test_affinity_stage_last_matching_slot_wins(cuda, layout):
+    """A node whose label slots repeat a key (the host never writes one):
+    the kernel and the plain version both take the last matching slot."""
+    tables, batch = _aff_tables(cuda)
+    t = tables[layout]
+    rows = torch.arange(0, AN - 8, 2, device=cuda)        # "disk" sits in slot 0
+    if layout == "packed":
+        kb = t.spec.key_bits
+        key = t.label_key[rows, 0] & ((1 << kb) - 1)
+        t.label_key[rows, -1] = ((t.label_key[rows, 1] >> kb) << kb) | key
+    else:
+        t.label_key[rows, -1] = t.label_key[rows, 0]
+        t.label_val[rows, -1] = t.label_val[rows, 1]
+    t.label_num[rows, -1] = 5
+    kw = dict(k=4, with_affinity=True)
+    idx, prio = fused_topk(t, batch, 99, AFF, **kw)
+    ridx, rprio = fused_topk_reference(t, batch, 99, AFF, **kw)
+    assert torch.equal(prio, rprio) and torch.equal(idx, ridx)
+
+
+def _cons_state(cuda, layout, with_selectors):
+    spec, host = constraint_fleet(AN)
+    tracker = ConstraintTracker(spec)
+    pods = constraint_pods(tracker, 3 * AB, seed=1, with_selectors=with_selectors)
+    enc = PodBatchHost(PodSpec(batch=AB), spec, host.vocab)
+    table = (host.to_device(cuda) if layout == "plain" else
+             pack_table_host(host, build_packing_spec(spec, host.vocab), cuda))
+    cons = empty_constraints(spec, cuda)
+    for w in range(2):          # two earlier waves populate the count tables
+        schedule_batch_packed(table, enc.encode_packed(pods[w * AB:(w + 1) * AB]), 77 + w,
+                              profile=Profile(), constraints=cons, chunk=256,
+                              reference=True)
+    pb = enc.encode_packed(pods[2 * AB:])
+    batch = unpack_pod_batch(pb.ints, pb.bools, pb.spec, pb.table_spec, pb.groups, cuda)
+    assert int(cons.tgt_node.sum()) > 0 and int(cons.spread_zone.sum()) > 0
+    return table, cons, batch, bool(pb.groups & {"sel", "req", "pref"})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["plain", "packed"])
+@pytest.mark.parametrize("with_selectors", [False, True])
+def test_constraint_stage_matches_plain_version(cuda, layout, with_selectors):
+    table, cons, batch, aff = _cons_state(cuda, layout, with_selectors)
+    assert aff == with_selectors
+    stats = _prologue_stats(table, cons)
+    stage = "aff+cons" if aff else "cons"
+    for off, rows in ((0, AN), (512, 1024)):   # whole table, then a window view
+        view = table.narrow(off, rows)
+        vcons = slice_constraints(cons, off, rows)
+        assert rows == AN or not vcons.tgt_node.is_contiguous()
+        kw = dict(k=4, with_affinity=aff, constraints=vcons, stats=stats, stratum_bits=7)
+        before = dict(fused_topk.launches_by_stage)
+        idx, prio = fused_topk(view, batch, -5, Profile(), **kw)
+        torch.cuda.synchronize()
+        assert fused_topk.launches_by_stage[stage] == before[stage] + 1
+        ridx, rprio = fused_topk_reference(view, batch, -5, Profile(), **kw)
+        assert torch.equal(prio, rprio)
+        assert torch.equal(idx, ridx)
+        assert (rprio >= 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["plain", "packed"])
+def test_constrained_wave_matches_plain_version(cuda, layout):
+    table, cons, batch, _ = _cons_state(cuda, layout, True)
+    spec, host = constraint_fleet(AN)
+    tracker = ConstraintTracker(spec)
+    pods = constraint_pods(tracker, AB, seed=4, with_selectors=True)
+    pb = PodBatchHost(PodSpec(batch=AB), spec, host.vocab).encode_packed(pods)
+    ref, rcons = table.clone(), cons.clone()
+    for i, off in enumerate((0, 1024)):
+        kw = dict(profile=Profile(), chunk=256, sample_rows=1024, sample_offset=off)
+        table, asg, rows = schedule_batch_packed(table, pb, 31 + i, constraints=cons, **kw)
+        ref, rasg, rrows = schedule_batch_packed(ref, pb, 31 + i, constraints=rcons,
+                                                 reference=True, **kw)
+        assert torch.equal(rows, rrows)
+        for c in ("cpu_req", "mem_req", "pods_req"):
+            assert torch.equal(getattr(table, c), getattr(ref, c))
+        for f in CONSTRAINT_FIELDS:
+            assert torch.equal(getattr(cons, f), getattr(rcons, f))
+        assert int((rows >= 0).sum()) > 0
 
 
 @pytest.mark.gpu
