@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``k8s1m_tpu_torch``).
 
-Drives the port's main paths — the packed scheduling wave
-``engine.cycle.schedule_batch_packed`` — on one CUDA card at 1,048,576
-KWOK nodes, k=4, chunk 4096, a rotating 5% percentageOfNodesToScore
-window, on the plain and the packed table layout: the uniform wave
-``bench.py`` runs by default (base stage of the kernel), the NodeAffinity
-wave of ``bench.py --affinity`` (path A, BASELINE config 2) and the
-constrained wave of ``bench.py --constraints`` (path B, configs 3-4).
+Drives the port's main paths on one CUDA card at 1,048,576 KWOK nodes,
+k=4, chunk 4096, on the plain and the packed table layout: the packed
+scheduling wave ``engine.cycle.schedule_batch_packed`` over a rotating 5%
+percentageOfNodesToScore window — the uniform wave ``bench.py`` runs by
+default (base stage of the fused kernel), the NodeAffinity wave of
+``bench.py --affinity`` (path A, BASELINE config 2) and the constrained
+wave of ``bench.py --constraints`` (path B, configs 3-4) — and the
+deltasched wave ``engine.cycle.schedule_batch_delta`` over cached
+per-shape planes covering the whole table (path C: ``bench.py
+--deltacache``, C1, and ``bench.py --affinity --deltacache``, C2).
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device  — the card's name, and its name and power limit as
                ``nvidia-smi --query-gpu=name,power.limit`` reports them;
   2. build   — ``nvcc`` builds every kernel of the paths from ``csrc/``
-               (one process per translation unit, all at once);
+               (one process per translation unit of both libraries, all
+               at once);
   3. kernel vs plain — ``fused_topk`` (CUDA) against
                ``fused_topk_reference`` (plain PyTorch) on the card,
                bit-equal idx and prio: N=65,536, B=512, k=4, both layouts,
@@ -29,6 +33,11 @@ Phases (each raises on failure; the script then exits non-zero):
                terms, symmetric own counts, a wave with selectors as well
                (both stages in one launch); both layouts, whole table and
                a window view;
+  3d. delta kernel vs plain — ``delta_plane_topk`` (CUDA) against
+               ``plane_topk``, bit-equal idx and prio for real pods:
+               N=65,536, S=8 and 64, B=512 with padding pods, stratum bits
+               0 and 11, hash offsets, scores outside [0, 2047], a slot
+               with no feasible column, k=4 and k=128;
   4. main path — uniform pods, 20 timed waves per layout with seeds from
                ``numpy.random.default_rng(0)``; one launch of the base stage
                per wave (launch counts reset just before, read just after);
@@ -48,12 +57,25 @@ Phases (each raises on failure; the script then exits non-zero):
                per wave; the re-run also compares the nine count tables;
                every anti pod lands on a node whose matching count was 0 at
                the start of its wave; count totals equal the binds.
-               Also prints prologue and constraint-commit ms/wave.
-The next-to-last line is ``{"kernels": [...]}`` (one entry per stage
-configuration the paths ran: times, bound, launches); the last is
-``{"ok": true, "device": {...}}``.
+               Also prints prologue and constraint-commit ms/wave;
+  7. path C  — C1 (``uniform_pods(4096)``, one shape) and C2
+               (``node_affinity_pods(4096)``, 64 shapes): planes filled in
+               16-shape groups, then 2 + 5 delta waves per layout, each
+               after ``scatter_rows`` rewrote ``cpu_req`` of 128 journaled
+               rows (its dirty vector) with the previous wave's rows in
+               flight; exactly one delta-kernel and no fused-kernel launch
+               per wave (counts reset just before, read just after); for
+               one wave the full recompute, the plain-tail re-run and a
+               fresh fill of the planes must all agree with it; both
+               layouts bind identically; no node over-committed; binds > 0.
+               Prints binds/s, p50 wave ms, delta kernel ms/wave, merge,
+               greedy-assign and fill ms, plane and table MB.
+The next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
+stage configuration and one for the delta kernel: times, bound, launches);
+the last is ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py [--steps 20] [--path-steps 10] [--warmup 2] [--out results.json]
+    python3 chip_smoke.py [--steps 20] [--path-steps 10] [--delta-steps 5] [--warmup 2]
+                          [--out results.json]
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -139,17 +161,21 @@ def phase_build() -> dict:
     from k8s1m_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    report = _build.build("fused_topk")
-    _build.load("fused_topk")
+    reports = _build.build_all(_build.LIBRARIES)
+    for name in _build.LIBRARIES:
+        _build.load(name)
     secs = time.perf_counter() - t0
     kernel = ""
-    for line in report.splitlines():
+    registers = {}
+    for line in "\n".join(reports.values()).splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
         elif "registers" in line:
-            log(f"[build] {kernel[:72]}: {line.split(':', 1)[-1].strip()}")
-    log(f"[build] csrc/fused_topk*.cu built (in parallel) and loaded in {secs:.1f}s")
-    return {"build_s": secs}
+            registers[kernel] = line.split(":", 1)[-1].strip()
+            log(f"[build] {kernel[:72]}: {registers[kernel]}")
+    log(f"[build] csrc/fused_topk*.cu and csrc/delta_topk.cu built (every unit in parallel) "
+        f"and loaded in {secs:.1f}s")
+    return {"build_s": secs, "registers": registers}
 
 
 # ---- phase 3 -------------------------------------------------------------
@@ -239,6 +265,54 @@ def phase_kernel_vs_plain(device, n: int = 65536, b: int = 512) -> float:
                 check(feasible > 0, "no feasible candidate at all")
                 if fleet == "near_full":
                     check(short > b // 2, "near-full fleet left most pods with K nodes")
+    return float(worst)
+
+
+# ---- phase 3d: the delta kernel vs plain ----------------------------------
+
+
+def _delta_inputs(device, s: int, n: int, b: int, seed: int):
+    """Random planes — scores outside [0, 2047], negatives included — with
+    one slot that has no feasible column, and ``b`` pods, five of them
+    padding (slot = S)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    mask = rng.random((s, n)) < 0.6
+    mask[s - 2] = False
+    score = rng.integers(-3000, 5000, (s, n)).astype(np.int32)
+    slot = np.concatenate([rng.integers(0, s, b - 9), [s - 2] * 3, [s - 1], [s] * 5])
+    slot = slot.astype(np.int32)
+    return (torch.from_numpy(mask).to(device), torch.from_numpy(score).to(device),
+            torch.from_numpy(slot).to(device), torch.from_numpy(slot < s).to(device))
+
+
+def phase_delta_vs_plain(device, n: int = 65536, b: int = 512) -> float:
+    """``delta_plane_topk`` (CUDA) against ``plane_topk`` (plain PyTorch),
+    bit-equal idx and prio for real pods: S=8 and S=64, padding pods,
+    stratum bits 0 and 11, nonzero hash offsets, k=4 and k=128."""
+    import torch
+
+    from k8s1m_tpu_torch.engine.deltacache import plane_topk
+    from k8s1m_tpu_torch.ops.delta_topk import delta_plane_topk
+
+    worst = 0
+    for s in (8, 64):
+        pm, ps, slot, real = _delta_inputs(device, s, n, b, seed=s)
+        for k, sb, seed, roff, poff in ((4, 0, 4242, 0, 0), (4, 11, -77, 4096, 13),
+                                        (128, 11, -(1 << 31), 7, 300)):
+            kw = dict(chunk=CHUNK, k=k, stratum_bits=sb, row_offset=roff, pod_offset=poff)
+            got = delta_plane_topk(pm, ps, slot, seed, **kw)
+            torch.cuda.synchronize()
+            ref = plane_topk(pm, ps, slot, seed, **kw)
+            err = _compare(got.idx[real], got.prio[real], ref.idx[real], ref.prio[real])
+            worst = max(worst, err)
+            short = int(((ref.prio[real] < 0).sum(1) > 0).sum())
+            log(f"[delta-vs-plain] S={s:2d} k={k:3d} stratum={sb:2d}: max_abs_err={err} "
+                f"feasible_slots={int((ref.prio[real] >= 0).sum())} pods_short_of_k={short}")
+            check(err == 0, f"delta kernel disagrees with plain version (S={s}, k={k}, {sb})")
+            check(short > 0 and bool((ref.prio[real] >= 0).any()),
+                  "delta inputs lack a short or a feasible pod")
     return float(worst)
 
 
@@ -874,16 +948,271 @@ def phase_path(device, path: str, *, steps: int, warmup: int) -> dict:
     return results
 
 
+# ---- phase 7: path C, the deltasched waves at 1M nodes --------------------
+
+
+DELTA_DIRTY = 128       # journaled dirty rows per wave (bench.py --delta-dirty)
+FILL_BATCH = 16         # plane-fill representatives per group (bench.py:473-485)
+# Operations the plane tail needs (csrc/delta_topk.cu): per (pod, column)
+# pair the load of its slot's staged word, the xor of the pod's hash bits,
+# the feasibility test and the compare against the K-th best entry; per
+# (slot, column) the staging (mask and score loads, clip, shift, or,
+# select, store); per column its hash (two murmur3 finalizers and the
+# stratum, ~12 ops each).  Clip, shift and or are work per (slot, column),
+# not per pair: the pods of a slot share them.
+DELTA_OPS_PER_PAIR = 4
+DELTA_OPS_PER_STAGED = 8
+DELTA_OPS_PER_COLUMN = 36
+
+
+def _delta_bound(s: int, n: int, b: int, k: int) -> tuple[float, str, dict]:
+    """The least time the card needs for one plane tail: the larger of the
+    bytes (each plane entry, slot and output read or written once) over
+    HBM bandwidth and the operations over the scalar peak."""
+    ops = DELTA_OPS_PER_PAIR * b * n + DELTA_OPS_PER_STAGED * s * n + DELTA_OPS_PER_COLUMN * n
+    nbytes = 5 * s * n + 4 * b + 2 * b * k * 4
+    t_ops, t_bytes = ops / PEAK_SCALAR_OPS, nbytes / PEAK_BYTES
+    detail = {"pairs": b * n, "ops": ops, "bytes": nbytes}
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", detail
+
+
+def phase_delta_path(device, config: str, *, steps: int, warmup: int) -> dict:
+    """Path C: the deltasched wave of ``bench.py --deltacache`` (C1, uniform
+    pods, one shape) or ``bench.py --affinity --deltacache`` (C2,
+    ``node_affinity_pods``, 64 shapes) at 1,048,576 KWOK nodes, both
+    layouts, through ``fill_shape_planes`` and ``schedule_batch_delta``.
+    Each wave first rewrites ``cpu_req`` of 128 journaled rows through
+    ``scatter_rows`` (its dirty vector) and passes the previous wave's bound
+    rows in flight."""
+    import dataclasses
+
+    import torch
+
+    from k8s1m_tpu_torch.cluster import node_affinity_pods, populate_kwok_nodes, uniform_pods
+    from k8s1m_tpu_torch.config import PodSpec, TableSpec
+    from k8s1m_tpu_torch.engine import deltacache as dc
+    from k8s1m_tpu_torch.engine.assign import greedy_assign
+    from k8s1m_tpu_torch.engine.cycle import fill_shape_planes, schedule_batch_delta
+    from k8s1m_tpu_torch.ops import delta_topk
+    from k8s1m_tpu_torch.ops import fused_topk as ft
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.snapshot.hotfeed import shape_key
+    from k8s1m_tpu_torch.snapshot.node_table import NodeTableHost, scatter_rows
+    from k8s1m_tpu_torch.snapshot.packing import build_packing_spec, pack_table_host, table_bytes
+    from k8s1m_tpu_torch.snapshot.pod_encoding import PodBatchHost, unpack_pod_batch
+
+    tag = f"path-{config}"
+    spec = TableSpec(max_nodes=NODES)
+    if config == "C1":
+        pods = uniform_pods(BATCH)
+        pod_spec = PodSpec(batch=BATCH)
+        profile = Profile(node_affinity=0, topology_spread=0, interpod_affinity=0)
+    else:
+        pods = node_affinity_pods(BATCH)
+        pod_spec = PodSpec(batch=BATCH, aff_terms=1, aff_exprs=2, aff_values=2, pref_terms=1)
+        profile = Profile(topology_spread=0, interpod_affinity=0)
+    host = NodeTableHost(spec)
+    t0 = time.perf_counter()
+    populate_kwok_nodes(host, NODES)
+    log(f"[{tag}] populated {NODES} KWOK nodes in {time.perf_counter() - t0:.1f}s")
+    packed = PodBatchHost(pod_spec, spec, host.vocab).encode_packed(pods)
+    keys = [shape_key(p) for p in pods]
+    check(None not in keys, f"{tag}: uncacheable pods")
+    slot_of = {key: i for i, key in enumerate(dict.fromkeys(keys))}
+    nslots = len(slot_of)
+    check(nslots == (1 if config == "C1" else 64), f"{tag}: {nslots} shapes")
+    slot_ids = np.array([slot_of[key] for key in keys], np.int32)
+    rep_of = {key: pods[keys.index(key)] for key in slot_of}
+    fill_enc = PodBatchHost(dataclasses.replace(pod_spec, batch=FILL_BATCH), spec, host.vocab)
+    fills = []
+    shapes = list(slot_of)
+    for off in range(0, nslots, FILL_BATCH):
+        group = shapes[off:off + FILL_BATCH]
+        fs = np.full(FILL_BATCH, nslots, np.int32)
+        fs[: len(group)] = range(off, off + len(group))
+        fills.append((fill_enc.encode_packed([rep_of[key] for key in group]), fs))
+    total = warmup + steps
+    rng = np.random.default_rng(0)
+    dirtys = [np.sort(rng.choice(NODES, DELTA_DIRTY, replace=False)).astype(np.int32)
+              for _ in range(total)]
+    churn = [rng.integers(0, host.cpu_alloc[d] // 2).astype(np.int32) for d in dirtys]
+    seeds = [int(x) for x in np.random.default_rng(3 if config == "C1" else 4).integers(
+        -(1 << 31), 1 << 31, size=total)]
+    ref_wave = warmup - 1
+    layouts = {
+        "plain": lambda: host.to_device(device),
+        "packed": lambda: pack_table_host(host, build_packing_spec(spec, host.vocab), device),
+    }
+    kw = dict(profile=profile, slot_ids=slot_ids, chunk=CHUNK, k=K)
+
+    def fill(table, planes):
+        times = []
+        for fpb, fs in fills:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fill_shape_planes(table, fpb, fs, planes, profile=profile, chunk=CHUNK)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return times
+
+    def new_planes():
+        return (torch.zeros((nslots, NODES), dtype=torch.bool, device=device),
+                torch.zeros((nslots, NODES), dtype=torch.int32, device=device))
+
+    results: dict = {}
+    first_rows: list = []
+    launches = 0
+    for layout, make in layouts.items():
+        table = make()
+        planes = new_planes()
+        fill_ms = fill(table, planes)
+        prev = None
+        wave_ms, binds = [], torch.zeros((), dtype=torch.int64, device=device)
+        for i in range(total):
+            scatter_rows(table, dirtys[i], {"cpu_req": churn[i]})
+            inflight = () if prev is None else (prev,)
+            pre = None
+            if i == ref_wave:
+                pre = (table.clone(), planes[0].clone(), planes[1].clone())
+            ft.reset_launches()                # this wave's launch counts start here
+            delta_topk.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            table, _asg, rows, planes = schedule_batch_delta(
+                table, packed, seeds[i], planes=planes, dirty=dirtys[i],
+                inflight_rows=inflight, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n_delta, n_fused = delta_topk.delta_plane_topk.launches, ft.fused_topk.launches
+            check(n_delta == 1 and n_fused == 0,
+                  f"{tag} wave {i}: {n_delta} delta and {n_fused} fused launches")
+            launches += n_delta
+            if layout == "plain":
+                first_rows.append(rows.clone())
+            else:
+                check(torch.equal(rows, first_rows[i]), f"{tag} packed wave {i} differs from plain")
+            if pre is not None:
+                _delta_wave_checks(tag, layout, i, pre, table, _asg, rows, planes, packed,
+                                   seeds[i], dirtys[i], inflight, fills, kw, new_planes)
+                del pre
+            if i >= warmup:
+                wave_ms.append(1e3 * dt)
+                binds += (rows >= 0).sum()
+            prev = rows
+        free_cpu, free_mem, free_pods = table.free()
+        check(bool((free_cpu >= 0).all() & (free_mem >= 0).all() & (free_pods >= 0).all()),
+              f"{tag} {layout}: a node is over-committed")
+        n_binds = int(binds)
+        check(n_binds > 0, f"{tag} {layout}: no pod bound")
+
+        # Per-layer times at the path's shape (launches here are not counted).
+        slot_t = torch.from_numpy(slot_ids).to(device)
+        tail_kw = dict(chunk=CHUNK, k=K)
+        seed = seeds[-1]
+        got = delta_topk.delta_plane_topk(planes[0], planes[1], slot_t, seed, **tail_kw)
+        ref = dc.plane_topk(planes[0], planes[1], slot_t, seed, **tail_kw)
+        err = _compare(got.idx, got.prio, ref.idx, ref.prio)
+        check(err == 0, f"{tag} {layout}: delta kernel != plain version at the path's shape")
+        kernel_ms = cuda_ms(lambda: delta_topk.delta_plane_topk(
+            planes[0], planes[1], slot_t, seed, **tail_kw), 20)
+        plain_ms = cuda_ms(lambda: dc.plane_topk(planes[0], planes[1], slot_t, seed,
+                                                 **tail_kw), 1)
+        batch = unpack_pod_batch(packed.ints, packed.bools, packed.spec, packed.table_spec,
+                                 packed.groups, device)
+        dirty_t = torch.from_numpy(dirtys[-1]).to(device)
+        merge_ms = cuda_ms(lambda: dc.merge_dirty_planes(
+            table, batch, profile, slot_t, planes[0], planes[1],
+            dc.combine_dirty(dirty_t, (prev,), NODES), packed.groups), 3)
+        cand = dc.attach_payload(table, got)
+        greedy_ms = cuda_ms(lambda: greedy_assign(
+            cand.idx, cand.prio, cand.cpu, cand.mem, cand.pods,
+            batch.cpu, batch.mem, batch.valid), 3)
+        bound_ms, bound_by, bound_detail = _delta_bound(nslots, NODES, int(batch.valid.sum()), K)
+        res = results[layout] = {
+            "binds_per_s": n_binds / (sum(wave_ms) / 1e3),
+            "binds": n_binds,
+            "waves": steps,
+            "p50_wave_ms": float(np.percentile(wave_ms, 50)),
+            "wave_ms": wave_ms,
+            "kernel_ms_per_wave": kernel_ms,
+            "plain_ms_per_wave": plain_ms,
+            "merge_ms_per_wave": merge_ms,
+            "greedy_assign_ms_per_wave": greedy_ms,
+            "fill_ms_per_group": fill_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bound_detail": bound_detail,
+            "max_abs_err": err,
+            "plane_mb": nslots * NODES * 5 / 2**20,
+            "table_mb": table_bytes(table) / 2**20,
+            "shapes": nslots,
+        }
+        log(f"[{tag}] {layout}: binds/s={res['binds_per_s']:.1f} "
+            f"p50_wave_ms={res['p50_wave_ms']:.3f} delta_kernel_ms/wave={kernel_ms:.4f} "
+            f"bound_ms={bound_ms:.5f} ({bound_by}) plain_ms/wave={plain_ms:.3f} "
+            f"merge_ms/wave={merge_ms:.3f} greedy_assign_ms/wave={greedy_ms:.3f} "
+            f"fill_ms/group={'/'.join(f'{x:.1f}' for x in fill_ms)} "
+            f"plane_MB={res['plane_mb']:.1f} table_MB={res['table_mb']:.1f}")
+        del planes, table
+    results["launches"] = launches
+    check(launches == 2 * total, f"{tag}: {launches} delta launches for {2 * total} waves")
+    return results
+
+
+def _delta_wave_checks(tag, layout, i, pre, table, asg, rows, planes, packed, seed, dirty,
+                       inflight, fills, kw, new_planes) -> None:
+    """One wave of path C held to the deltasched contract, from clones of
+    the pre-wave state: (a) the full recompute (``schedule_batch_packed``
+    over the whole table, on the fused kernel) binds identically, (b) the
+    plain-tail re-run (``reference=True``) gives the same rows and planes,
+    (c) the merged planes equal a fresh fill over the pre-wave table."""
+    import torch
+
+    from k8s1m_tpu_torch.engine.cycle import (
+        fill_shape_planes,
+        schedule_batch_delta,
+        schedule_batch_packed,
+    )
+
+    pre_table, pre_mask, pre_score = pre
+    full_t, full_asg, full_rows = schedule_batch_packed(
+        pre_table.clone(), packed, seed, profile=kw["profile"], chunk=kw["chunk"], k=kw["k"])
+    same = torch.equal(full_rows, rows) and all(
+        torch.equal(getattr(full_asg, f), getattr(asg, f))
+        for f in ("node_row", "bound", "score", "zone", "region")
+    ) and all(torch.equal(getattr(full_t, c), getattr(table, c))
+              for c in ("cpu_req", "mem_req", "pods_req"))
+    check(same, f"{tag} {layout} wave {i}: delta wave != full recompute")
+    del full_t
+    ref_t, _ra, ref_rows, ref_planes = schedule_batch_delta(
+        pre_table.clone(), packed, seed, planes=(pre_mask.clone(), pre_score.clone()),
+        dirty=dirty, inflight_rows=inflight, reference=True, **kw)
+    check(torch.equal(ref_rows, rows) and torch.equal(ref_planes[0], planes[0])
+          and torch.equal(ref_planes[1], planes[1]),
+          f"{tag} {layout} wave {i}: kernel wave != plain-tail wave")
+    del ref_t, ref_planes
+    fresh = new_planes()
+    for fpb, fs in fills:
+        fill_shape_planes(pre_table, fpb, fs, fresh, profile=kw["profile"], chunk=kw["chunk"])
+    check(torch.equal(fresh[0], planes[0]) and torch.equal(fresh[1], planes[1]),
+          f"{tag} {layout} wave {i}: merged planes != fresh fill of the pre-wave table")
+    log(f"[{tag}] {layout}: wave {i} identical to the full recompute (rows, Assignment, "
+        f"request columns), to its plain-tail re-run (rows, planes), and its merged planes "
+        f"to a fresh fill")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20, help="timed waves per layout (phase 4)")
     ap.add_argument("--path-steps", type=int, default=10,
                     help="timed waves per layout of paths A and B (phases 5, 6)")
+    ap.add_argument("--delta-steps", type=int, default=5,
+                    help="timed delta waves per layout of path C (phase 7)")
     ap.add_argument("--warmup", type=int, default=2, help="warm-up waves per layout")
     ap.add_argument("--out", default=None, help="also write the full results as JSON here")
     args = ap.parse_args(argv)
-    if args.steps < 1 or args.path_steps < 1 or args.warmup < 1:
-        ap.error("--steps, --path-steps and --warmup must be >= 1")
+    if min(args.steps, args.path_steps, args.delta_steps, args.warmup) < 1:
+        ap.error("--steps, --path-steps, --delta-steps and --warmup must be >= 1")
 
     import torch
 
@@ -900,9 +1229,12 @@ def main(argv=None) -> int:
     err3 = phase_kernel_vs_plain(device)
     err3b = phase_affinity_vs_plain(device)
     err3c = phase_constraints_vs_plain(device)
+    err3d = phase_delta_vs_plain(device)
     main_res = phase_main_path(device, steps=args.steps, warmup=args.warmup)
     path_a = phase_path(device, "A", steps=args.path_steps, warmup=args.warmup)
     path_b = phase_path(device, "B", steps=args.path_steps, warmup=args.warmup)
+    path_c = {c: phase_delta_path(device, c, steps=args.delta_steps, warmup=args.warmup)
+              for c in ("C1", "C2")}
     log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
 
     def entry(stage, replaces, res, err):
@@ -922,10 +1254,26 @@ def main(argv=None) -> int:
             "library_ms": None,
         }
 
+    c2 = path_c["C2"]["packed"]
     kernels = {"kernels": [
         entry("base", "k8s1m_tpu/ops/pallas_topk.py:139", main_res, err3),
         entry("aff", "k8s1m_tpu/ops/pallas_topk.py:285", path_a, err3b),
         entry("cons", "k8s1m_tpu/ops/pallas_topk.py:448", path_b, err3c),
+        {
+            "name": "delta_plane_topk",
+            "route": "cuda",
+            "source": "k8s1m_tpu_torch/csrc/delta_topk.cu",
+            "replaces": "k8s1m_tpu/ops/pallas_topk.py:1041",
+            "launches": sum(r["launches"] for r in path_c.values()),
+            "max_abs_err": max([err3d] + [float(r[lay]["max_abs_err"])
+                                          for r in path_c.values()
+                                          for lay in ("plain", "packed")]),
+            "ms": c2["kernel_ms_per_wave"],
+            "plain_ms": c2["plain_ms_per_wave"],
+            "bound_ms": c2["bound_ms"],
+            "bound_by": c2["bound_by"],
+            "library_ms": None,
+        },
     ]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -933,7 +1281,9 @@ def main(argv=None) -> int:
             json.dump({"device": dev, "build": build, "kernel_vs_plain_max_abs_err": err3,
                        "affinity_vs_plain_max_abs_err": err3b,
                        "constraints_vs_plain_max_abs_err": err3c,
+                       "delta_vs_plain_max_abs_err": err3d,
                        "main_path": main_res, "path_a": path_a, "path_b": path_b,
+                       "path_c": path_c,
                        **kernels}, f, indent=1, default=str)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

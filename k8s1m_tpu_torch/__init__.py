@@ -9,18 +9,23 @@ numpy only — never JAX, and nothing of ``k8s1m_tpu``.
 It carries the packed scheduling wave
 (``engine.cycle.schedule_batch_packed``) with every plugin stage of the
 fused kernel — the base plugins, NodeAffinity, and the PodTopologySpread /
-InterPodAffinity constraint stage over count tables:
+InterPodAffinity constraint stage over count tables — and the deltasched
+wave (``engine.cycle.schedule_batch_delta``, ``fill_shape_planes``) over
+cached per-shape feasibility/score planes, with its candidate index:
 
 - ``snapshot``  — host numpy mirrors and device tensor tables (plain and
-                  packed layouts), the pod-batch encoder, the constraint
-                  count tables;
-- ``ops``       — the tie-break hash, label matching, and the fused
-                  filter+score+top-K, a hand-written CUDA kernel
-                  (``csrc/fused_topk*.cu``) with its plain PyTorch version
-                  beside it;
-- ``plugins``   — the profile, NodeAffinity filter/score and the topology
-                  prologue/filter/score in plain PyTorch;
-- ``engine``    — the greedy in-batch conflict scan and the wave;
+                  packed layouts), row scatters and the row-version
+                  journal, the pod-batch encoder, shape keys, the
+                  constraint count tables;
+- ``ops``       — the tie-break hash, label matching, the fused
+                  filter+score+top-K (``csrc/fused_topk*.cu``) and the
+                  delta plane tail (``csrc/delta_topk.cu``), hand-written
+                  CUDA kernels with their plain PyTorch versions beside them;
+- ``plugins``   — the profile, the filter and score plugins and
+                  ``score_and_filter`` (the XLA path the planes hold), the
+                  topology prologue/filter/score, in plain PyTorch;
+- ``engine``    — the greedy in-batch conflict scan, the waves and the
+                  deltasched plane cache;
 - ``cluster``   — the KWOK fleet, the workloads of BASELINE configs 1-4 and
                   the fleets the kernel is checked on;
 - ``interop``   — converters from the JAX package's state (as numpy).

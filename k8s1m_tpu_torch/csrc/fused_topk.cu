@@ -1,5 +1,6 @@
 // Entry point of the fused filter + score + top-K kernel (fused_topk.cuh),
-// bound with ctypes, and the merge of the per-split partial lists.
+// bound with ctypes; the per-split partial lists are folded by
+// topk_common.cuh's merge_splits_kernel.
 //
 // The kernel itself, its design and what it replaces are described in
 // fused_topk.cuh.  Each stage configuration is instantiated in its own
@@ -16,49 +17,6 @@ extern template cudaError_t launch_stage<false, true>(const Args&, bool, int, in
 extern template cudaError_t launch_stage<true, true>(const Args&, bool, int, int, cudaStream_t);
 
 namespace {
-
-template <int KMAX>
-__global__ void merge_splits_kernel(const int* part_idx, const int* part_prio, int b, int k,
-                                    int splits, int* out_idx, int* out_prio) {
-  const int pod = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pod >= b) return;
-  int tp[KMAX];
-  int ti[KMAX];
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    tp[j] = -1;
-    ti[j] = -1;
-  }
-  for (int s = 0; s < splits; ++s) {
-    const size_t at = ((size_t)s * b + pod) * k;
-    for (int j = 0; j < k; ++j) {
-      const int p = part_prio[at + j];
-      if (p < 0) break;  // each split's list is sorted: the rest is empty
-      const int r = part_idx[at + j];
-      if (beats(p, r, tp[KMAX - 1], ti[KMAX - 1])) insert<KMAX>(tp, ti, p, r);
-    }
-  }
-  for (int j = 0; j < k; ++j) {
-    int p = -1, r = -1;
-#pragma unroll
-    for (int q = 0; q < KMAX; ++q) {
-      if (q == j) {
-        p = tp[q];
-        r = ti[q];
-      }
-    }
-    out_prio[(size_t)pod * k + j] = p;
-    out_idx[(size_t)pod * k + j] = p >= 0 ? r : -1;
-  }
-}
-
-template <int KMAX>
-cudaError_t merge(const Args& a, int splits, int* out_idx, int* out_prio, cudaStream_t stream) {
-  const int threads = 128;
-  merge_splits_kernel<KMAX><<<(a.b + threads - 1) / threads, threads, 0, stream>>>(
-      a.part_idx, a.part_prio, a.b, a.k, splits, out_idx, out_prio);
-  return cudaGetLastError();
-}
 
 // Pointer and integer arguments, in the order the wrapper
 // (ops/fused_topk.py _PTRS / _INTS) passes them.
@@ -104,7 +62,7 @@ extern "C" int k8s_fused_topk(const long long* ptrs, int n_ptrs, const long long
   const int n = iv(I_N), ts = iv(I_TS), b = iv(I_B), m = iv(I_M), k = iv(I_K);
   const int splits = iv(I_SPLITS), sb = iv(I_STRATUM_BITS);
   const bool with_aff = iv(I_WITH_AFF) != 0, with_cons = iv(I_WITH_CONS) != 0;
-  if (ts < 0 || ts > kMaxTaintSlots || m < 1 || m > 32 * kTolWords || k < 1 || k > 128 ||
+  if (ts < 0 || ts > kMaxTaintSlots || m < 1 || m > 32 * kTolWords || k < 1 || k > kMaxK ||
       splits < 1 || b < 1 || n < 0 || sb < 0 || sb > kJitterBits) {
     return (int)cudaErrorInvalidValue;
   }
@@ -210,7 +168,7 @@ extern "C" int k8s_fused_topk(const long long* ptrs, int n_ptrs, const long long
   a.w_ipa = iv(I_W_IPA);
 
   const bool packed = iv(I_PACKED) != 0;
-  const int kmax = k <= 4 ? 4 : k <= 8 ? 8 : k <= 16 ? 16 : k <= 32 ? 32 : k <= 64 ? 64 : 128;
+  const int kmax = kmax_bucket(k);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (with_aff && with_cons) err = launch_stage<true, true>(a, packed, splits, kmax, s);
@@ -221,12 +179,12 @@ extern "C" int k8s_fused_topk(const long long* ptrs, int n_ptrs, const long long
   int* oi = (int*)(uintptr_t)ptrs[P_OUT_IDX];
   int* op = (int*)(uintptr_t)ptrs[P_OUT_PRIO];
   switch (kmax) {
-    case 4: err = merge<4>(a, splits, oi, op, s); break;
-    case 8: err = merge<8>(a, splits, oi, op, s); break;
-    case 16: err = merge<16>(a, splits, oi, op, s); break;
-    case 32: err = merge<32>(a, splits, oi, op, s); break;
-    case 64: err = merge<64>(a, splits, oi, op, s); break;
-    default: err = merge<128>(a, splits, oi, op, s); break;
+    case 4: err = merge_splits<4>(a.part_idx, a.part_prio, b, k, splits, oi, op, s); break;
+    case 8: err = merge_splits<8>(a.part_idx, a.part_prio, b, k, splits, oi, op, s); break;
+    case 16: err = merge_splits<16>(a.part_idx, a.part_prio, b, k, splits, oi, op, s); break;
+    case 32: err = merge_splits<32>(a.part_idx, a.part_prio, b, k, splits, oi, op, s); break;
+    case 64: err = merge_splits<64>(a.part_idx, a.part_prio, b, k, splits, oi, op, s); break;
+    default: err = merge_splits<128>(a.part_idx, a.part_prio, b, k, splits, oi, op, s); break;
   }
   return (int)err;
 }

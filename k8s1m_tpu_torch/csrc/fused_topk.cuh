@@ -61,7 +61,8 @@
 // the f32 scores match the reference digit for digit before their floor;
 // the f32 expressions follow the Pallas kernel's order (pallas_topk.py:
 // 274-280, 435, 509-515, 534-554); ints convert to float round-to-nearest;
-// i32 sums wrap as in the reference; the hash is uint32 with logical shifts.
+// i32 sums wrap as in the reference; the hash, the (prio, row) insertion
+// and the split merge are topk_common.cuh's, shared with delta_topk.cu.
 
 #pragma once
 
@@ -70,14 +71,14 @@
 
 #include <type_traits>
 
+#include "topk_common.cuh"
+
 namespace k8s {
 
 constexpr int kPods = 128;        // pods per block, one per thread
 constexpr int kTile = kPods;      // nodes staged per shared-memory tile
 constexpr int kMaxTaintSlots = 16;
 constexpr int kTolWords = 4;      // tolerated bits per pod: max_taint_ids <= 128
-constexpr int kJitterBits = 20;
-constexpr int kMaxScore = 2047;
 constexpr uint16_t kHardBit = 0x8000;
 
 constexpr int kMaxQueryKeys = 16;      // PodSpec.query_keys
@@ -186,37 +187,6 @@ struct Args {
   int w_ts;
   int w_ipa;
 };
-
-__device__ __forceinline__ uint32_t mix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  h ^= h >> 16;
-  return h;
-}
-
-// (p, r) ranks before (q, s): higher priority, then the earlier row.
-__device__ __forceinline__ bool beats(int p, int r, int q, int s) {
-  return p > q || (p == q && r < s);
-}
-
-// Insert into a list sorted by `beats`; the last entry falls off.  Fully
-// unrolled so the list stays in registers.
-template <int KMAX>
-__device__ __forceinline__ void insert(int (&tp)[KMAX], int (&ti)[KMAX], int p, int r) {
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (beats(p, r, tp[j], ti[j])) {
-      const int tq = tp[j];
-      const int tr = ti[j];
-      tp[j] = p;
-      ti[j] = r;
-      p = tq;
-      r = tr;
-    }
-  }
-}
 
 // i32 arithmetic that wraps, as XLA's and PyTorch's does.
 __device__ __forceinline__ int wadd(int x, int y) { return (int)((uint32_t)x + (uint32_t)y); }
@@ -385,7 +355,7 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
       tol[w] = word;
     }
     const uint32_t row_id = (uint32_t)pod + (uint32_t)a.row_base;
-    row_hash = mix32(a.seed ^ (row_id * 0x9E3779B9u));
+    row_hash = hash_row(a.seed, row_id);
   }
 
   // Per-pod constants of the affinity stage: required terms present, and
@@ -453,9 +423,8 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
       s_alloc_cpu[threadIdx.x] = __int2float_rn(max(cpu_alloc, 1));
       s_alloc_mem[threadIdx.x] = __int2float_rn(max(mem_alloc, 1));
       const uint32_t col = (uint32_t)r + (uint32_t)a.col_base;
-      s_col_hash[threadIdx.x] = mix32(a.seed ^ (col * 0x85EBCA6Bu));
-      s_stratum[threadIdx.x] =
-          a.stratum_bits ? (mix32(col * 0xC2B2AE35u) >> (32 - a.stratum_bits)) << low : 0u;
+      s_col_hash[threadIdx.x] = hash_col(a.seed, col);
+      s_stratum[threadIdx.x] = hash_stratum(col, a.stratum_bits, low);
       int nt = 0;
       for (int t = 0; t < a.ts; ++t) {
         const size_t at = (size_t)r * a.ts + t;
@@ -696,7 +665,7 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
         }
       }
       score = min(max(score, 0), kMaxScore);
-      const uint32_t jitter = s_stratum[j] | ((row_hash ^ s_col_hash[j]) & low_mask);
+      const uint32_t jitter = jitter_of(s_stratum[j], row_hash, s_col_hash[j], low_mask);
       const int prio = (score << kJitterBits) | (int)jitter;
       const int row = base + j;
       if (beats(prio, row, tp[KMAX - 1], ti[KMAX - 1])) insert<KMAX>(tp, ti, prio, row);

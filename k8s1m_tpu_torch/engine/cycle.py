@@ -8,17 +8,28 @@ percentageOfNodesToScore window of it) and folds the binds into the table
 
 Every plugin stage of the fused kernel runs: the NodeAffinity stage for
 waves whose pods carry ``sel``/``req``/``pref`` groups, the constraint
-stage when ``constraints=`` is given.  Ownership row masks and the mesh
-are later slices and are refused with ``NotImplementedError`` — a wave
-the port cannot compute exactly fails loudly, never approximately.
+stage when ``constraints=`` is given.
+
+The deltasched wave ``schedule_batch_delta`` (with ``fill_shape_planes``)
+is the steady-state twin: filter+score over the dirty rows only, merged
+into cached per-shape planes, candidates from the delta-tail kernel
+(``ops/delta_topk.py``) or the candidate index (``engine/deltacache.py``).
+``chunk_topk``/``merge_topk``/``empty_candidates``/``_slice_table`` are the
+XLA scan path's helpers it runs on.
+
+Ownership row masks and the mesh are later slices and are refused with
+``NotImplementedError`` — a wave the port cannot compute exactly fails
+loudly, never approximately.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from k8s1m_tpu_torch.device import to_tensor
 from k8s1m_tpu_torch.engine.assign import greedy_assign
 from k8s1m_tpu_torch.ops.fused_topk import candidates, supports
 from k8s1m_tpu_torch.plugins import topology
@@ -29,11 +40,12 @@ from k8s1m_tpu_torch.snapshot.constraints import (
     slice_constraints,
 )
 from k8s1m_tpu_torch.snapshot.node_table import commit_binds
-from k8s1m_tpu_torch.snapshot.packing import is_packed
+from k8s1m_tpu_torch.snapshot.packing import is_packed, unpack_chunk
 from k8s1m_tpu_torch.snapshot.pod_encoding import PodBatch, unpack_pod_batch
 
 # Pod field groups that need the NodeAffinity stage of the kernel.
 AFFINITY_GROUPS = frozenset({"sel", "req", "pref"})
+_M32 = 0xFFFFFFFF
 
 
 @dataclasses.dataclass
@@ -90,6 +102,54 @@ def commit_fields_of(batch: PodBatch) -> CommitFields:
         ipa_own_valid=batch.ipa_valid & batch.ipa_required & batch.ipa_anti,
         ipa_tid=batch.ipa_tid,
         ipa_topo=batch.ipa_topo,
+    )
+
+
+def _slice_table(table, start: int, chunk: int):
+    """Rows ``[start, start+chunk)`` as views; a packed table decodes here
+    into the plain layout the plugins read."""
+    sliced = table.narrow(start, chunk)
+    return unpack_chunk(sliced) if is_packed(sliced) else sliced
+
+
+def chunk_topk(prio, k: int):
+    """``lax.top_k`` over the last axis with its tie rule — values
+    descending, the earlier index first — as (top i32[..., k], idx
+    i32[..., k]).  ``torch.topk`` promises no tie order, so it ranks a
+    composite int64 key: the priority in the high word, (2^32-1 - index)
+    in the low word; every key is distinct."""
+    width = prio.shape[-1]
+    if not 1 <= k <= width:
+        raise ValueError(f"k must be in [1, {width}], got {k}")
+    pos = torch.arange(width, device=prio.device, dtype=torch.int64)
+    key = (prio.to(torch.int64) << 32) + (_M32 - pos)
+    top = torch.topk(key, k, dim=-1).values
+    return (top >> 32).to(torch.int32), (_M32 - (top & _M32)).to(torch.int32)
+
+
+def merge_topk(a: Candidates, b: Candidates, k: int) -> Candidates:
+    """Merge two candidate sets, keeping the k highest priorities (ties:
+    ``a``'s entries first, then by position)."""
+    top, sel = chunk_topk(torch.cat([a.prio, b.prio], dim=-1), k)
+    at = sel.to(torch.int64)
+
+    def take(name):
+        both = torch.cat([getattr(a, name), getattr(b, name)], dim=-1)
+        return both.gather(-1, at)
+
+    return Candidates(prio=top, **{
+        f.name: take(f.name) for f in dataclasses.fields(Candidates) if f.name != "prio"
+    })
+
+
+def empty_candidates(b: int, k: int, device="cuda") -> Candidates:
+    dev = torch.device(device)
+    zeros = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    return Candidates(
+        idx=torch.full((b, k), -1, dtype=torch.int32, device=dev),
+        prio=torch.full((b, k), -1, dtype=torch.int32, device=dev),
+        cpu=zeros, mem=zeros.clone(), pods=zeros.clone(), zone=zeros.clone(),
+        region=zeros.clone(),
     )
 
 
@@ -225,3 +285,135 @@ def schedule_batch_packed(
     table, _cons, asg = finalize_batch(table, constraints, cand, commit_fields_of(batch))
     rows = torch.where(asg.bound, asg.node_row, torch.full_like(asg.node_row, -1))
     return table, asg, rows
+
+
+# ---- deltasched: the plane-cached wave (engine/deltacache.py) --------------
+
+
+def _i32_on(x, device) -> torch.Tensor:
+    """``x`` (a tensor, numpy array or sequence) as an i32 tensor on
+    ``device``; host values are copied."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32)
+    return to_tensor(np.asarray(x, np.int32), device)
+
+
+def schedule_batch_delta(
+    table,
+    packed,
+    seed: int,
+    *,
+    profile: Profile,
+    slot_ids,
+    planes,
+    dirty,
+    inflight_rows=(),
+    chunk: int = 16384,
+    k: int = 4,
+    stratum_bits: int = 0,
+    index=None,
+    rep_idx=None,
+    rebuild_slots=None,
+    index_dirty_cap: int = 0,
+    mesh=None,
+    reference: bool = False,
+):
+    """``schedule_batch_packed``'s delta-wave twin (deltasched): every
+    pod's feasibility/score plane is cached, so the wave runs filter+score
+    only over ``dirty`` and the in-flight waves' bound rows, merges those
+    columns into the planes and takes the candidates from the merged
+    planes.
+
+    ``planes`` is the (mask bool[S, N], score i32[S, N]) pair from
+    ``DeltaPlaneCache.planes``; ``slot_ids`` maps each batch position to
+    its slot (sentinel S for padding); ``dirty`` the sentinel-padded
+    journaled rows; ``inflight_rows`` the unretired waves' bound-row
+    tensors (-1 unbound).  The plane tail runs on the hand-written kernel
+    (``ops/delta_topk.py``); ``reference=True`` runs it through the plain
+    version ``deltacache.plane_topk`` instead — the comparison path, never
+    a fallback.
+
+    ``index`` is the (idx_row, idx_class, idx_floor) triple of
+    ``DeltaPlaneCache.index_state`` (with ``rep_idx``/``rebuild_slots``
+    from the WavePlan): a combined dirty vector of at most
+    ``index_dirty_cap`` rows updates the index first, and the wave takes
+    its candidates from the index when ``index_usable`` says so — read on
+    the host, one read per wave, where the JAX step decides on the device
+    — else from the plane tail, which then rebuilds the used slots'
+    indexes.  The plane tail never runs speculatively.
+
+    The table, both planes and the index buffers are updated IN PLACE.
+    Returns (table, Assignment, rows, (pmask, pscore)), plus ((idx_row,
+    idx_class, idx_floor), flag) with ``index`` — ``flag`` an i32 scalar
+    tensor, 1 when the index tail ran.  ``mesh=`` is not ported yet."""
+    from k8s1m_tpu_torch.engine import deltacache as dc
+    from k8s1m_tpu_torch.ops.delta_topk import delta_plane_topk
+
+    if mesh is not None:
+        raise NotImplementedError("the sharded delta step is not ported yet")
+    pmask, pscore = planes
+    device = table.cpu_req.device
+    batch = unpack_pod_batch(
+        packed.ints, packed.bools, packed.spec, packed.table_spec,
+        packed.groups, device=device,
+    )
+    n = pmask.shape[1]
+    slot_ids = _i32_on(slot_ids, device)
+    rows = dc.combine_dirty(_i32_on(dirty, device), inflight_rows, n)
+    pmask, pscore, mask_d, score_d = dc.merge_dirty_planes(
+        table, batch, profile, slot_ids, pmask, pscore, rows, packed.groups
+    )
+    tail = dc.plane_topk if reference else delta_plane_topk
+
+    def plane_tail():
+        return tail(pmask, pscore, slot_ids, seed, chunk=chunk, k=k,
+                    stratum_bits=stratum_bits)
+
+    flag = 0
+    if index is None:
+        cand = plane_tail()
+    else:
+        idx_row, idx_class, idx_floor = index
+        rep = _i32_on(rep_idx, device)
+        rebuild = _i32_on(rebuild_slots, device)
+        state = (idx_row, idx_class, idx_floor)
+        kw = dict(chunk=chunk, stratum_bits=stratum_bits, batch_b=slot_ids.shape[0])
+        if rows.shape[0] <= index_dirty_cap:
+            state = dc.update_index(*state, rep, dc.dedup_rows(rows, n), mask_d, score_d, n,
+                                    stratum_bits=stratum_bits)
+            flag = int(bool(dc.index_usable(state[1], state[2], slot_ids, k)))
+        if flag:
+            cand = dc.index_topk(state[0], state[1], slot_ids, seed, k=k,
+                                 stratum_bits=stratum_bits)
+        else:
+            state = dc.rebuild_index(pmask, pscore, rebuild, rep, *state, **kw)
+            cand = plane_tail()
+        for buf, new in zip((idx_row, idx_class, idx_floor), state):
+            buf.copy_(new)
+    cand = dc.attach_payload(table, cand)
+    table, _cons, asg = finalize_batch(table, None, cand, commit_fields_of(batch))
+    rows_out = torch.where(asg.bound, asg.node_row, torch.full_like(asg.node_row, -1))
+    if index is None:
+        return table, asg, rows_out, (pmask, pscore)
+    return (table, asg, rows_out, (pmask, pscore), index,
+            torch.tensor(flag, dtype=torch.int32, device=device))
+
+
+def fill_shape_planes(table, packed, fill_slots, planes, *, profile: Profile,
+                      chunk: int = 16384, mesh=None):
+    """Populate the plane slots in ``fill_slots`` (sentinel >= S: skip)
+    from a full filter+score pass for the representative pods in
+    ``packed`` (the cold-shape / refresh path of deltasched).  The planes
+    are written IN PLACE and returned; the table is read only."""
+    from k8s1m_tpu_torch.engine.deltacache import fill_planes_scan
+
+    if mesh is not None:
+        raise NotImplementedError("the sharded plane fill is not ported yet")
+    pmask, pscore = planes
+    device = table.cpu_req.device
+    batch = unpack_pod_batch(
+        packed.ints, packed.bools, packed.spec, packed.table_spec,
+        packed.groups, device=device,
+    )
+    return fill_planes_scan(table, batch, profile, _i32_on(fill_slots, device), pmask,
+                            pscore, chunk=chunk, groups=packed.groups)

@@ -85,3 +85,18 @@ def pod_batch_from_packed(
     return unpack_pod_batch(
         pb.ints, pb.bools, pb.spec, pb.table_spec, pb.groups, device=device
     )
+
+
+def planes_from_numpy(mask, score, device: str | torch.device = "cuda"):
+    """The deltasched planes (mask bool[S, N], score i32[S, N]) from the
+    JAX package's cached plane arrays."""
+    dev = resolve_device(device)
+    return (to_tensor(np.asarray(mask, np.bool_), dev),
+            to_tensor(np.asarray(score, np.int32), dev))
+
+
+def index_from_numpy(row, cls, floor, device: str | torch.device = "cuda"):
+    """The candidate-index triple (idx_row i32[S, K], idx_class i32[S, K],
+    idx_floor i32[S]) from the JAX package's index arrays."""
+    dev = resolve_device(device)
+    return tuple(to_tensor(np.asarray(a, np.int32), dev) for a in (row, cls, floor))

@@ -1,10 +1,12 @@
 """Build and bind the port's CUDA kernels: ``nvcc`` into a shared library
 with a plain C interface, loaded with ``ctypes``.
 
-A library ``<name>`` is built from ``csrc/<name>.cu`` plus every
-``csrc/<name>_*.cu`` beside it (one translation unit per stage
-configuration): each source compiles to an object file, all at once in
-parallel, and the objects link into ``build/lib<name>.so`` inside the
+The libraries are ``fused_topk`` (ops/fused_topk.py) and ``delta_topk``
+(ops/delta_topk.py).  A library ``<name>`` is built from
+``csrc/<name>.cu`` plus every ``csrc/<name>_*.cu`` beside it (one
+translation unit per stage configuration): each source compiles to an
+object file — ``build_all`` starts every unit of every library at once —
+and the objects link into ``build/lib<name>.so`` inside the
 package (the directory is listed in ``.gitignore``), for ``sm_90a``, at
 first use.  A library is rebuilt when any of its sources, or any file of
 ``csrc/`` they include (``#include "..."``, followed recursively), is
@@ -42,6 +44,7 @@ NVCC_FLAGS = (
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+LIBRARIES = ("fused_topk", "delta_topk")
 
 
 def nvcc_path() -> str:
@@ -102,12 +105,11 @@ def is_stale(name: str, csrc_dir: pathlib.Path = CSRC_DIR,
     return any(p.stat().st_mtime > built for p in inputs(name, csrc_dir))
 
 
-def build(name: str) -> str:
-    """Compile library ``name`` into ``build/lib<name>.so`` if it is stale;
-    returns nvcc's output (the ``-Xptxas -v`` register and shared-memory
-    report of every kernel), "" when the library is current."""
+def _start(name: str) -> tuple[pathlib.Path, list] | None:
+    """Start one ``nvcc -c`` per translation unit of a stale library;
+    None when the library is current."""
     if not is_stale(name):
-        return ""
+        return None
     nvcc = nvcc_path()
     obj_dir = BUILD_DIR / f"{name}.{os.getpid()}.obj"
     obj_dir.mkdir(parents=True, exist_ok=True)
@@ -120,6 +122,12 @@ def build(name: str) -> str:
             procs.append((src, obj, log, subprocess.Popen(
                 cmd, stdout=f, stderr=subprocess.STDOUT,
             )))
+    return obj_dir, procs
+
+
+def _finish(name: str, obj_dir: pathlib.Path, procs: list) -> str:
+    """Wait for the compiles, link ``build/lib<name>.so``; returns nvcc's
+    output, raises with it when a step fails."""
     report, failed = [], []
     for src, _obj, log, proc in procs:
         proc.wait()
@@ -133,7 +141,8 @@ def build(name: str) -> str:
     out = library_path(name)
     tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
     link = subprocess.run(
-        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for _s, o, _l, _p in procs)],
+        [nvcc_path(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+         *(str(o) for _s, o, _l, _p in procs)],
         capture_output=True, text=True, check=False,
     )
     shutil.rmtree(obj_dir, ignore_errors=True)
@@ -142,6 +151,32 @@ def build(name: str) -> str:
                            f"{link.stdout}{link.stderr}")
     os.replace(tmp, out)
     return "\n".join(report)
+
+
+def build_all(names) -> dict[str, str]:
+    """Compile every stale library of ``names``, all translation units of
+    all of them at once (one ``nvcc`` process each); returns nvcc's output
+    per library ("" for one that was current)."""
+    started = {name: _start(name) for name in names}
+    reports, errors = {}, []
+    for name, job in started.items():
+        if job is None:
+            reports[name] = ""
+            continue
+        try:
+            reports[name] = _finish(name, *job)
+        except RuntimeError as e:    # finish the others, then raise them all
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return reports
+
+
+def build(name: str) -> str:
+    """Compile library ``name`` into ``build/lib<name>.so`` if it is stale;
+    returns nvcc's output (the ``-Xptxas -v`` register and shared-memory
+    report of every kernel), "" when the library is current."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

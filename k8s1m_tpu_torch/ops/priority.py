@@ -2,8 +2,10 @@
 
 Port of ``k8s1m_tpu/ops/priority.py``.  ``prio = clip(score, 0, 2047) <<
 20 | jitter``; the jitter is a stateless separable murmur3 hash of (wave
-seed, pod row, node column), so the CUDA kernel, this plain version and
-the JAX package all draw the same bits for the same wave.
+seed, pod row, node column), so the CUDA kernels, their plain versions
+and the JAX package all draw the same bits for the same wave.
+``class_key`` is the seed-independent top of a priority, the key of the
+deltasched candidate index.
 
 PyTorch has no uint32 multiply or logical right shift, so the hash runs
 in int64 on values masked to 32 bits: the int64 product wraps mod 2^64
@@ -69,6 +71,19 @@ def pack_hashed(score_int, seed, mask, row_ids, col_ids, stratum_bits: int = 0):
     s = torch.clamp(score_int, 0, MAX_SCORE).to(torch.int32)
     prio = (s << JITTER_BITS) | hash_jitter(seed, row_ids, col_ids, stratum_bits)
     return torch.where(mask, prio, torch.full_like(prio, INFEASIBLE))
+
+
+def class_key(score_int, col_ids, stratum_bits: int) -> torch.Tensor:
+    """The candidate-index stratum class of a (score, node column) pair:
+    the top ``11 + stratum_bits`` bits of the packed priority, the part
+    that does not depend on (seed, pod row).  With ``low = JITTER_BITS -
+    stratum_bits`` every feasible priority is ``(class_key << low) |
+    (per-pod jitter & (2^low - 1))``, so a strictly greater class wins
+    for every wave seed and pod row (engine/deltacache.py's index)."""
+    s = torch.clamp(score_int, 0, MAX_SCORE).to(torch.int32)
+    if stratum_bits == 0:
+        return s
+    return (s << stratum_bits) | stratum_hash(col_ids, stratum_bits)
 
 
 def unpack_score(prio: torch.Tensor) -> torch.Tensor:

@@ -4,15 +4,19 @@ Port of ``k8s1m_tpu/snapshot/node_table.py``.  ``NodeTableHost`` is the
 numpy mirror the feature compiler fills (byte-identical columns to the
 JAX package's mirror for the same inputs); ``NodeTable`` is a dataclass
 of torch tensors on one device; ``commit_binds`` folds a wave's bind
-decisions into the request columns in place.
+decisions into the request columns in place, and ``scatter_rows`` /
+``apply_delta`` write changed rows into the device table in place.
+``RowVersions`` is the host journal of row mutations that the deltasched
+plane cache invalidates through.
 
-Left out of this slice: the wave-epoch row quarantine, the row journal,
-the mirror metrics and the thread-ownership guards — coordinator
-machinery that arrives with the coordinator port.
+Left out of this slice: the wave-epoch row quarantine, the mirror
+metrics and the thread-ownership guards — coordinator machinery that
+arrives with the coordinator port.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -284,4 +288,110 @@ def commit_binds(
     table.cpu_req.index_add_(0, idx, torch.where(bound, cpu_milli, zero))
     table.mem_req.index_add_(0, idx, torch.where(bound, mem_kib, zero))
     table.pods_req.index_add_(0, idx, bound.to(torch.int32))
+    return table
+
+
+class RowVersions:
+    """Monotone per-row mutation journal: the dirty bookkeeping that
+    feeds the delta-plane cache's invalidation (engine/deltacache.py).
+
+    Every batch of device-table row mutations is noted with one version
+    stamp; a consumer holding per-row derived state (a cached
+    feasibility/score plane) records the version it was computed at and
+    asks ``rows_since(v)`` for exactly the rows that moved afterwards.
+    The journal is bounded: past ``cap`` entries the oldest compact away
+    and ``floor`` rises — a consumer stamped below ``floor`` cannot
+    enumerate its delta and must treat its state as wholly stale.
+    Compaction can only force extra recompute, never hide a moved row.
+    """
+
+    def __init__(self, cap: int = 1 << 16) -> None:
+        self.cap = cap
+        self.ver = 0
+        # Versions below this are compacted out of the journal.
+        self.floor = 0
+        self._journal: collections.deque[tuple[int, int]] = collections.deque()
+
+    def note(self, rows) -> int:
+        """Stamp one mutation batch; returns the new version."""
+        self.ver += 1
+        v = self.ver
+        self._journal.extend((v, int(r)) for r in rows)
+        if len(self._journal) > self.cap:
+            self.compact(keep=self.cap // 2)
+        return v
+
+    def compact(self, keep: int) -> None:
+        """Drop the oldest entries down to ``keep``, raising ``floor``
+        to the newest dropped version (consumers below it go stale)."""
+        q = self._journal
+        while len(q) > keep:
+            v, _ = q.popleft()
+            self.floor = max(self.floor, v)
+
+    def release(self, before_ver: int) -> None:
+        """Drop entries at versions < ``before_ver`` WITHOUT staling
+        consumers at or past it (the caller proved every live consumer
+        is stamped >= before_ver)."""
+        q = self._journal
+        while q and q[0][0] < before_ver:
+            q.popleft()
+        self.floor = max(self.floor, before_ver - 1)
+
+    def rows_since(self, ver: int) -> set | None:
+        """Rows mutated at versions > ``ver``; None when ``ver`` is below
+        the compaction floor (the delta is unenumerable)."""
+        if ver < self.floor:
+            return None
+        out: set[int] = set()
+        for v, r in reversed(self._journal):
+            if v <= ver:
+                break
+            out.add(r)
+        return out
+
+    def __len__(self) -> int:
+        return len(self._journal)
+
+
+# Column split for the coordinator's dirty-row scatters: capacity/feature
+# columns carry what the node object says (the host is authoritative);
+# the request columns carry bind accounting, which in a pipelined
+# coordinator includes in-flight assumes the host mirror does not know
+# yet.  A capacity-only node update scatters CAP_COLUMNS alone.
+CAP_COLUMNS = (
+    "valid", "cpu_alloc", "mem_alloc", "pods_alloc",
+    "label_key", "label_val", "label_num",
+    "taint_id", "taint_effect", "zone", "region", "name_id",
+)
+REQ_COLUMNS = ("cpu_req", "mem_req", "pods_req")
+ALL_COLUMNS = CAP_COLUMNS + REQ_COLUMNS
+
+
+def _row_index(rows, device) -> torch.Tensor:
+    return torch.as_tensor(rows, device=device).to(torch.int64)
+
+
+def scatter_rows(table, rows, delta: dict):
+    """Write per-column values into ``rows`` of the device table, IN PLACE
+    (``index_copy_`` on each named column; the keys of ``delta`` select the
+    columns — see CAP_COLUMNS).  Values may be numpy arrays or tensors;
+    they are cast to the column's dtype.  ``rows`` must lie in
+    ``[0, num_rows)``.  Works on either layout for the columns they share
+    (the request columns).  Returns ``table``."""
+    for name, arr in delta.items():
+        col = getattr(table, name)
+        idx = _row_index(rows, col.device)
+        col.index_copy_(0, idx, torch.as_tensor(arr, dtype=col.dtype, device=col.device))
+    return table
+
+
+def apply_delta(table, rows, delta):
+    """Scatter D freshly compiled rows (``delta``, a table of the same
+    layout with D rows) into ``rows`` of the device table, every column,
+    IN PLACE.  Returns ``table``."""
+    for f in dataclasses.fields(table):
+        col = getattr(table, f.name)
+        if isinstance(col, torch.Tensor):
+            col.index_copy_(0, _row_index(rows, col.device), getattr(delta, f.name))
     return table

@@ -53,4 +53,26 @@ def test_rebuild_when_any_input_is_newer(tmp_path):
 def test_package_library_inputs():
     names = {p.name for p in _build.inputs("fused_topk")}
     assert {"fused_topk.cu", "fused_topk.cuh", "fused_topk_base.cu", "fused_topk_aff.cu",
-            "fused_topk_cons.cu", "fused_topk_affcons.cu"} == names
+            "fused_topk_cons.cu", "fused_topk_affcons.cu", "topk_common.cuh"} == names
+    assert {p.name for p in _build.inputs("delta_topk")} == {"delta_topk.cu", "topk_common.cuh"}
+    assert set(_build.LIBRARIES) == {"fused_topk", "delta_topk"}
+
+
+def test_shared_header_marks_both_libraries_stale(tmp_path):
+    """Touching the shared header rebuilds both kernels' libraries."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    names = [p.name for p in _build.CSRC_DIR.iterdir() if p.suffix in (".cu", ".cuh")]
+    for name in names:
+        (csrc / name).write_text((_build.CSRC_DIR / name).read_text())
+        os.utime(csrc / name, (1000, 1000))
+    for lib in _build.LIBRARIES:
+        _touch(_build.library_path(lib, build), 2000)
+        assert not _build.is_stale(lib, csrc, build), lib
+    _touch(csrc / "topk_common.cuh", 3000)
+    assert all(_build.is_stale(lib, csrc, build) for lib in _build.LIBRARIES)
+    _touch(csrc / "topk_common.cuh", 1000)
+    _touch(csrc / "delta_topk.cu", 3000)                  # one library only
+    assert _build.is_stale("delta_topk", csrc, build)
+    assert not _build.is_stale("fused_topk", csrc, build)

@@ -267,3 +267,101 @@ def test_wrapper_rejects_wrong_dtype(cuda):
     table.cpu_req = table.cpu_req.to(torch.int64)
     with pytest.raises(ValueError):
         fused_topk(table, batch, 1, BASE, k=4)
+
+
+# ---- the deltasched plane tail (csrc/delta_topk.cu) ------------------------
+
+
+def _delta_planes(cuda, s, n, b, seed):
+    """Random planes (scores outside [0, 2047], negatives included), padding
+    pods at slot S and, for S >= 2, a slot with no feasible column."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((s, n)) < 0.6
+    score = rng.integers(-3000, 5000, (s, n)).astype(np.int32)
+    dead = max(s - 2, 0)
+    if s >= 2:
+        mask[dead] = False
+    slot = np.concatenate([rng.integers(0, s, b - 5), [dead, s - 1, s, s, s]]).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(cuda) for a in (mask, score, slot, slot < s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,n,b,k,stratum_bits,row_offset,pod_offset", [
+    (1, 4096, 300, 4, 0, 0, 0), (8, 8192, 300, 4, 11, 4096, 7), (64, 4096, 520, 4, 0, 0, 0),
+    (64, 2048, 200, 128, 11, 3, 129), (130, 2048, 260, 9, 5, 0, 0), (8, 1000 * 4, 33, 1, 20, 0, 0),
+])
+def test_delta_kernel_matches_plain_version(cuda, s, n, b, k, stratum_bits, row_offset,
+                                            pod_offset):
+    from k8s1m_tpu_torch.engine.deltacache import plane_topk
+    from k8s1m_tpu_torch.ops.delta_topk import delta_plane_topk
+
+    pm, ps, slot, real = _delta_planes(cuda, s, n, b, s + k)
+    kw = dict(chunk=1000 if n == 4000 else 512, k=k, stratum_bits=stratum_bits,
+              row_offset=row_offset, pod_offset=pod_offset)
+    for seed in (0, -98765, 2 ** 31 - 1):
+        before = delta_plane_topk.launches
+        got = delta_plane_topk(pm, ps, slot, seed, **kw)
+        torch.cuda.synchronize()
+        assert delta_plane_topk.launches == before + 1
+        ref = plane_topk(pm, ps, slot, seed, **kw)
+        assert torch.equal(got.idx[real], ref.idx[real])
+        assert torch.equal(got.prio[real], ref.prio[real])
+        assert bool((ref.prio[real] >= 0).any())
+        assert bool((ref.prio[real] < 0).any()) == (s >= 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["plain", "packed"])
+def test_delta_wave_matches_plain_version(cuda, layout):
+    """Three churned delta waves with the kernel and with the plain tail
+    (``reference=True``) from clones: identical rows, table and planes;
+    and each equals the full wave from the same table."""
+    from k8s1m_tpu_torch.cluster.workload import node_affinity_pods
+    from k8s1m_tpu_torch.engine.cycle import fill_shape_planes, schedule_batch_delta
+    from k8s1m_tpu_torch.ops.delta_topk import delta_plane_topk
+    from k8s1m_tpu_torch.snapshot.hotfeed import shape_key
+    from k8s1m_tpu_torch.snapshot.node_table import scatter_rows
+
+    spec = TableSpec(max_nodes=N)
+    host = NodeTableHost(spec)
+    populate_kwok_nodes(host, N - 64, zones=8, regions=3)
+    host.cpu_alloc[:] = np.where(host.valid, 900, 0)         # pods collide
+    table = (host.to_device(cuda) if layout == "plain" else
+             pack_table_host(host, build_packing_spec(spec, host.vocab), cuda))
+    pods = node_affinity_pods(400, zones=8, regions=3, cpu_milli=300)
+    pspec = PodSpec(batch=400, aff_terms=1, aff_exprs=2, aff_values=2, pref_terms=1)
+    pb = PodBatchHost(pspec, spec, host.vocab).encode_packed(pods)
+    keys = [shape_key(p) for p in pods]
+    shapes = list(dict.fromkeys(keys))
+    slot = np.array([shapes.index(x) for x in keys], np.int32)
+    reps = PodBatchHost(PodSpec(batch=len(shapes), aff_terms=1, aff_exprs=2, aff_values=2,
+                                pref_terms=1), spec, host.vocab).encode_packed(
+        [pods[keys.index(x)] for x in shapes])
+    s = len(shapes)
+    planes = (torch.zeros((s, N), dtype=torch.bool, device=cuda),
+              torch.zeros((s, N), dtype=torch.int32, device=cuda))
+    fill_shape_planes(table, reps, np.arange(s, dtype=np.int32), planes, profile=AFF,
+                      chunk=512)
+    rng = np.random.default_rng(4)
+    prev = None
+    for w in range(3):
+        churn = np.sort(rng.choice(N - 64, 8, replace=False)).astype(np.int32)
+        scatter_rows(table, churn, {"cpu_req": rng.integers(0, 600, 8)})
+        ref_t, ref_p = table.clone(), (planes[0].clone(), planes[1].clone())
+        full_t, _fa, full_rows = schedule_batch_packed(table.clone(), pb, 50 + w, profile=AFF,
+                                                       chunk=512)
+        kw = dict(profile=AFF, slot_ids=slot, dirty=churn,
+                  inflight_rows=() if prev is None else (prev,), chunk=512, k=4)
+        before = delta_plane_topk.launches
+        table, _a, rows, planes = schedule_batch_delta(table, pb, 50 + w, planes=planes, **kw)
+        torch.cuda.synchronize()
+        assert delta_plane_topk.launches == before + 1
+        ref_t, _ra, ref_rows, ref_p = schedule_batch_delta(ref_t, pb, 50 + w, planes=ref_p,
+                                                           reference=True, **kw)
+        assert torch.equal(rows, ref_rows) and torch.equal(rows, full_rows)
+        for c in ("cpu_req", "mem_req", "pods_req"):
+            assert torch.equal(getattr(table, c), getattr(ref_t, c))
+            assert torch.equal(getattr(table, c), getattr(full_t, c))
+        assert torch.equal(planes[0], ref_p[0]) and torch.equal(planes[1], ref_p[1])
+        assert int((rows >= 0).sum()) > 0
+        prev = rows
