@@ -38,14 +38,23 @@ Phases (each raises on failure; the script then exits non-zero):
                N=65,536, S=8 and 64, B=512 with padding pods, stratum bits
                0 and 11, hash offsets, scores outside [0, 2047], a slot
                with no feasible column, k=4 and k=128;
+  3e. all-distinct worst case — every pod its own group (128 groups per
+               block of the fused kernel, 32-row tiles) at N=65,536 x B=512,
+               each stage configuration, packed: bit-equal to the plain
+               version and timed (``--worst-case-only`` runs just this and
+               times the kernel of the tree it is run from);
   4. main path — uniform pods, 20 timed waves per layout with seeds from
                ``numpy.random.default_rng(0)``; one launch of the base stage
                per wave (launch counts reset just before, read just after);
                one wave re-run through the plain version from a clone of the
                table must give identical rows and request columns; both
                layouts must bind identically; no node over-committed;
-               binds > 0.  Prints binds/s, p50 wave ms, kernel ms/wave,
-               greedy-assign ms/wave and table MB per layout;
+               binds > 0.  Prints binds/s, p50 wave ms, kernel ms/wave
+               (and its group key and order), greedy-assign ms/wave and
+               table MB per layout, the batch's distinct pod groups
+               (``torch.unique`` over the key rows), the mean and maximum
+               groups per block, the grouped bound and the per-pair bound
+               (``bound_per_pair_ms``) with the kernel's share of each;
   5. path A  — ``node_affinity_pods(4096)``, Profile without constraint
                plugins; 10 timed waves per layout, one ``aff`` launch per
                wave; the plain-version re-run and layout checks of phase 4;
@@ -70,12 +79,15 @@ Phases (each raises on failure; the script then exits non-zero):
                layouts bind identically; no node over-committed; binds > 0.
                Prints binds/s, p50 wave ms, delta kernel ms/wave, merge,
                greedy-assign and fill ms, plane and table MB.
-The next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
-stage configuration and one for the delta kernel: times, bound, launches);
+Phases 5 and 6 print the same group and bound figures as phase 4.  The
+next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
+stage configuration and one for the delta kernel: times, bound, launches;
+the fused entries add ``bound_per_pair_ms``, ``groups`` and
+``all_distinct_ms``);
 the last is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--steps 20] [--path-steps 10] [--delta-steps 5] [--warmup 2]
-                          [--out results.json]
+                          [--out results.json] [--worst-case-only]
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -83,6 +95,7 @@ Needs one CUDA card; without one it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -110,6 +123,14 @@ PEAK_BYTES = 3.35e12
 # weights, clip/shift/xor/mask of the hashed priority, the top-K compare).
 FILTER_OPS_PER_PAIR = 5
 SCORE_OPS_PER_FEASIBLE_PAIR = 40
+# The fused kernel runs that chain once per (pod group, row) — pods with
+# equal per-pod inputs share it — and per pair only scans: the shared
+# load of the group's staged word, the xor of the pod's row-hash bits and
+# the compare with its K-th best.  Per row it hashes the column (two
+# murmur3 finalizers and the stratum, ~12 ops each).  `_grouped_bound`
+# counts that; the per-pair count above stays as `bound_per_pair_ms`.
+SCAN_OPS_PER_PAIR = 3
+COLUMN_HASH_OPS = 36
 
 
 def log(msg: str) -> None:
@@ -165,17 +186,29 @@ def phase_build() -> dict:
     for name in _build.LIBRARIES:
         _build.load(name)
     secs = time.perf_counter() - t0
-    kernel = ""
+    kernel, frame = "", ""
     registers = {}
     for line in "\n".join(reports.values()).splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
+        elif "stack frame" in line:
+            frame = line.strip()
         elif "registers" in line:
             registers[kernel] = line.split(":", 1)[-1].strip()
-            log(f"[build] {kernel[:72]}: {registers[kernel]}")
+            log(f"[build] {kernel[:72]}: {registers[kernel]}; {frame}")
     log(f"[build] csrc/fused_topk*.cu and csrc/delta_topk.cu built (every unit in parallel) "
         f"and loaded in {secs:.1f}s")
-    return {"build_s": secs, "registers": registers}
+    from k8s1m_tpu_torch.ops import delta_topk, fused_topk
+
+    if not hasattr(fused_topk, "blocks_per_sm"):     # a tree from before the query
+        return {"build_s": secs, "registers": registers}
+    occupancy = {f"fused_topk[{stage}] {layout}": fused_topk.blocks_per_sm(
+        stage, packed=layout == "packed", k=K)
+        for stage in fused_topk.STAGES for layout in ("plain", "packed")}
+    occupancy["delta_plane_topk"] = delta_topk.blocks_per_sm(K)
+    log(f"[build] resident 128-thread blocks per SM at k={K}: "
+        + ", ".join(f"{name} {n}" for name, n in occupancy.items()))
+    return {"build_s": secs, "registers": registers, "blocks_per_sm": occupancy}
 
 
 # ---- phase 3 -------------------------------------------------------------
@@ -316,6 +349,83 @@ def phase_delta_vs_plain(device, n: int = 65536, b: int = 512) -> float:
     return float(worst)
 
 
+# ---- phase 3e: the all-distinct worst case of the fused kernel -------------
+
+
+def _stage_inputs(device, stage: str, n: int, b: int):
+    """(packed table, batch, kwargs, profile) of one stage configuration at
+    n rows: the fleets and pods of phases 3, 3b and 3c."""
+    from k8s1m_tpu_torch.cluster.testbeds import (
+        affinity_pods,
+        constraint_fleet,
+        constraint_pods,
+        labeled_fleet,
+    )
+    from k8s1m_tpu_torch.config import PodSpec
+    from k8s1m_tpu_torch.engine.cycle import _prologue_stats, schedule_batch_packed
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.snapshot.constraints import ConstraintTracker, empty_constraints
+    from k8s1m_tpu_torch.snapshot.packing import build_packing_spec, pack_table_host
+    from k8s1m_tpu_torch.snapshot.pod_encoding import PodBatchHost, unpack_pod_batch
+
+    def packed_table(spec, host):
+        return pack_table_host(host, build_packing_spec(spec, host.vocab), device)
+
+    def unpack(pb):
+        return unpack_pod_batch(pb.ints, pb.bools, pb.spec, pb.table_spec, pb.groups, device)
+
+    if stage == "base":
+        spec, host = _fleet(n, near_full=False)
+        return (packed_table(spec, host), _tolerating_batch(spec, host, b, device), {},
+                Profile(node_affinity=0, topology_spread=0, interpod_affinity=0))
+    if stage == "aff":
+        spec, host = labeled_fleet(n, seed=7)
+        pb = PodBatchHost(PodSpec(batch=b), spec, host.vocab).encode_packed(
+            affinity_pods(b - 5, n))
+        return (packed_table(spec, host), unpack(pb), dict(with_affinity=True),
+                Profile(topology_spread=0, interpod_affinity=0))
+    spec, host = constraint_fleet(n)
+    tracker = ConstraintTracker(spec)
+    pods = constraint_pods(tracker, 3 * b, seed=1, with_selectors=stage == "aff+cons")
+    enc = PodBatchHost(PodSpec(batch=b), spec, host.vocab)
+    table = packed_table(spec, host)
+    cons = empty_constraints(spec, device)
+    for w in range(2):      # two earlier waves populate the count tables
+        schedule_batch_packed(table, enc.encode_packed(pods[w * b:(w + 1) * b]), 100 + w,
+                              profile=Profile(), constraints=cons, chunk=CHUNK, reference=True)
+    pb = enc.encode_packed(pods[2 * b:])
+    return (table, unpack(pb), dict(with_affinity=stage == "aff+cons", constraints=cons,
+                                    stats=_prologue_stats(table, cons)), Profile())
+
+
+def phase_worst_case(device, n: int = 65536, b: int = 512) -> dict:
+    """Every pod its own group (distinct cpu requests: 128 groups per block,
+    32-row tiles) at N=65,536 x B=512, each stage configuration on the
+    packed layout: bit-equal to the plain version, and timed.  Uses only
+    what the port has had since its second slice, so the same function
+    also times an earlier tree's kernel."""
+    import torch
+
+    from k8s1m_tpu_torch.ops.fused_topk import fused_topk, fused_topk_reference
+
+    out = {}
+    for stage in ("base", "aff", "cons", "aff+cons"):
+        table, batch, kw, profile = _stage_inputs(device, stage, n, b)
+        batch = _take_pods(batch, np.arange(b), cpu=60 + np.arange(b))
+        kw = dict(kw, k=K, stratum_bits=7, row_base=3)
+        idx, prio = fused_topk(table, batch, 4711, profile, **kw)
+        torch.cuda.synchronize()
+        ridx, rprio = fused_topk_reference(table, batch, 4711, profile, **kw)
+        err = _compare(idx, prio, ridx, rprio)
+        check(err == 0, f"all-distinct {stage}: kernel disagrees with the plain version")
+        check(bool((rprio >= 0).any()), f"all-distinct {stage}: no feasible candidate")
+        ms = cuda_ms(lambda: fused_topk(table, batch, 4711, profile, **kw), 20)
+        out[stage] = {"kernel_ms": ms, "max_abs_err": err}
+        log(f"[worst-case] {stage:8s} {b} distinct pods x {n} rows (packed): "
+            f"kernel_ms={ms:.4f} max_abs_err={err}")
+    return out
+
+
 # ---- phase 4 -------------------------------------------------------------
 
 
@@ -359,6 +469,87 @@ def _bound(view, batch, k: int) -> tuple[float, str, dict]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", detail
 
 
+def _take_pods(batch, idx, cpu=None):
+    """The batch of pods ``idx`` (every per-pod field gathered; ``qkey`` is
+    the batch's), with cpu requests ``cpu`` if given."""
+    import torch
+
+    idx = torch.as_tensor(idx, device=batch.cpu.device).long()
+    out = {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)}
+    out = {name: t if name == "qkey" else t[idx].contiguous() for name, t in out.items()}
+    if cpu is not None:
+        out["cpu"] = torch.as_tensor(cpu, dtype=torch.int32, device=batch.cpu.device)
+    return type(batch)(**out)
+
+
+def _group_stats(batch, *, with_affinity=False, cons_inputs=None) -> dict:
+    """The batch's distinct pod groups, counted independently of the
+    kernel with ``torch.unique`` over the key rows (with one representative
+    pod each), and the groups in each 128-pod block of the kernel's order."""
+    import torch
+
+    from k8s1m_tpu_torch.ops.fused_topk import POD_TILE, group_key, group_order
+
+    key = group_key(batch, with_affinity=with_affinity, cons_inputs=cons_inputs)
+    _uniq, inverse = torch.unique(key, dim=0, return_inverse=True)
+    groups = int(inverse.max()) + 1
+    pos = torch.arange(key.shape[0], device=key.device)
+    reps = torch.full((groups,), key.shape[0], dtype=torch.int64, device=key.device)
+    reps = reps.scatter_reduce(0, inverse, pos, "amin")
+    sk = key[group_order(key).long()]
+    starts = torch.ones(key.shape[0], dtype=torch.bool, device=key.device)
+    starts[1:] = (sk[1:] != sk[:-1]).any(1)
+    starts[::POD_TILE] = True
+    per_block = [int(x.sum()) for x in starts.split(POD_TILE)]
+    return {"groups": groups, "reps": reps, "groups_per_block_mean": float(np.mean(per_block)),
+            "groups_per_block_max": max(per_block)}
+
+
+def _grouped_bound(per_pair, view, batch, k, reps, **kw) -> tuple[float, str, dict]:
+    """The least time for the fused kernel's function as the redesign
+    counts it: the scan per pair, the per-pair bound's filter, score and
+    stage operations once per (distinct pod group, row) — ``per_pair``
+    applied to one representative per group, feasible pairs counted on
+    them — and the column hash per row; bytes as the per-pair bound."""
+    pair_ms, _by, pair = per_pair(view, batch, k, **kw)
+    _ms, _by, rep = per_pair(view, _take_pods(batch, reps), k, **kw)
+    ops = SCAN_OPS_PER_PAIR * pair["pairs"] + rep["ops"] + COLUMN_HASH_OPS * view.num_rows
+    t_ops, t_bytes = ops / PEAK_SCALAR_OPS, pair["bytes"] / PEAK_BYTES
+    detail = {"pairs": pair["pairs"], "group_rows": rep["pairs"],
+              "feasible_group_rows": rep["feasible_pairs"], "ops": ops, "bytes": pair["bytes"],
+              "bound_per_pair_ms": pair_ms, "per_pair_ops": pair["ops"]}
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", detail
+
+
+def _kernel_fields(kernel_ms, plain_ms, prep_ms, bound_ms, bound_by, detail, gs, err) -> dict:
+    return {
+        "kernel_ms_per_wave": kernel_ms,
+        "group_prep_ms_per_wave": prep_ms,
+        "plain_ms_per_wave": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "bound_per_pair_ms": detail["bound_per_pair_ms"],
+        "share_of_bound": bound_ms / kernel_ms,
+        "share_of_bound_per_pair": detail["bound_per_pair_ms"] / kernel_ms,
+        "bound_detail": detail,
+        "groups": gs["groups"],
+        "groups_per_block_mean": gs["groups_per_block_mean"],
+        "groups_per_block_max": gs["groups_per_block_max"],
+        "max_abs_err": err,
+    }
+
+
+def _kernel_line(res) -> str:
+    return (f"kernel_ms/wave={res['kernel_ms_per_wave']:.4f} (group key and order "
+            f"{res['group_prep_ms_per_wave']:.4f}; kernel and merge alone "
+            f"{res['kernel_device_ms_per_wave']:.4f}) plain_ms/wave={res['plain_ms_per_wave']:.3f} "
+            f"groups={res['groups']} per_block_mean={res['groups_per_block_mean']:.2f} "
+            f"per_block_max={res['groups_per_block_max']} bound_ms={res['bound_ms']:.5f} "
+            f"({res['bound_by']}, share {100 * res['share_of_bound']:.1f}%) "
+            f"bound_per_pair_ms={res['bound_per_pair_ms']:.5f} "
+            f"(share {100 * res['share_of_bound_per_pair']:.1f}%)")
+
+
 def phase_main_path(device, *, steps: int, warmup: int) -> dict:
     import torch
 
@@ -374,6 +565,9 @@ def phase_main_path(device, *, steps: int, warmup: int) -> dict:
         candidates,
         fused_topk,
         fused_topk_reference,
+        group_key,
+        group_order,
+        prepare_launch,
         reset_launches,
     )
     from k8s1m_tpu_torch.plugins.registry import Profile
@@ -482,29 +676,24 @@ def phase_main_path(device, *, steps: int, warmup: int) -> dict:
         err = max(int((idx.long() - ridx.long()).abs().max()),
                   int((prio.long() - rprio.long()).abs().max()))
         check(err == 0, f"{layout}: kernel != plain version at the main-path shape")
-        kernel_ms = cuda_ms(lambda: fused_topk(view, batch, seed, profile, **kw), 20)
+        kernel_ms = cuda_ms(lambda: fused_topk(view, batch, seed, profile, **kw), 50)
+        device_ms = cuda_ms(prepare_launch(view, batch, seed, profile, **kw)[0], 50)
         plain_ms = cuda_ms(
             lambda: fused_topk_reference(view, batch, seed, profile, chunk=CHUNK, **kw), 3)
         cand = candidates(view, batch, seed, profile, chunk=CHUNK, k=K)
         greedy_ms = cuda_ms(lambda: greedy_assign(
             cand.idx, cand.prio, cand.cpu, cand.mem, cand.pods,
             batch.cpu, batch.mem, batch.valid), 3)
-        bound_ms, bound_by, bound_detail = _bound(view, batch, K)
+        gs = _group_stats(batch)
+        prep_ms = cuda_ms(lambda: group_order(group_key(batch)), 20)
+        bound_ms, bound_by, bound_detail = _grouped_bound(_bound, view, batch, K, gs["reps"])
         res = results[layout]
-        res.update({
-            "kernel_ms_per_wave": kernel_ms,
-            "plain_ms_per_wave": plain_ms,
-            "greedy_assign_ms_per_wave": greedy_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "bound_detail": bound_detail,
-            "max_abs_err": err,
-        })
+        res.update(_kernel_fields(kernel_ms, plain_ms, prep_ms, bound_ms, bound_by,
+                                  bound_detail, gs, err), greedy_assign_ms_per_wave=greedy_ms,
+                   kernel_device_ms_per_wave=device_ms)
         log(f"[main] {layout}: binds/s={res['binds_per_s']:.1f} "
-            f"p50_wave_ms={res['p50_wave_ms']:.3f} kernel_ms/wave={kernel_ms:.4f} "
-            f"plain_ms/wave={plain_ms:.3f} greedy_assign_ms/wave={greedy_ms:.3f} "
-            f"(plain torch) table_MB={res['table_mb']:.1f} bound_ms={bound_ms:.5f} "
-            f"({bound_by})")
+            f"p50_wave_ms={res['p50_wave_ms']:.3f} greedy_assign_ms/wave={greedy_ms:.3f} "
+            f"(plain torch) table_MB={res['table_mb']:.1f} " + _kernel_line(res))
     return results
 
 
@@ -745,9 +934,13 @@ def phase_path(device, path: str, *, steps: int, warmup: int) -> dict:
         schedule_batch_packed,
     )
     from k8s1m_tpu_torch.ops.fused_topk import (
+        _cons_pod_inputs,
         candidates,
         fused_topk,
         fused_topk_reference,
+        group_key,
+        group_order,
+        prepare_launch,
         reset_launches,
     )
     from k8s1m_tpu_torch.plugins.registry import Profile
@@ -910,28 +1103,27 @@ def phase_path(device, path: str, *, steps: int, warmup: int) -> dict:
         ridx, rprio = fused_topk_reference(view, batch, seed, profile, chunk=CHUNK, **kw)
         err = _compare(idx, prio, ridx, rprio)
         check(err == 0, f"{tag} {layout}: kernel != plain version at the path's shape")
-        kernel_ms = cuda_ms(lambda: fused_topk(view, batch, seed, profile, **kw), 20)
+        kernel_ms = cuda_ms(lambda: fused_topk(view, batch, seed, profile, **kw), 50)
+        device_ms = cuda_ms(prepare_launch(view, batch, seed, profile, **kw)[0], 50)
         plain_ms = cuda_ms(
             lambda: fused_topk_reference(view, batch, seed, profile, chunk=CHUNK, **kw), 3)
         cand = candidates(view, batch, seed, profile, chunk=CHUNK, **kw)
         greedy_ms = cuda_ms(lambda: greedy_assign(
             cand.idx, cand.prio, cand.cpu, cand.mem, cand.pods,
             batch.cpu, batch.mem, batch.valid), 3)
-        bound_ms, bound_by, bound_detail = _stage_bound(view, batch, K, vcons=vcons, stats=stats)
+        cons_in = _cons_pod_inputs(batch, stats) if cons is not None else None
+        gkw = dict(with_affinity=path == "A", cons_inputs=cons_in)
+        gs = _group_stats(batch, **gkw)
+        prep_ms = cuda_ms(lambda: group_order(group_key(batch, **gkw)), 20)
+        bound_ms, bound_by, bound_detail = _grouped_bound(
+            _stage_bound, view, batch, K, gs["reps"], vcons=vcons, stats=stats)
         res = results[layout]
-        res.update({
-            "kernel_ms_per_wave": kernel_ms,
-            "plain_ms_per_wave": plain_ms,
-            "greedy_assign_ms_per_wave": greedy_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "bound_detail": bound_detail,
-            "max_abs_err": err,
-        })
+        res.update(_kernel_fields(kernel_ms, plain_ms, prep_ms, bound_ms, bound_by,
+                                  bound_detail, gs, err), greedy_assign_ms_per_wave=greedy_ms,
+                   kernel_device_ms_per_wave=device_ms)
         line = (f"[{tag}] {layout}: binds/s={res['binds_per_s']:.1f} "
-                f"p50_wave_ms={res['p50_wave_ms']:.3f} kernel_ms/wave={kernel_ms:.4f} "
-                f"bound_ms={bound_ms:.5f} ({bound_by}) plain_ms/wave={plain_ms:.3f} "
-                f"greedy_assign_ms/wave={greedy_ms:.3f} table_MB={res['table_mb']:.1f}")
+                f"p50_wave_ms={res['p50_wave_ms']:.3f} greedy_assign_ms/wave={greedy_ms:.3f} "
+                f"table_MB={res['table_mb']:.1f} " + _kernel_line(res))
         if cons is not None:
             prologue_ms = cuda_ms(lambda: _prologue_stats(table, cons), 3)
             scratch = cons.clone()
@@ -1114,7 +1306,7 @@ def phase_delta_path(device, config: str, *, steps: int, warmup: int) -> dict:
         err = _compare(got.idx, got.prio, ref.idx, ref.prio)
         check(err == 0, f"{tag} {layout}: delta kernel != plain version at the path's shape")
         kernel_ms = cuda_ms(lambda: delta_topk.delta_plane_topk(
-            planes[0], planes[1], slot_t, seed, **tail_kw), 20)
+            planes[0], planes[1], slot_t, seed, **tail_kw), 50)
         plain_ms = cuda_ms(lambda: dc.plane_topk(planes[0], planes[1], slot_t, seed,
                                                  **tail_kw), 1)
         batch = unpack_pod_batch(packed.ints, packed.bools, packed.spec, packed.table_spec,
@@ -1149,8 +1341,8 @@ def phase_delta_path(device, config: str, *, steps: int, warmup: int) -> dict:
         }
         log(f"[{tag}] {layout}: binds/s={res['binds_per_s']:.1f} "
             f"p50_wave_ms={res['p50_wave_ms']:.3f} delta_kernel_ms/wave={kernel_ms:.4f} "
-            f"bound_ms={bound_ms:.5f} ({bound_by}) plain_ms/wave={plain_ms:.3f} "
-            f"merge_ms/wave={merge_ms:.3f} greedy_assign_ms/wave={greedy_ms:.3f} "
+            f"bound_ms={bound_ms:.5f} ({bound_by}, share {100 * bound_ms / kernel_ms:.1f}%) "
+            f"plain_ms/wave={plain_ms:.3f} merge_ms/wave={merge_ms:.3f} greedy_assign_ms/wave={greedy_ms:.3f} "
             f"fill_ms/group={'/'.join(f'{x:.1f}' for x in fill_ms)} "
             f"plane_MB={res['plane_mb']:.1f} table_MB={res['table_mb']:.1f}")
         del planes, table
@@ -1210,6 +1402,9 @@ def main(argv=None) -> int:
                     help="timed delta waves per layout of path C (phase 7)")
     ap.add_argument("--warmup", type=int, default=2, help="warm-up waves per layout")
     ap.add_argument("--out", default=None, help="also write the full results as JSON here")
+    ap.add_argument("--worst-case-only", action="store_true",
+                    help="run only the device, build and all-distinct phases (3e) and print "
+                         "their times; run from another tree's root it times that tree's kernel")
     args = ap.parse_args(argv)
     if min(args.steps, args.path_steps, args.delta_steps, args.warmup) < 1:
         ap.error("--steps, --path-steps, --delta-steps and --warmup must be >= 1")
@@ -1226,10 +1421,14 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     dev = phase_device()
     build = phase_build()
+    if args.worst_case_only:
+        print(json.dumps({"worst_case": phase_worst_case(device)}), flush=True)
+        return 0
     err3 = phase_kernel_vs_plain(device)
     err3b = phase_affinity_vs_plain(device)
     err3c = phase_constraints_vs_plain(device)
     err3d = phase_delta_vs_plain(device)
+    worst = phase_worst_case(device)
     main_res = phase_main_path(device, steps=args.steps, warmup=args.warmup)
     path_a = phase_path(device, "A", steps=args.path_steps, warmup=args.warmup)
     path_b = phase_path(device, "B", steps=args.path_steps, warmup=args.warmup)
@@ -1252,6 +1451,9 @@ def main(argv=None) -> int:
             "bound_ms": prod["bound_ms"],
             "bound_by": prod["bound_by"],
             "library_ms": None,
+            "bound_per_pair_ms": prod["bound_per_pair_ms"],
+            "groups": prod["groups"],
+            "all_distinct_ms": worst[stage]["kernel_ms"],
         }
 
     c2 = path_c["C2"]["packed"]
@@ -1281,7 +1483,7 @@ def main(argv=None) -> int:
             json.dump({"device": dev, "build": build, "kernel_vs_plain_max_abs_err": err3,
                        "affinity_vs_plain_max_abs_err": err3b,
                        "constraints_vs_plain_max_abs_err": err3c,
-                       "delta_vs_plain_max_abs_err": err3d,
+                       "delta_vs_plain_max_abs_err": err3d, "worst_case": worst,
                        "main_path": main_res, "path_a": path_a, "path_b": path_b,
                        "path_c": path_c,
                        **kernels}, f, indent=1, default=str)

@@ -27,16 +27,22 @@
 //   [TB, S] x [S, 3C] MXU product over 16-bit score halves becomes
 //   pmask[slot * N + c] read as uint8 straight from the torch bool plane
 //   and pscore[slot * N + c] as i32 (exact over the whole i32 range).
-// - At block start thread 0 lists the block's distinct slots (at most
-//   min(S, 128)).  Per 128-column tile the block stages, for each of them,
-//   one i32 per column in shared memory: (clip(score) << 20 | stratum |
-//   (column hash & low_mask)) where feasible, else -1.  Everything but the
-//   pod's row hash is then done once per (slot, column), not per pair.
-// - Per pair a thread loads its slot's staged word, xors in its row hash's
-//   low bits — stratum | ((rh ^ ch) & m) == (stratum | (ch & m)) ^ (rh & m),
-//   since the stratum bits lie above m — skips it if negative, and
-//   inserts by (prio, row) into its register list.  Rows are padded to 129
-//   words so pods on different slots read different banks.
+// - The block's distinct slots come from a neighbour compare of the
+//   sorted slots and a warp-ballot prefix sum (block_groups), not a serial
+//   loop.
+// - Per tile the block stages, for each distinct slot, one i32 per column
+//   in shared memory: (clip(score) << 20 | stratum | (column hash &
+//   low_mask)) where feasible, else -1.  Everything but the pod's row hash
+//   is then done once per (slot, column), not per pair.  A block with up
+//   to kAsyncSlots slots copies the next tile's plane rows (128 mask bytes
+//   and 512 score bytes per slot) with cp.async while it stages and scans
+//   the current one; a block with more slots loads them directly.
+// - Per pair a thread runs topk_common.cuh's scan_words over its slot's
+//   staged row: four words per LDS.128, one xor and one compare each, and
+//   an insert only for a priority above its K-th best.  Tiles are 128
+//   columns for up to 27 slots in a block, 64 for up to 52, 32 for up to
+//   99, else 16, so the staged words fit kStageWords and eight blocks fit
+//   an SM.
 //
 // The hash is uint32 with logical shifts (topk_common.cuh).
 
@@ -46,9 +52,12 @@ namespace k8s {
 namespace {
 
 constexpr int kPods = 128;          // pods per block, one per thread
-constexpr int kTile = 128;          // columns staged per shared-memory tile
-constexpr int kStride = kTile + 1;  // staged row stride (bank spread)
-constexpr int kMaxBlockSlots = kPods;
+constexpr int kTile = 128;          // widest tile of columns; splits are multiples of it
+constexpr int kAsyncSlots = 4;      // slots whose plane rows a block copies asynchronously
+constexpr int kMaskWords = 36;      // span_words(kTile, 1), rounded up to 4
+constexpr int kScoreWords = 132;    // span_words(kTile, 4), rounded up to 4
+static_assert(span_words(kTile, 1) <= kMaskWords && span_words(kTile, 4) <= kScoreWords,
+              "a staged plane span must fit");
 
 struct DeltaArgs {
   const uint8_t* pmask;   // bool[S, N]
@@ -70,36 +79,29 @@ struct DeltaArgs {
 
 template <int KMAX>
 __global__ void __launch_bounds__(kPods) delta_topk_kernel(const DeltaArgs a) {
-  extern __shared__ int s_val[];                 // [block slots][kStride]
-  __shared__ int s_slot[kMaxBlockSlots];         // the block's distinct slots
-  __shared__ int s_local[kPods];                 // per thread: index into s_slot
-  __shared__ int s_nslots;
+  __shared__ __align__(16) int s_val[kStageWords];   // [slots][tile + pad]
+  __shared__ int s_mask[2][kAsyncSlots][kMaskWords];
+  __shared__ int s_score[2][kAsyncSlots][kScoreWords];
+  __shared__ int s_cl[kPods];                        // clipped slot per thread
+  __shared__ int s_start[kPods + 1];
+  __shared__ int s_warp[kPods / 32];
 
   const int t = threadIdx.x;
   const int q = blockIdx.x * kPods + t;
-  const bool live = q < a.b;
+  const int live_n = min(kPods, a.b - blockIdx.x * kPods);
+  const bool live = t < live_n;
   const int pod = live ? a.order[q] : 0;
-  s_local[t] = live ? min(max(a.slot[pod], 0), a.s - 1) : -1;
+  const int cl = live ? min(max(a.slot[pod], 0), a.s - 1) : -1;
+  s_cl[t] = cl;
   __syncthreads();
-  if (t == 0) {
-    int ns = 0;
-    for (int i = 0; i < kPods; ++i) {
-      const int sl = s_local[i];
-      int at = -1;
-      if (sl >= 0) {
-        for (int j = 0; j < ns && at < 0; ++j) at = s_slot[j] == sl ? j : at;
-        if (at < 0) {
-          s_slot[ns] = sl;
-          at = ns++;
-        }
-      }
-      s_local[i] = at;
-    }
-    s_nslots = ns;
-  }
-  __syncthreads();
-  const int ns = s_nslots;
-  const int* vals = s_val + (live ? s_local[t] : 0) * kStride;
+  int ns;
+  const int g = block_groups<kPods>(t > 0 && live && s_cl[t - 1] != cl, live_n, s_start, s_warp,
+                                    ns);
+  const int tile = tile_rows_for(ns);
+  const int stride = tile + kStagePad;
+  const bool async = ns <= kAsyncSlots;
+  // The slot of staged row d: that of the group's first thread.
+  auto slot_of = [&](int d) { return s_cl[s_start[d]]; };
 
   const int split = blockIdx.y;
   const int row0 = split * a.rows_per_split;
@@ -117,35 +119,61 @@ __global__ void __launch_bounds__(kPods) delta_topk_kernel(const DeltaArgs a) {
     ti[j] = -1;
   }
 
-  for (int base = row0; base < row1; base += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    // Thread t stages column base + t of every slot of the block.
-    const int col = base + t;
-    const bool in = col < row1;
-    const uint32_t c = (uint32_t)col + (uint32_t)a.col_base;
-    const uint32_t cs =  // stratum | (column hash & low_mask)
-        in ? jitter_of(hash_stratum(c, a.stratum_bits, low), 0u, hash_col(a.seed, c), low_mask)
-           : 0u;
+  // Start the copies of tile [base, base + tile) of every slot into buffer buf.
+  auto start_copies = [&](int base, int buf) {
+    const int rows = min(tile, row1 - base);
     for (int d = 0; d < ns; ++d) {
-      int v = -1;
-      if (in) {
-        const size_t at = (size_t)s_slot[d] * a.n + col;
-        if (a.pmask[at]) {
-          v = (min(max(__ldg(a.pscore + at), 0), kMaxScore) << kJitterBits) | (int)cs;
-        }
+      const size_t at = (size_t)slot_of(d) * a.n;
+      async_span(s_mask[buf][d], a.pmask + at, 1, base, rows, t, kPods);
+      async_span(s_score[buf][d], a.pscore + at, 4, base, rows, t, kPods);
+    }
+    cp_async_commit();
+  };
+  if (async && row0 < row1) start_copies(row0, 0);
+
+  int buf = 0;
+  for (int base = row0; base < row1; base += tile, buf ^= 1) {
+    if (async) {
+      if (base + tile < row1) {
+        start_copies(base + tile, buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
-      s_val[d * kStride + t] = v;
+    }
+    __syncthreads();  // this tile's plane rows have landed; the last scan is done
+    const int count = min(tile, row1 - base);
+    const int count4 = (count + 3) & ~3;
+    if (t < count4) {
+      // Thread t stages column base + t of every slot of the block.
+      const int col = base + t;
+      const bool in = t < count;
+      const uint32_t c = (uint32_t)col + (uint32_t)a.col_base;
+      const uint32_t cs =  // stratum | (column hash & low_mask)
+          in ? jitter_of(hash_stratum(c, a.stratum_bits, low), 0u, hash_col(a.seed, c),
+                         low_mask)
+             : 0u;
+      for (int d = 0; d < ns; ++d) {
+        int v = -1;
+        if (in) {
+          bool ok;
+          int sc;
+          if (async) {
+            const size_t at = (size_t)slot_of(d) * a.n;
+            ok = span_at(s_mask[buf][d], span_off(a.pmask + at, 1, base), 1, t) != 0;
+            sc = span_at(s_score[buf][d], span_off(a.pscore + at, 4, base), 4, t);
+          } else {
+            const size_t at = (size_t)slot_of(d) * a.n + col;
+            ok = a.pmask[at] != 0;
+            sc = ok ? __ldg(a.pscore + at) : 0;
+          }
+          if (ok) v = (min(max(sc, 0), kMaxScore) << kJitterBits) | (int)cs;
+        }
+        s_val[d * stride + t] = v;
+      }
     }
     __syncthreads();
-
-    if (!live) continue;
-    const int count = min(kTile, row1 - base);
-    for (int j = 0; j < count; ++j) {
-      const int prio = vals[j] ^ rhm;
-      if (prio < 0) continue;  // infeasible: -1 stays negative under the xor
-      const int row = base + j;
-      if (beats(prio, row, tp[KMAX - 1], ti[KMAX - 1])) insert<KMAX>(tp, ti, prio, row);
-    }
+    if (live) scan_words<KMAX>(s_val + g * stride, count4, base, rhm, tp, ti);
   }
 
   if (live) {
@@ -169,15 +197,13 @@ __global__ void __launch_bounds__(kPods) delta_topk_kernel(const DeltaArgs a) {
 template <int KMAX>
 cudaError_t launch(const DeltaArgs& a, int splits, int* out_idx, int* out_prio,
                    cudaStream_t stream) {
-  const int block_slots = a.s < kMaxBlockSlots ? a.s : kMaxBlockSlots;
-  const size_t smem = (size_t)block_slots * kStride * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        delta_topk_kernel<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  // Eight blocks of ~24 KB of shared memory need a large carveout.
+  static const cudaError_t carve = cudaFuncSetAttribute(
+      delta_topk_kernel<KMAX>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (carve != cudaSuccess) return carve;
   const dim3 grid((a.b + kPods - 1) / kPods, splits);
-  delta_topk_kernel<KMAX><<<grid, kPods, smem, stream>>>(a);
+  delta_topk_kernel<KMAX><<<grid, kPods, 0, stream>>>(a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return merge_splits<KMAX>(a.part_idx, a.part_prio, a.b, a.k, splits, out_idx, out_prio,
@@ -240,4 +266,23 @@ extern "C" int k8s_delta_topk(const long long* ptrs, int n_ptrs, const long long
     default: err = launch<128>(a, splits, oi, op, st); break;
   }
   return (int)err;
+}
+
+// Resident blocks per SM of the kernel instantiation a launch with this k
+// would use (cudaOccupancyMaxActiveBlocksPerMultiprocessor); negative on
+// error.
+extern "C" int k8s_delta_blocks_per_sm(int k) {
+  using namespace k8s;
+  if (k < 1 || k > kMaxK) return -(int)cudaErrorInvalidValue;
+  int blocks = 0;
+  cudaError_t err;
+  switch (kmax_bucket(k)) {
+    case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, delta_topk_kernel<4>, kPods, 0); break;
+    case 8: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, delta_topk_kernel<8>, kPods, 0); break;
+    case 16: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, delta_topk_kernel<16>, kPods, 0); break;
+    case 32: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, delta_topk_kernel<32>, kPods, 0); break;
+    case 64: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, delta_topk_kernel<64>, kPods, 0); break;
+    default: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, delta_topk_kernel<128>, kPods, 0); break;
+  }
+  return err == cudaSuccess ? blocks : -(int)err;
 }

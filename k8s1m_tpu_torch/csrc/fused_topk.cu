@@ -11,10 +11,14 @@
 
 namespace k8s {
 
-extern template cudaError_t launch_stage<false, false>(const Args&, bool, int, int, cudaStream_t);
-extern template cudaError_t launch_stage<true, false>(const Args&, bool, int, int, cudaStream_t);
-extern template cudaError_t launch_stage<false, true>(const Args&, bool, int, int, cudaStream_t);
-extern template cudaError_t launch_stage<true, true>(const Args&, bool, int, int, cudaStream_t);
+extern template cudaError_t launch_stage<false, false>(const Args&, bool, int, int, cudaStream_t,
+                                                         int*);
+extern template cudaError_t launch_stage<true, false>(const Args&, bool, int, int, cudaStream_t,
+                                                         int*);
+extern template cudaError_t launch_stage<false, true>(const Args&, bool, int, int, cudaStream_t,
+                                                         int*);
+extern template cudaError_t launch_stage<true, true>(const Args&, bool, int, int, cudaStream_t,
+                                                         int*);
 
 namespace {
 
@@ -32,6 +36,7 @@ enum Ptr {
   P_ZONE, P_REGION, P_SPREAD_NODE, P_TGT_NODE, P_OWN_NODE,
   P_SPREAD_ZONE, P_SPREAD_REGION, P_TGT_ZONE, P_TGT_REGION, P_OWN_ZONE, P_OWN_REGION,
   P_SP, P_IA, P_II, P_CS,
+  P_GKEY, P_ORDER,
   P_COUNT
 };
 enum Int {
@@ -40,10 +45,19 @@ enum Int {
   I_WITH_AFF, I_L, I_FUSED, I_KEY_BITS, I_Q, I_S, I_T, I_E, I_V, I_P, I_W_NA,
   I_WITH_CONS, I_ZONE_BYTES, I_REGION_BYTES, I_LD, I_SS, I_AS, I_ZD, I_RD, I_SR, I_AR, I_AI,
   I_W_TS, I_W_IPA,
+  I_KW,
   I_COUNT
 };
 
 bool width_ok(long long w) { return w == 1 || w == 2 || w == 4; }
+
+using StageFn = cudaError_t (*)(const Args&, bool, int, int, cudaStream_t, int*);
+StageFn stage_fn(bool with_aff, bool with_cons) {
+  return with_aff && with_cons ? launch_stage<true, true>
+       : with_aff              ? launch_stage<true, false>
+       : with_cons             ? launch_stage<false, true>
+                               : launch_stage<false, false>;
+}
 
 }  // namespace
 }  // namespace k8s
@@ -63,7 +77,7 @@ extern "C" int k8s_fused_topk(const long long* ptrs, int n_ptrs, const long long
   const int splits = iv(I_SPLITS), sb = iv(I_STRATUM_BITS);
   const bool with_aff = iv(I_WITH_AFF) != 0, with_cons = iv(I_WITH_CONS) != 0;
   if (ts < 0 || ts > kMaxTaintSlots || m < 1 || m > 32 * kTolWords || k < 1 || k > kMaxK ||
-      splits < 1 || b < 1 || n < 0 || sb < 0 || sb > kJitterBits) {
+      splits < 1 || b < 1 || n < 0 || sb < 0 || sb > kJitterBits || iv(I_KW) < 1) {
     return (int)cudaErrorInvalidValue;
   }
   if (with_aff && (iv(I_Q) < 1 || iv(I_Q) > kMaxQueryKeys || iv(I_V) < 0 ||
@@ -107,6 +121,9 @@ extern "C" int k8s_fused_topk(const long long* ptrs, int n_ptrs, const long long
   a.rows_per_split = (n + splits - 1) / splits;
   a.part_idx = (int*)ptr(P_PART_IDX);
   a.part_prio = (int*)ptr(P_PART_PRIO);
+  a.gkey = (const int*)ptr(P_GKEY);
+  a.kw = iv(I_KW);
+  a.order = (const int*)ptr(P_ORDER);
 
   a.label_key = (const int*)ptr(P_LABEL_KEY);
   a.label_val = (const int*)ptr(P_LABEL_VAL);
@@ -170,11 +187,8 @@ extern "C" int k8s_fused_topk(const long long* ptrs, int n_ptrs, const long long
   const bool packed = iv(I_PACKED) != 0;
   const int kmax = kmax_bucket(k);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (with_aff && with_cons) err = launch_stage<true, true>(a, packed, splits, kmax, s);
-  else if (with_aff) err = launch_stage<true, false>(a, packed, splits, kmax, s);
-  else if (with_cons) err = launch_stage<false, true>(a, packed, splits, kmax, s);
-  else err = launch_stage<false, false>(a, packed, splits, kmax, s);
+  const StageFn stage = stage_fn(with_aff, with_cons);
+  cudaError_t err = stage(a, packed, splits, kmax, s, nullptr);
   if (err != cudaSuccess) return (int)err;
   int* oi = (int*)(uintptr_t)ptrs[P_OUT_IDX];
   int* op = (int*)(uintptr_t)ptrs[P_OUT_PRIO];
@@ -187,4 +201,17 @@ extern "C" int k8s_fused_topk(const long long* ptrs, int n_ptrs, const long long
     default: err = merge_splits<128>(a.part_idx, a.part_prio, b, k, splits, oi, op, s); break;
   }
   return (int)err;
+}
+
+// Resident blocks per SM of the kernel instantiation a launch with these
+// flags and k would use (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+// negative on error.
+extern "C" int k8s_fused_blocks_per_sm(int with_aff, int with_cons, int packed, int k) {
+  using namespace k8s;
+  if (k < 1 || k > kMaxK) return -(int)cudaErrorInvalidValue;
+  Args a{};
+  int blocks = 0;
+  const cudaError_t err =
+      stage_fn(with_aff != 0, with_cons != 0)(a, packed != 0, 0, kmax_bucket(k), nullptr, &blocks);
+  return err == cudaSuccess ? blocks : -(int)err;
 }

@@ -19,50 +19,71 @@
 // window-local; the caller adds its window offset.
 //
 // Bound on an H100: every stage is bound by operations, not bytes.  At the
-// main-path shapes (B = 4096 pods x a 53,248-row window) a wave evaluates
-// ~2.2e8 pod-node pairs over a few MB of node columns: tens of integer and
-// f32 operations per pair against ~40-200 bytes per node shared by 4096
-// pods.  The affinity stage adds, per pair, ~10 + V operations for each live
-// selector expression (V = values per In/NotIn set) plus the resolve of the
-// batch's query keys, amortised over a block's 128 pods; the constraint stage
-// adds ~15 operations and 2-3 cached loads per live ref, and the f32
-// divisions of the scores.
+// main-path shapes (B = 4096 pods x a 53,248-row window) a wave covers
+// ~2.2e8 pod-node pairs over a few MB of node columns.  The filters and
+// scores depend on the pod only through its per-pod inputs, and the pods
+// of a wave come from a few deployments, so the least work is the filter
+// and score chain once per (distinct pod group, row) plus a scan of a few
+// operations per pair for the pod's own hash bits and its top K.
 //
 // Design, and what it does about that bound:
 // - A block owns 128 pods (one per thread) x one contiguous split of the
 //   node range; nothing carries between blocks.  Partial [splits, B, K]
 //   lists are merged by a second small kernel with the same (prio, row)
 //   insertion, which keeps earlier-split-wins.
-// - Node rows are staged in 128-row shared-memory tiles with every quantity
-//   that does not depend on the pod precomputed once per tile (free
-//   capacity, f32 allocatable, the column half of the hash, decoded taint
-//   slots, widened zone/region ids), read by all threads at once.
-// - Affinity: per tile the block resolves the batch's Q query keys against
-//   the tile's label slots into shared memory (found, value id, numeric;
-//   last matching slot wins, as the Pallas loop does; the fused packed
-//   word decodes as key = w & (2^kb - 1), val = w >> kb).  Each thread then
-//   evaluates its pod's live selector expressions slot by slot over the
-//   128 rows into bit masks held in registers (nodeSelector AND, required
-//   terms OR-of-AND, one mask per preferred term), loading the pod's slot
-//   data once per tile.  The rows are padded to 129 so pods reading
-//   different keys hit different banks.  The Pallas one-hot matmuls over
-//   16-bit halves become these direct integer loads: ids and numerics
-//   compare exactly over the full i32 range.
-// - Constraints: per pair and live ref, the node count is a load of
-//   node_tab[slot * ld + row] through the window's column view (row stride
-//   ld, no copy), zone/region counts are tab[slot * Z + zone] from the
-//   small whole tables; per-pod ref records are [field][ref][B] so a
-//   warp's loads coalesce.  Refs that cannot change the result (not live,
-//   no required term, zero preferred sign) are skipped.
-// - Filters run first and skip the scoring of infeasible pairs; each
-//   thread keeps its pod's top K in registers, inserting by (prio, row).
+// - Pod groups, found on the device with no host sync.  The wrapper builds
+//   one i32 key row per pod from exactly the per-pod inputs the launched
+//   stages read (ops/fused_topk.py::group_key) and hands the pods over
+//   sorted by a hash of it (`order`).  Each thread compares its pod's key
+//   row word for word with its sorted predecessor's, and a warp-ballot
+//   prefix sum (block_groups) numbers the block's groups.  A hash collision
+//   only splits or interleaves groups: results never rest on the hash.
+// - Staging per (group, row).  Per tile the member of rank p of a group of
+//   m pods runs the filter and score chain for rows p, p + m, ... with its
+//   own (equal) inputs in registers and writes one word per (group, row):
+//   clip(score) << 20 | stratum | (column hash & m) where feasible, else
+//   -1.  Then every thread scans its group's words (topk_common.cuh
+//   scan_words: an xor of its row-hash bits, one compare, a rare insert).
+//   A group of one pod does not stage: it scans each word as it computes
+//   it, so a block of 128 distinct pods runs the chain per pair with
+//   128-row tiles, as before the redesign.
+// - The staged words take kStageWords (14 KB): tiles are 128 rows for up
+//   to 27 staged groups in a block, 64 for up to 52, else 32 (at most 64
+//   groups of two or more fit 128 pods), so the buffer always holds every
+//   staged group and no thread waits for a pass.
+// - The node columns of the next tile (the six i32 request/allocatable/
+//   name columns, pods_alloc, meta, zone and region) are copied with
+//   4-byte cp.async into a second shared buffer while the current tile is
+//   staged and scanned; spans align down to 4 bytes, so windows that start
+//   at any row and the i16/i8 packed columns need no alignment.  Label
+//   slots and count-table columns are read from global memory (label slots
+//   once per row, counts per (group, row), coalesced across a group's
+//   members).
+// - Per tile, thread t computes row t's column hash bits, decodes its
+//   hard/soft taint slots into shared memory and, with
+//   affinity, resolves the batch's Q query keys against row t's label
+//   slots into shared memory (found bits, value id, numeric; last matching
+//   slot wins, as the Pallas loop does; the fused packed word decodes as
+//   key = w & (2^kb - 1), val = w >> kb).  A member then evaluates its
+//   pod's live selector expressions at its own rows only, loading each
+//   expression once per tile, into bit masks held in registers.  The Pallas
+//   one-hot matmuls over 16-bit halves become these direct integer loads:
+//   ids and numerics compare exactly over the full i32 range.
+// - Constraints: per (group, row) and live ref, the node count is a load
+//   of node_tab[slot * ld + row] through the window's column view (row
+//   stride ld, no copy), zone/region counts are tab[slot * Z + zone] from
+//   the small whole tables; per-pod ref records are [field][ref][B].  Refs
+//   that cannot change the result are skipped.
+// - Tensor cores have no part: there is no product, only integer compares
+//   and a few f32 divisions per (group, row).
 //
 // Exactness: build with IEEE division and --fmad=false (never fast math) so
 // the f32 scores match the reference digit for digit before their floor;
 // the f32 expressions follow the Pallas kernel's order (pallas_topk.py:
 // 274-280, 435, 509-515, 534-554); ints convert to float round-to-nearest;
-// i32 sums wrap as in the reference; the hash, the (prio, row) insertion
-// and the split merge are topk_common.cuh's, shared with delta_topk.cu.
+// i32 sums wrap as in the reference; the hash, the scan, the (prio, row)
+// insertion and the split merge are topk_common.cuh's, shared with
+// delta_topk.cu.
 
 #pragma once
 
@@ -76,7 +97,9 @@
 namespace k8s {
 
 constexpr int kPods = 128;        // pods per block, one per thread
-constexpr int kTile = kPods;      // nodes staged per shared-memory tile
+constexpr int kTile = kPods;      // widest tile of node rows
+constexpr int kColWords = 132;    // span_words(kTile, 4), rounded up to 4
+static_assert(span_words(kTile, 4) <= kColWords, "a staged column span must fit");
 constexpr int kMaxTaintSlots = 16;
 constexpr int kTolWords = 4;      // tolerated bits per pod: max_taint_ids <= 128
 constexpr uint16_t kHardBit = 0x8000;
@@ -127,6 +150,10 @@ struct Args {
   int rows_per_split;
   int* part_idx;            // i32[splits, B, K]
   int* part_prio;
+  // ---- pod groups
+  const int* gkey;          // i32[B, kw]: the per-pod inputs of the launched stages
+  int kw;
+  const int* order;         // i32[B]: pods sorted by a hash of their key row
   // ---- affinity stage (pod arrays are the PodBatch's, row-major by pod)
   const int* label_key;     // i32[N, L]: keys, or fused val << key_bits | key
   const int* label_val;     // i32[N, L], unused when fused
@@ -193,78 +220,98 @@ __device__ __forceinline__ int wadd(int x, int y) { return (int)((uint32_t)x + (
 __device__ __forceinline__ int wsub(int x, int y) { return (int)((uint32_t)x - (uint32_t)y); }
 __device__ __forceinline__ int wmul(int x, int y) { return (int)((uint32_t)x * (uint32_t)y); }
 
-// Register arrays must be indexed statically: select word w of four.
-__device__ __forceinline__ uint32_t word_of(const uint32_t (&a)[kTile / 32], int w) {
-  uint32_t x = a[0];
-#pragma unroll
-  for (int i = 1; i < kTile / 32; ++i) x = (w == i) ? a[i] : x;
-  return x;
-}
-
-struct AffShared {
-  int qkey[kMaxQueryKeys];
-  // Row kMaxQueryKeys stays zero: a query index outside [0, Q) reads it,
-  // i.e. resolves to not-found, as the Pallas one-hot selection does.
-  int found[kMaxQueryKeys + 1][kResolveStride];
-  int val[kMaxQueryKeys + 1][kResolveStride];
-  int num[kMaxQueryKeys + 1][kResolveStride];
+// The node columns of one tile, copied asynchronously (see async_span).
+struct BaseRaw {
+  int cpu_alloc[kColWords];
+  int mem_alloc[kColWords];
+  int cpu_req[kColWords];
+  int mem_req[kColWords];
+  int pods_req[kColWords];
+  int name_id[kColWords];
+  int pods_alloc[kColWords];
+  int meta[kColWords];
 };
-struct ConsShared {
+struct ConsRaw {
+  int zone[kColWords];
+  int region[kColWords];
+};
+struct ConsShared {             // the tile's zone and region ids, widened
   int zone[kTile];
   int region[kTile];
 };
+struct AffShared {
+  int qkey[kMaxQueryKeys];
+  // Row kMaxQueryKeys stays not-found: a query index outside [0, Q) reads
+  // it, i.e. resolves to not-found, as the Pallas one-hot selection does.
+  uint32_t found[kMaxQueryKeys + 1][kTile / 32];   // bit j & 31 of word j >> 5: row j
+  int val[kMaxQueryKeys + 1][kResolveStride];
+  int num[kMaxQueryKeys + 1][kResolveStride];
+};
 struct NoShared {};
 
-// One selector expression over the 32 rows of word w: bit b is the result
-// for row w * 32 + b (match_expressions semantics, ops/label_match.py).
-__device__ __forceinline__ uint32_t expr_word(const AffShared& sa, int q, int op, int operand,
-                                              const int (&vals)[kMaxValues], int nv, int w) {
+// Register arrays must be indexed statically: select word w of four.
+__device__ __forceinline__ uint32_t word_of(const uint32_t (&x)[kTile / 32], int w) {
+  uint32_t v = x[0];
+#pragma unroll
+  for (int i = 1; i < kTile / 32; ++i) v = (w == i) ? x[i] : v;
+  return v;
+}
+
+// The rows of a member: the k-th row of the member of rank p in a group of
+// m pods is p + k * m.  One selector expression at the member's rows
+// 32 w .. 32 w + 31 (those below nmine): bit b is its result for row
+// p + (32 w + b) * m (match_expressions semantics, ops/label_match.py).
+__device__ __forceinline__ uint32_t expr_bits(const AffShared& sa, int q, int op, int operand,
+                                              const int (&vals)[kMaxValues], int nv, int p,
+                                              int m, int nmine, int w) {
   uint32_t bits = 0u;
-  const int* f = sa.found[q] + w * 32;
+  const int nb = min(32, nmine - 32 * w);
+  const uint32_t* fw = sa.found[q];
   switch (op) {
     case kOpIn:
-    case kOpNotIn: {
-      const int* val = sa.val[q] + w * 32;
-      for (int b = 0; b < 32; ++b) {
-        const int x = val[b];
+    case kOpNotIn:
+      for (int b = 0; b < nb; ++b) {
+        const int j = p + (32 * w + b) * m;
+        const int x = sa.val[q][j];
         bool in = false;
 #pragma unroll
         for (int i = 0; i < kMaxValues; ++i) in |= (i < nv) & (x == vals[i]);
-        const bool hit = (f[b] != 0) & in;
+        const bool hit = ((fw[j >> 5] >> (j & 31)) & 1u) & in;
         bits |= (uint32_t)(op == kOpIn ? hit : !hit) << b;
       }
       break;
-    }
     case kOpExists:
     case kOpDoesNotExist:
-      for (int b = 0; b < 32; ++b) {
-        bits |= (uint32_t)((f[b] != 0) == (op == kOpExists)) << b;
+      for (int b = 0; b < nb; ++b) {
+        const int j = p + (32 * w + b) * m;
+        bits |= (uint32_t)(((fw[j >> 5] >> (j & 31)) & 1u) == (op == kOpExists)) << b;
       }
       break;
     case kOpGt:
-    case kOpLt: {
+    case kOpLt:
       if (operand == kNoNumeric) break;
-      const int* num = sa.num[q] + w * 32;
-      for (int b = 0; b < 32; ++b) {
-        const int x = num[b];
-        const bool ok = (f[b] != 0) & (x != kNoNumeric) & (op == kOpGt ? x > operand : x < operand);
+      for (int b = 0; b < nb; ++b) {
+        const int j = p + (32 * w + b) * m;
+        const int x = sa.num[q][j];
+        const bool ok = ((fw[j >> 5] >> (j & 31)) & 1u) & (x != kNoNumeric) &
+                        (op == kOpGt ? x > operand : x < operand);
         bits |= (uint32_t)ok << b;
       }
       break;
-    }
     default:
       break;
   }
   return bits;
 }
 
-// AND of a term's live expressions over the tile -> tm; false if the term
-// has no valid expression (then it matches nothing).  `at` indexes the
-// term's first expression in the [B, terms, E] arrays.
-__device__ __forceinline__ bool term_words(const AffShared& sa, int ne, int nq, int nv,
-                                           const uint8_t* ev, const int* qidx, const int* op,
-                                           const int* num, const int* vals, size_t at,
-                                           uint32_t (&tm)[kTile / 32]) {
+// AND of a term's live expressions over the member's rows -> tm; false if
+// the term has no valid expression (then it matches nothing).  `at`
+// indexes the term's first expression in the [B, terms, E] arrays; the
+// expression's loads happen once per tile.
+__device__ __forceinline__ bool term_bits(const AffShared& sa, int ne, int nq, int nv,
+                                          const uint8_t* ev, const int* qidx, const int* op,
+                                          const int* num, const int* vals, size_t at, int p,
+                                          int m, int nmine, uint32_t (&tm)[kTile / 32]) {
   bool he = false;
 #pragma unroll
   for (int w = 0; w < kTile / 32; ++w) tm[w] = ~0u;
@@ -280,7 +327,9 @@ __device__ __forceinline__ bool term_words(const AffShared& sa, int ne, int nq, 
     const int o = op[j];
     const int operand = num[j];
 #pragma unroll
-    for (int w = 0; w < kTile / 32; ++w) tm[w] &= expr_word(sa, q, o, operand, vs, nv, w);
+    for (int w = 0; w < kTile / 32; ++w) {
+      if (32 * w < nmine) tm[w] &= expr_bits(sa, q, o, operand, vs, nv, p, m, nmine, w);
+    }
   }
   return he;
 }
@@ -304,30 +353,58 @@ __device__ __forceinline__ void count_of(const int* node_tab, const int* ztab, c
   }
 }
 
-__device__ __forceinline__ int widen(const void* p, int bytes, int r) {
-  return bytes == 1 ? (int)((const int8_t*)p)[r]
-       : bytes == 2 ? (int)((const int16_t*)p)[r]
-                    : ((const int*)p)[r];
-}
-
 template <bool PACKED, bool WITH_AFF, bool WITH_CONS, int KMAX>
 __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
-  __shared__ int s_free_cpu[kTile];
-  __shared__ int s_free_mem[kTile];
-  __shared__ int s_cpu_req[kTile];
-  __shared__ int s_mem_req[kTile];
-  __shared__ int s_name[kTile];
-  __shared__ float s_alloc_cpu[kTile];
-  __shared__ float s_alloc_mem[kTile];
-  __shared__ uint32_t s_col_hash[kTile];
-  __shared__ uint32_t s_stratum[kTile];
-  __shared__ int s_flags[kTile];                 // bit 0 row usable, bits 8+ taint count
-  __shared__ uint16_t s_taints[kTile][kMaxTaintSlots];  // tid | kHardBit
-  __shared__ std::conditional_t<WITH_AFF, AffShared, NoShared> sa;
+  __shared__ __align__(16) int s_words[kStageWords];   // [groups][tile + pad]
+  __shared__ BaseRaw s_raw[2];
+  __shared__ std::conditional_t<WITH_CONS, ConsRaw, NoShared> s_craw[2];
   __shared__ std::conditional_t<WITH_CONS, ConsShared, NoShared> sc;
+  __shared__ uint32_t s_colword[kTile];                // stratum | (column hash & m)
+  __shared__ uint16_t s_taints[kTile][kMaxTaintSlots];  // taint id | kHardBit, per row
+  __shared__ uint8_t s_ntaints[kTile];
+  __shared__ int s_start[kPods + 1];
+  __shared__ int s_warp[kPods / 32];
+  __shared__ std::conditional_t<WITH_AFF, AffShared, NoShared> sa;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kPods;
+  const int live_n = min(kPods, a.b - q0);
+  const bool here = tid < live_n;
+  const int pod = here ? a.order[q0 + tid] : 0;
+  if constexpr (WITH_AFF) {
+    if (tid < a.q) sa.qkey[tid] = a.qkey[tid];
+    if (tid < kTile / 32) sa.found[kMaxQueryKeys][tid] = 0u;
+    sa.val[kMaxQueryKeys][tid] = 0;
+    sa.num[kMaxQueryKeys][tid] = 0;
+  }
+
+  // This pod's group: a new one unless its key row equals its sorted
+  // predecessor's, word for word.
+  bool starts = false;
+  if (here && tid > 0) {
+    const int* k0 = a.gkey + (size_t)pod * a.kw;
+    const int* k1 = a.gkey + (size_t)a.order[q0 + tid - 1] * a.kw;
+    int diff = 0;
+#pragma unroll 8
+    for (int w = 0; w < a.kw; ++w) diff |= __ldg(k0 + w) ^ __ldg(k1 + w);   // loads overlap
+    starts = diff != 0;
+  }
+  int groups;
+  const int g = block_groups<kPods>(starts, live_n, s_start, s_warp, groups);
+  const int rank = here ? tid - s_start[g] : 0;
+  const int gsize = here ? s_start[g + 1] - s_start[g] : 1;
+  // Groups of two or more pods stage their words (s_start is reused for
+  // their staged row); a group of one scans its words as it computes them.
+  const bool leads = here && rank == 0 && gsize > 1;
+  int staged;
+  const int srow = block_prefix<kPods>(leads, s_warp, staged);
+  if (leads) s_start[g] = srow;
+  __syncthreads();
+  const int slot = here && gsize > 1 ? s_start[g] : -1;
+  const int tile = tile_rows_for(staged);
+  int* const words = s_words + max(slot, 0) * (tile + kStagePad);
 
   const int split = blockIdx.y;
-  const int pod = blockIdx.x * kPods + threadIdx.x;
   const int row0 = split * a.rows_per_split;
   const int row1 = min(row0 + a.rows_per_split, a.n);
   const int low = kJitterBits - a.stratum_bits;
@@ -338,8 +415,8 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
   uint32_t tol[kTolWords];
 #pragma unroll
   for (int w = 0; w < kTolWords; ++w) tol[w] = 0u;
-  uint32_t row_hash = 0u;
-  if (pod < a.b) {
+  int rhm = 0;
+  if (here) {
     live = a.p_valid[pod] != 0;
     pcpu = a.p_cpu[pod];
     pmem = a.p_mem[pod];
@@ -355,7 +432,7 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
       tol[w] = word;
     }
     const uint32_t row_id = (uint32_t)pod + (uint32_t)a.row_base;
-    row_hash = hash_row(a.seed, row_id);
+    rhm = (int)(hash_row(a.seed, row_id) & low_mask);
   }
 
   // Per-pod constants of the affinity stage: required terms present, and
@@ -366,11 +443,7 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
 #pragma unroll
   for (int x = 0; x < kMaxPrefTerms; ++x) pref_wt[x] = 0.0f;
   if constexpr (WITH_AFF) {
-    if (threadIdx.x < a.q) sa.qkey[threadIdx.x] = a.qkey[threadIdx.x];
-    sa.found[kMaxQueryKeys][threadIdx.x] = 0;
-    sa.val[kMaxQueryKeys][threadIdx.x] = 0;
-    sa.num[kMaxQueryKeys][threadIdx.x] = 0;
-    if (pod < a.b) {
+    if (here) {
       for (int x = 0; x < a.t; ++x) has_terms |= a.req_tv[(size_t)pod * a.t + x] != 0;
 #pragma unroll
       for (int x = 0; x < kMaxPrefTerms; ++x) {
@@ -389,7 +462,7 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
   float nrefs_f = 1.0f, bound_f = 1.0f;
   bool has_pref = false;
   if constexpr (WITH_CONS) {
-    if (pod < a.b) {
+    if (here) {
       bound_f = (float)a.cs[kCsBound * a.b + pod];
       has_pref = a.cs[kCsHasPref * a.b + pod] != 0;
       nrefs_f = (float)a.cs[kCsNrefs * a.b + pod];
@@ -404,54 +477,86 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
     ti[j] = -1;
   }
 
-  for (int base = row0; base < row1; base += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    const int r = base + threadIdx.x;
-    if (r < row1) {
-      const int pods_alloc = PACKED ? (int)((const int16_t*)a.pods_alloc)[r]
-                                    : ((const int*)a.pods_alloc)[r];
-      const int meta = PACKED ? a.meta[r] : 0;
-      bool usable = pods_alloc - a.pods_req[r] >= 1;
-      if (PACKED) usable = usable && (meta & 1);
-      const int cpu_alloc = a.cpu_alloc[r];
-      const int mem_alloc = a.mem_alloc[r];
-      s_free_cpu[threadIdx.x] = cpu_alloc - a.cpu_req[r];
-      s_free_mem[threadIdx.x] = mem_alloc - a.mem_req[r];
-      s_cpu_req[threadIdx.x] = a.cpu_req[r];
-      s_mem_req[threadIdx.x] = a.mem_req[r];
-      s_name[threadIdx.x] = a.name_id[r];
-      s_alloc_cpu[threadIdx.x] = __int2float_rn(max(cpu_alloc, 1));
-      s_alloc_mem[threadIdx.x] = __int2float_rn(max(mem_alloc, 1));
-      const uint32_t col = (uint32_t)r + (uint32_t)a.col_base;
-      s_col_hash[threadIdx.x] = hash_col(a.seed, col);
-      s_stratum[threadIdx.x] = hash_stratum(col, a.stratum_bits, low);
+  constexpr int kPodsAllocBytes = PACKED ? 2 : 4;
+  // Start the copies of rows [base, base + tile) into buffer buf.
+  auto start_copies = [&](int base, int buf) {
+    const int rows = min(tile, row1 - base);
+    BaseRaw& r = s_raw[buf];
+    async_span(r.cpu_alloc, a.cpu_alloc, 4, base, rows, tid, kPods);
+    async_span(r.mem_alloc, a.mem_alloc, 4, base, rows, tid, kPods);
+    async_span(r.cpu_req, a.cpu_req, 4, base, rows, tid, kPods);
+    async_span(r.mem_req, a.mem_req, 4, base, rows, tid, kPods);
+    async_span(r.pods_req, a.pods_req, 4, base, rows, tid, kPods);
+    async_span(r.name_id, a.name_id, 4, base, rows, tid, kPods);
+    async_span(r.pods_alloc, a.pods_alloc, kPodsAllocBytes, base, rows, tid, kPods);
+    if (PACKED) async_span(r.meta, a.meta, 4, base, rows, tid, kPods);
+    if constexpr (WITH_CONS) {
+      async_span(s_craw[buf].zone, a.zone, a.zone_bytes, base, rows, tid, kPods);
+      async_span(s_craw[buf].region, a.region, a.region_bytes, base, rows, tid, kPods);
+    }
+    cp_async_commit();
+  };
+  if (row0 < row1) start_copies(row0, 0);
+
+  uint32_t okw[kTile / 32];                      // affinity masks of this member's rows
+  uint32_t prefw[kMaxPrefTerms][kTile / 32];
+  int buf = 0;
+  for (int base = row0; base < row1; base += tile, buf ^= 1) {
+    if (base + tile < row1) {
+      start_copies(base + tile, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile's columns have landed; the last scan is done
+    const int count = min(tile, row1 - base);
+    const int count4 = (count + 3) & ~3;
+
+    // Per row: the column half of the hash and, with affinity, the resolve
+    // of the batch's query keys against the row's label slots.
+    if (tid < count) {
+      const uint32_t col = (uint32_t)(base + tid) + (uint32_t)a.col_base;
+      s_colword[tid] = jitter_of(hash_stratum(col, a.stratum_bits, low), 0u,
+                                 hash_col(a.seed, col), low_mask);
+      const int meta = PACKED ? s_raw[buf].meta[tid] : 0;
+      // All slots' loads first, so they overlap.
+      int tids[kMaxTaintSlots], effs[kMaxTaintSlots];
+#pragma unroll
+      for (int t = 0; t < kMaxTaintSlots; ++t) {
+        const size_t at = (size_t)(base + tid) * a.ts + t;
+        tids[t] = t >= a.ts ? 0 : PACKED ? (int)((const int16_t*)a.taint_id)[at]
+                                         : ((const int*)a.taint_id)[at];
+        effs[t] = t >= a.ts ? 0 : PACKED ? (meta >> (1 + 2 * t)) & 3 : a.taint_eff[at];
+      }
       int nt = 0;
-      for (int t = 0; t < a.ts; ++t) {
-        const size_t at = (size_t)r * a.ts + t;
-        const int tid = PACKED ? (int)((const int16_t*)a.taint_id)[at]
-                               : ((const int*)a.taint_id)[at];
-        const int eff = PACKED ? (meta >> (1 + 2 * t)) & 3 : a.taint_eff[at];
+#pragma unroll
+      for (int t = 0; t < kMaxTaintSlots; ++t) {
+        const int tid_t = tids[t];
+        const int eff = effs[t];
         const bool hard = eff == 1 || eff == 3;   // NoSchedule, NoExecute
         const bool soft = eff == 2;               // PreferNoSchedule
         // Slot id 0 is "no taint"; ids outside [0, M) match no toleration
         // column, as the Pallas one-hot gather counts nothing for them.
-        if (tid > 0 && tid < a.m && (hard || soft)) {
-          s_taints[threadIdx.x][nt++] = (uint16_t)(tid | (hard ? kHardBit : 0));
+        if (tid_t > 0 && tid_t < a.m && (hard || soft)) {
+          s_taints[tid][nt++] = (uint16_t)(tid_t | (hard ? kHardBit : 0));
         }
       }
-      s_flags[threadIdx.x] = (usable ? 1 : 0) | (nt << 8);
-    } else {
-      s_flags[threadIdx.x] = 0;
+      s_ntaints[tid] = (uint8_t)nt;
+      if constexpr (WITH_CONS) {
+        sc.zone[tid] = span_at(s_craw[buf].zone, span_off(a.zone, a.zone_bytes, base),
+                               a.zone_bytes, tid);
+        sc.region[tid] = span_at(s_craw[buf].region, span_off(a.region, a.region_bytes, base),
+                                 a.region_bytes, tid);
+      }
     }
     if constexpr (WITH_AFF) {
-      // Resolve the batch's query keys against this row's label slots.
-      for (int x = 0; x < a.q; ++x) {
-        sa.found[x][threadIdx.x] = 0;
-        sa.val[x][threadIdx.x] = 0;
-        sa.num[x][threadIdx.x] = 0;
-      }
-      if (r < row1) {
-        const size_t lb = (size_t)r * a.l;
+      uint32_t fbits = 0u;
+      if (tid < count) {
+        for (int x = 0; x < a.q; ++x) {
+          sa.val[x][tid] = 0;
+          sa.num[x][tid] = 0;
+        }
+        const size_t lb = (size_t)(base + tid) * a.l;
         for (int x = 0; x < a.l; ++x) {
           const int word = a.label_key[lb + x];
           const int lk = a.fused ? (word & ((1 << a.key_bits) - 1)) : word;
@@ -460,106 +565,57 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
           const int ln = a.label_num[lb + x];
           for (int y = 0; y < a.q; ++y) {
             if (sa.qkey[y] == lk) {               // last matching slot wins
-              sa.found[y][threadIdx.x] = 1;
-              sa.val[y][threadIdx.x] = lv;
-              sa.num[y][threadIdx.x] = ln;
+              fbits |= 1u << y;
+              sa.val[y][tid] = lv;
+              sa.num[y][tid] = ln;
             }
           }
         }
       }
-    }
-    if constexpr (WITH_CONS) {
-      sc.zone[threadIdx.x] = r < row1 ? widen(a.zone, a.zone_bytes, r) : 0;
-      sc.region[threadIdx.x] = r < row1 ? widen(a.region, a.region_bytes, r) : 0;
+#pragma unroll
+      for (int y = 0; y < kMaxQueryKeys; ++y) {
+        const uint32_t bits = __ballot_sync(0xFFFFFFFFu, (fbits >> y) & 1u);
+        if ((tid & 31) == 0) sa.found[y][tid >> 5] = bits;
+      }
     }
     __syncthreads();
 
-    if (!live) continue;
-    const int count = min(kTile, row1 - base);
-
-    // Affinity masks of this pod over the tile: ok (nodeSelector AND the
-    // required terms) and one mask per preferred term.
-    uint32_t okw[kTile / 32];
-    uint32_t prefw[kMaxPrefTerms][kTile / 32];
-    if constexpr (WITH_AFF) {
-#pragma unroll
-      for (int w = 0; w < kTile / 32; ++w) okw[w] = ~0u;
-      for (int x = 0; x < a.s; ++x) {
-        const size_t at = (size_t)pod * a.s + x;
-        if (!a.sel_valid[at]) continue;
-        int q = a.sel_qidx[at];
-        q = (q >= 0 && q < a.q) ? q : kMaxQueryKeys;
-        int vs[kMaxValues];
-#pragma unroll
-        for (int i = 0; i < kMaxValues; ++i) vs[i] = 0;
-        vs[0] = a.sel_val[at];
-#pragma unroll
-        for (int w = 0; w < kTile / 32; ++w) okw[w] &= expr_word(sa, q, kOpIn, 0, vs, 1, w);
-      }
-      if (has_terms) {
-        uint32_t any[kTile / 32];
-#pragma unroll
-        for (int w = 0; w < kTile / 32; ++w) any[w] = 0u;
-        for (int x = 0; x < a.t; ++x) {
-          const size_t at = (size_t)pod * a.t + x;
-          if (!a.req_tv[at]) continue;
-          uint32_t tm[kTile / 32];
-          if (term_words(sa, a.e, a.q, a.v, a.req_ev, a.req_qidx, a.req_op, a.req_num,
-                         a.req_vals, at * a.e, tm)) {
-#pragma unroll
-            for (int w = 0; w < kTile / 32; ++w) any[w] |= tm[w];
-          }
-        }
-#pragma unroll
-        for (int w = 0; w < kTile / 32; ++w) okw[w] &= any[w];
-      }
-#pragma unroll
-      for (int x = 0; x < kMaxPrefTerms; ++x) {
-#pragma unroll
-        for (int w = 0; w < kTile / 32; ++w) prefw[x][w] = 0u;
-        // Dead terms (not set, or no valid expression) keep an empty mask.
-        if (x < a.p && a.w_na) {
-          const size_t at = (size_t)pod * a.p + x;
-          if (a.pref_tv[at]) {
-            uint32_t tm[kTile / 32];
-            if (term_words(sa, a.e, a.q, a.v, a.pref_ev, a.pref_qidx, a.pref_op,
-                           a.pref_num, a.pref_vals, at * a.e, tm)) {
-#pragma unroll
-              for (int w = 0; w < kTile / 32; ++w) prefw[x][w] = tm[w];
-            }
-          }
-        }
-      }
-    }
-
-    for (int j = 0; j < count; ++j) {
-      if constexpr (WITH_AFF) {
-        if (!((word_of(okw, j >> 5) >> (j & 31)) & 1u)) continue;
-      }
-      const int flags = s_flags[j];
-      if (!(flags & 1)) continue;
-      if (pcpu > s_free_cpu[j] || pmem > s_free_mem[j]) continue;
-      if (pnn != 0 && pnn != s_name[j]) continue;
-      const int nt = flags >> 8;
+    // Filter and score of (this pod's group, row j) -> its staged word.
+    const BaseRaw& R = s_raw[buf];
+    auto word_at = [&](int j, int k) -> int {
+      const int row = base + j;
+      const int meta = PACKED ? R.meta[j] : 0;
+      const int pods_alloc = span_at(R.pods_alloc, span_off(a.pods_alloc, kPodsAllocBytes, base),
+                                     kPodsAllocBytes, j);
+      bool usable = pods_alloc - R.pods_req[j] >= 1;
+      if (PACKED) usable = usable && (meta & 1);
+      if (!usable) return -1;
+      const int cpu_alloc = R.cpu_alloc[j];
+      const int mem_alloc = R.mem_alloc[j];
+      const int cpu_req = R.cpu_req[j];
+      const int mem_req = R.mem_req[j];
+      if (pcpu > cpu_alloc - cpu_req || pmem > mem_alloc - mem_req) return -1;
+      if (pnn != 0 && pnn != R.name_id[j]) return -1;
       int soft_cnt = 0;
-      bool hard_hit = false;
+      const int nt = s_ntaints[j];
       for (int t = 0; t < nt; ++t) {
         const int e = s_taints[j][t];
-        const int tid = e & 0x7FFF;
+        const int tid_t = e & 0x7FFF;
         uint32_t word = 0u;
 #pragma unroll
-        for (int w = 0; w < kTolWords; ++w) word = (w == (tid >> 5)) ? tol[w] : word;
-        if (!((word >> (tid & 31)) & 1u)) {
-          if (e & kHardBit) hard_hit = true;
-          else ++soft_cnt;
+        for (int w = 0; w < kTolWords; ++w) word = (w == (tid_t >> 5)) ? tol[w] : word;
+        if (!((word >> (tid_t & 31)) & 1u)) {
+          if (e & kHardBit) return -1;
+          ++soft_cnt;
         }
       }
-      if (hard_hit) continue;
+      if constexpr (WITH_AFF) {
+        if (!((word_of(okw, k >> 5) >> (k & 31)) & 1u)) return -1;
+      }
 
       int score = 0;
       if constexpr (WITH_CONS) {
         // PodTopologySpread: skew filter, then the score of each live ref.
-        const int row = base + j;
         const int zone = sc.zone[j];
         const int region = sc.region[j];
         bool ok = true;
@@ -588,7 +644,7 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
             sp_acc = sp_acc + s_ref * (lv ? 1.0f : 0.0f);
           }
         }
-        if (!ok) continue;
+        if (!ok) return -1;
         // InterPodAffinity: the pod's own terms (required filter,
         // preferred score) ...
         float raw = 0.0f;
@@ -620,7 +676,7 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
                    region, cnt, dok);
           ok = !dok || cnt == 0;
         }
-        if (!ok) continue;
+        if (!ok) return -1;
         if (a.w_ts) score += (int)floorf(sp_acc / nrefs_f) * a.w_ts;
         if (a.w_ipa) {
           const float ipa =
@@ -630,10 +686,10 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
       }
 
       if (a.w_la || a.w_ba) {
-        const float alloc_cpu = s_alloc_cpu[j];
-        const float alloc_mem = s_alloc_mem[j];
-        const float cpu_after = __int2float_rn(s_cpu_req[j] + pcpu);
-        const float mem_after = __int2float_rn(s_mem_req[j] + pmem);
+        const float alloc_cpu = __int2float_rn(max(cpu_alloc, 1));
+        const float alloc_mem = __int2float_rn(max(mem_alloc, 1));
+        const float cpu_after = __int2float_rn(cpu_req + pcpu);
+        const float mem_after = __int2float_rn(mem_req + pmem);
         if (a.w_la) {
           const float la = 50.0f * (fmaxf((alloc_cpu - cpu_after) / alloc_cpu, 0.0f) +
                                     fmaxf((alloc_mem - mem_after) / alloc_mem, 0.0f));
@@ -656,7 +712,7 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
 #pragma unroll
           for (int x = 0; x < kMaxPrefTerms; ++x) {
             if (x < a.p) {
-              const float hit = (float)((word_of(prefw[x], j >> 5) >> (j & 31)) & 1u);
+              const float hit = (float)((word_of(prefw[x], k >> 5) >> (k & 31)) & 1u);
               na_acc = na_acc + hit * pref_wt[x];
             }
           }
@@ -665,14 +721,83 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
         }
       }
       score = min(max(score, 0), kMaxScore);
-      const uint32_t jitter = jitter_of(s_stratum[j], row_hash, s_col_hash[j], low_mask);
-      const int prio = (score << kJitterBits) | (int)jitter;
-      const int row = base + j;
-      if (beats(prio, row, tp[KMAX - 1], ti[KMAX - 1])) insert<KMAX>(tp, ti, prio, row);
+      return (score << kJitterBits) | (int)s_colword[j];
+    };
+
+    if (live) {
+      // The member of rank p of a group of m takes rows p, p + m, ...
+      const int nmine = rank < count ? (count - 1 - rank) / gsize + 1 : 0;
+      if constexpr (WITH_AFF) {
+        // This member's affinity masks: ok (nodeSelector AND the required
+        // terms) and one per preferred term, bit k for its k-th row.
+#pragma unroll
+        for (int w = 0; w < kTile / 32; ++w) okw[w] = ~0u;
+        for (int x = 0; x < a.s; ++x) {
+          const size_t at = (size_t)pod * a.s + x;
+          if (!a.sel_valid[at]) continue;
+          int q = a.sel_qidx[at];
+          q = (q >= 0 && q < a.q) ? q : kMaxQueryKeys;
+          int vs[kMaxValues];
+#pragma unroll
+          for (int i = 0; i < kMaxValues; ++i) vs[i] = 0;
+          vs[0] = a.sel_val[at];
+#pragma unroll
+          for (int w = 0; w < kTile / 32; ++w) {
+            if (32 * w < nmine) okw[w] &= expr_bits(sa, q, kOpIn, 0, vs, 1, rank, gsize, nmine, w);
+          }
+        }
+        if (has_terms) {
+          uint32_t any[kTile / 32];
+#pragma unroll
+          for (int w = 0; w < kTile / 32; ++w) any[w] = 0u;
+          for (int x = 0; x < a.t; ++x) {
+            const size_t at = (size_t)pod * a.t + x;
+            if (!a.req_tv[at]) continue;
+            uint32_t tm[kTile / 32];
+            if (term_bits(sa, a.e, a.q, a.v, a.req_ev, a.req_qidx, a.req_op, a.req_num,
+                          a.req_vals, at * a.e, rank, gsize, nmine, tm)) {
+#pragma unroll
+              for (int w = 0; w < kTile / 32; ++w) any[w] |= tm[w];
+            }
+          }
+#pragma unroll
+          for (int w = 0; w < kTile / 32; ++w) okw[w] &= any[w];
+        }
+#pragma unroll
+        for (int x = 0; x < kMaxPrefTerms; ++x) {
+#pragma unroll
+          for (int w = 0; w < kTile / 32; ++w) prefw[x][w] = 0u;
+          // Dead terms (not set, or no valid expression) keep an empty mask.
+          if (x < a.p && a.w_na) {
+            const size_t at = (size_t)pod * a.p + x;
+            if (a.pref_tv[at]) {
+              uint32_t tm[kTile / 32];
+              if (term_bits(sa, a.e, a.q, a.v, a.pref_ev, a.pref_qidx, a.pref_op, a.pref_num,
+                            a.pref_vals, at * a.e, rank, gsize, nmine, tm)) {
+#pragma unroll
+                for (int w = 0; w < kTile / 32; ++w) prefw[x][w] = tm[w];
+              }
+            }
+          }
+        }
+      }
+      if (slot < 0) {
+        // A group of one: scan each word as it is computed.
+        for (int j = 0; j < count; ++j) {
+          const int prio = word_at(j, j) ^ rhm;
+          if (prio > tp[KMAX - 1]) insert_later<KMAX>(tp, ti, prio, base + j);
+        }
+      } else {
+        for (int j = rank, k = 0; j < count4; j += gsize, ++k) {
+          words[j] = j < count ? word_at(j, k) : -1;
+        }
+      }
     }
+    __syncthreads();
+    if (live && slot >= 0) scan_words<KMAX>(words, count4, base, rhm, tp, ti);
   }
 
-  if (pod < a.b) {
+  if (here) {
     const size_t out = ((size_t)split * a.b + pod) * a.k;
     for (int j = 0; j < a.k; ++j) {
       // Register arrays must be indexed statically: select slot j.
@@ -690,28 +815,52 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
   }
 }
 
-template <bool WITH_AFF, bool WITH_CONS, int KMAX>
-cudaError_t launch_kernel(const Args& a, bool packed, dim3 grid, cudaStream_t stream) {
-  if (packed) {
-    fused_topk_kernel<true, WITH_AFF, WITH_CONS, KMAX><<<grid, kPods, 0, stream>>>(a);
-  } else {
-    fused_topk_kernel<false, WITH_AFF, WITH_CONS, KMAX><<<grid, kPods, 0, stream>>>(a);
+// Eight blocks of ~28 KB of shared memory need the largest carveout; set
+// once per instantiation.
+template <bool PACKED, bool WITH_AFF, bool WITH_CONS, int KMAX>
+cudaError_t prepare_one() {
+  static const cudaError_t carve = cudaFuncSetAttribute(
+      fused_topk_kernel<PACKED, WITH_AFF, WITH_CONS, KMAX>,
+      cudaFuncAttributePreferredSharedMemoryCarveout, (int)cudaSharedmemCarveoutMaxShared);
+  return carve;
+}
+
+// Launch one instantiation, or (grid.x == 0) write its resident blocks
+// per SM to *blocks instead.
+template <bool PACKED, bool WITH_AFF, bool WITH_CONS, int KMAX>
+cudaError_t launch_one(const Args& a, dim3 grid, cudaStream_t stream, int* blocks) {
+  const cudaError_t carve = prepare_one<PACKED, WITH_AFF, WITH_CONS, KMAX>();
+  if (carve != cudaSuccess) return carve;
+  if (grid.x == 0) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, fused_topk_kernel<PACKED, WITH_AFF, WITH_CONS, KMAX>, kPods, 0);
   }
+  fused_topk_kernel<PACKED, WITH_AFF, WITH_CONS, KMAX><<<grid, kPods, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool WITH_AFF, bool WITH_CONS, int KMAX>
+cudaError_t launch_kernel(const Args& a, bool packed, dim3 grid, cudaStream_t stream,
+                          int* blocks) {
+  return packed ? launch_one<true, WITH_AFF, WITH_CONS, KMAX>(a, grid, stream, blocks)
+                : launch_one<false, WITH_AFF, WITH_CONS, KMAX>(a, grid, stream, blocks);
 }
 
 // One stage configuration, every K bucket; each is instantiated in its own
 // translation unit (fused_topk_<stage>.cu) so the builds run in parallel.
+// With splits == 0 it launches nothing and writes the resident blocks per
+// SM of the instantiation to *blocks.
 template <bool WITH_AFF, bool WITH_CONS>
-cudaError_t launch_stage(const Args& a, bool packed, int splits, int kmax, cudaStream_t stream) {
-  const dim3 grid((a.b + kPods - 1) / kPods, splits);
+cudaError_t launch_stage(const Args& a, bool packed, int splits, int kmax, cudaStream_t stream,
+                         int* blocks) {
+  const dim3 grid(splits ? (a.b + kPods - 1) / kPods : 0, splits ? splits : 1);
   switch (kmax) {
-    case 4: return launch_kernel<WITH_AFF, WITH_CONS, 4>(a, packed, grid, stream);
-    case 8: return launch_kernel<WITH_AFF, WITH_CONS, 8>(a, packed, grid, stream);
-    case 16: return launch_kernel<WITH_AFF, WITH_CONS, 16>(a, packed, grid, stream);
-    case 32: return launch_kernel<WITH_AFF, WITH_CONS, 32>(a, packed, grid, stream);
-    case 64: return launch_kernel<WITH_AFF, WITH_CONS, 64>(a, packed, grid, stream);
-    case 128: return launch_kernel<WITH_AFF, WITH_CONS, 128>(a, packed, grid, stream);
+    case 4: return launch_kernel<WITH_AFF, WITH_CONS, 4>(a, packed, grid, stream, blocks);
+    case 8: return launch_kernel<WITH_AFF, WITH_CONS, 8>(a, packed, grid, stream, blocks);
+    case 16: return launch_kernel<WITH_AFF, WITH_CONS, 16>(a, packed, grid, stream, blocks);
+    case 32: return launch_kernel<WITH_AFF, WITH_CONS, 32>(a, packed, grid, stream, blocks);
+    case 64: return launch_kernel<WITH_AFF, WITH_CONS, 64>(a, packed, grid, stream, blocks);
+    case 128: return launch_kernel<WITH_AFF, WITH_CONS, 128>(a, packed, grid, stream, blocks);
     default: return cudaErrorInvalidValue;
   }
 }

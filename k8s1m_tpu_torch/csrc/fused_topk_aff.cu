@@ -5,5 +5,6 @@
 #include "fused_topk.cuh"
 
 namespace k8s {
-template cudaError_t launch_stage<true, false>(const Args&, bool, int, int, cudaStream_t);
+template cudaError_t launch_stage<true, false>(const Args&, bool, int, int, cudaStream_t,
+                                                  int*);
 }  // namespace k8s

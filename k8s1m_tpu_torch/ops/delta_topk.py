@@ -135,6 +135,18 @@ def _launch(pmask, pscore, slot_ids, seed, *, k, stratum_bits, row_base, col_bas
     return out_idx, out_prio
 
 
+def blocks_per_sm(k: int) -> int:
+    """Resident blocks per SM of the kernel instantiation a launch with
+    this ``k`` uses (CUDA's occupancy calculator; needs the card)."""
+    fn = _build.load("delta_topk").k8s_delta_blocks_per_sm
+    fn.argtypes = (ctypes.c_int,)
+    fn.restype = ctypes.c_int
+    n = fn(k)
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {-n}")
+    return n
+
+
 def _kernel_entry():
     lib = _build.load("delta_topk")
     fn = lib.k8s_delta_topk

@@ -27,13 +27,19 @@ then ``clip(score, 0, 2047) << 20 | hash_jitter`` and each pod's top K by
   tie order.
 - ``candidates`` is the counterpart of ``pallas_candidates``: the top K
   plus the free-capacity/topology payload gathered at the candidate rows.
+- ``group_key`` / ``group_order`` are what the kernel's pod groups rest
+  on: one i32 key row per pod holding exactly the per-pod inputs the
+  launched stages read, and the pods sorted by a hash of it.  The kernel
+  compares key rows exactly, so the hash only decides how pods line up.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import operator
 
+import numpy as np
 import torch
 
 from k8s1m_tpu_torch.config import (
@@ -77,6 +83,7 @@ _PTRS = (
     "zone", "region", "spread_node", "tgt_node", "own_node",
     "spread_zone", "spread_region", "tgt_zone", "tgt_region", "own_zone", "own_region",
     "sp", "ia", "ii", "cs",
+    "gkey", "order",
 )
 _INTS = (
     "packed", "n", "ts", "b", "m", "seed", "row_base", "col_base", "stratum_bits",
@@ -84,6 +91,7 @@ _INTS = (
     "with_aff", "l", "fused", "key_bits", "q", "s", "t", "e", "v", "p", "w_na",
     "with_cons", "zone_bytes", "region_bytes", "ld", "ss", "as", "zd", "rd", "sr", "ar", "ai",
     "w_ts", "w_ipa",
+    "kw",
 )
 
 
@@ -198,8 +206,79 @@ def _cons_pod_inputs(batch, stats) -> dict:
     }
 
 
-def _launch(table, batch, seed, profile, *, k, row_base, col_base, stratum_bits,
-            with_affinity, constraints, stats):
+_AFF_FIELDS = (
+    "sel_valid", "sel_qidx", "sel_val", "req_term_valid", "req_expr_valid", "req_qidx",
+    "req_op", "req_num", "req_vals", "pref_term_valid", "pref_weight", "pref_expr_valid",
+    "pref_qidx", "pref_op", "pref_num", "pref_vals",
+)
+
+
+def group_key(batch, *, with_affinity: bool = False, cons_inputs=None) -> torch.Tensor:
+    """i32[B, W]: per pod, exactly the per-pod inputs the kernel reads for
+    the launched stages — valid, cpu, mem, nodeName id and the tolerated
+    row (as bytes, four to a word); with affinity every ``sel_*``/``req_*``/
+    ``pref_*`` field; with constraints the ``sp``/``ia``/``ii`` record
+    columns and ``cs`` (``cons_inputs``, laid out as ``_cons_pod_inputs``
+    gives them).  Pods with equal rows get equal results up to their own
+    row hash."""
+    i32 = torch.int32
+    b = batch.batch
+    tol = batch.tolerated.view(torch.uint8)
+    if tol.shape[1] % 4:
+        tol = torch.nn.functional.pad(tol, (0, 4 - tol.shape[1] % 4))
+    parts = [
+        torch.stack([batch.valid.to(i32), batch.cpu, batch.mem, batch.node_name_id], dim=1),
+        tol.contiguous().view(i32),
+    ]
+    if with_affinity:
+        parts += [getattr(batch, f).reshape(b, -1).to(i32) for f in _AFF_FIELDS]
+    if cons_inputs is not None:
+        parts += [cons_inputs[f].permute(2, 0, 1).reshape(b, -1) for f in ("sp", "ia", "ii")]
+        parts.append(cons_inputs["cs"].t())
+    return torch.cat(parts, dim=1).contiguous()
+
+
+@functools.lru_cache(maxsize=32)
+def _hash_weights(width: int, device: torch.device) -> torch.Tensor:
+    # Below 2^20, so the int64 sum of up to 2^11 words of |x| < 2^31 never
+    # wraps; fixed, so the order is a function of the batch alone.
+    w = np.random.default_rng(width).integers(1, 1 << 20, width)
+    return torch.from_numpy(w).to(device)
+
+
+def group_order(key: torch.Tensor) -> torch.Tensor:
+    """i32[B]: the pods sorted (stably) by a hash of their key rows, so
+    pods with equal rows sit next to each other — unless another row
+    collides with their hash, which only splits their group."""
+    if key.shape[1] > 1 << 11:
+        raise ValueError(f"group key rows are at most {1 << 11} words, got {key.shape[1]}")
+    h = (key.to(torch.int64) * _hash_weights(key.shape[1], key.device)).sum(dim=1)
+    return torch.argsort(h, stable=True).to(torch.int32)
+
+
+def splits_for(b: int, n: int, sms: int, per_sm: int) -> int:
+    """Node splits per pod tile: one wave of ``per_sm`` resident blocks on
+    each of ``sms`` SMs (a second, partial wave would run on a few SMs
+    alone), no split shorter than one 128-row tile."""
+    pod_tiles = -(-b // POD_TILE)
+    return max(1, min(per_sm * sms // pod_tiles, -(-n // POD_TILE)))
+
+
+def _launch(table, batch, seed, profile, **kw):
+    run, out = prepare_launch(table, batch, seed, profile, **kw)
+    run()
+    return out
+
+
+def prepare_launch(table, batch, seed, profile, *, k, row_base=0, col_base=0,
+                   stratum_bits=0, with_affinity=False, constraints=None, stats=None):
+    """``(run, (idx, prio))``: the checks, the group key and order and the
+    argument arrays of one launch on CUDA tensors, built once; each
+    ``run()`` launches the kernel and the split merge into ``idx``/``prio``
+    and counts the launch.  ``fused_topk`` is prepare-and-run; calling
+    ``run`` again times the device work without the preparation."""
+    _check_common(profile, k, stratum_bits, constraints, stats)
+    seed = operator.index(seed)
     dev = table.cpu_req.device
     packed = is_packed(table)
     n = table.num_rows
@@ -251,12 +330,14 @@ def _launch(table, batch, seed, profile, *, k, row_base, col_base, stratum_bits,
         ints.update(ints_cons, with_cons=1, w_ts=profile.topology_spread,
                     w_ipa=profile.interpod_affinity)
 
-    props = torch.cuda.get_device_properties(dev)
-    pod_tiles = -(-b // POD_TILE)
-    # Enough (pod tile, node split) blocks for ~4 per SM, but no split
-    # shorter than one 128-row tile.
-    splits = max(1, min(-(-4 * props.multi_processor_count // pod_tiles),
-                        -(-n // POD_TILE)))
+    gkey = group_key(batch, with_affinity=with_affinity,
+                     cons_inputs=ptrs if constraints is not None else None)
+    ptrs["gkey"] = gkey
+    ptrs["order"] = group_order(gkey)
+    ints["kw"] = gkey.shape[1]
+    stage = stage_of(with_affinity, constraints is not None)
+    splits = splits_for(b, n, torch.cuda.get_device_properties(dev).multi_processor_count,
+                        _resident_blocks(stage, packed, k, dev))
     ints["splits"] = splits
     ptrs["part_idx"] = torch.empty((splits, b, k), dtype=i32, device=dev)
     ptrs["part_prio"] = torch.empty((splits, b, k), dtype=i32, device=dev)
@@ -268,15 +349,17 @@ def _launch(table, batch, seed, profile, *, k, row_base, col_base, stratum_bits,
     ))
     i_arr = (ctypes.c_longlong * len(_INTS))(*(int(ints.get(name, 0)) for name in _INTS))
     fn = _kernel_entry()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(p_arr, len(_PTRS), i_arr, len(_INTS), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"fused_topk kernel launch failed: cudaError {err}")
-    fused_topk.launches += 1
-    stage = stage_of(with_affinity, constraints is not None)
-    fused_topk.launches_by_stage[stage] += 1
-    return out_idx, out_prio
+
+    def run(_tensors=ptrs):            # holds the tensors the pointers point into
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(p_arr, len(_PTRS), i_arr, len(_INTS), ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"fused_topk kernel launch failed: cudaError {err}")
+        fused_topk.launches += 1
+        fused_topk.launches_by_stage[stage] += 1
+
+    return run, (out_idx, out_prio)
 
 
 def _affinity_args(table, batch, dev, packed):
@@ -372,6 +455,25 @@ def _constraint_args(table, batch, cons, stats, dev, packed):
     return ptrs, ints
 
 
+def blocks_per_sm(stage: str, *, packed: bool, k: int) -> int:
+    """Resident blocks per SM of the kernel instantiation a launch of
+    ``stage`` (one of STAGES) on this layout with this ``k`` uses (CUDA's
+    occupancy calculator; needs the card)."""
+    fn = _build.load("fused_topk").k8s_fused_blocks_per_sm
+    fn.argtypes = (ctypes.c_int,) * 4
+    fn.restype = ctypes.c_int
+    n = fn(int("aff" in stage), int("cons" in stage), int(packed), k)
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {-n}")
+    return n
+
+
+@functools.lru_cache(maxsize=64)
+def _resident_blocks(stage: str, packed: bool, k: int, device: torch.device) -> int:
+    with torch.cuda.device(device):
+        return blocks_per_sm(stage, packed=packed, k=k)
+
+
 def _kernel_entry():
     lib = _build.load("fused_topk")
     fn = lib.k8s_fused_topk
@@ -380,6 +482,105 @@ def _kernel_entry():
         fn.argtypes = (arr, ctypes.c_int, arr, ctypes.c_int, ctypes.c_void_p)
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=16)
+def _f32_scalar(value: float, device: torch.device) -> torch.Tensor:
+    # A device tensor, not a Python scalar: PyTorch may turn division by a
+    # CPU scalar into multiplication by its reciprocal, which is not IEEE
+    # division for a divisor that is not a power of two.
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def mask_and_score(table, batch, profile: Profile, c0: int, c1: int, *,
+                   with_affinity: bool = False, constraints=None, stats=None):
+    """(feasible bool[B, C], score i32[B, C]) of every pod at rows
+    [c0, c1) of ``table``: the plain version's filters and f32 scores in
+    the Pallas kernel's order, before the hash."""
+    packed = is_packed(table)
+    dev = table.cpu_req.device
+    m = batch.tolerated.shape[1]
+    ts = table.taint_id.shape[1]
+    i32, i64, f32 = torch.int32, torch.int64, torch.float32
+    p_cpu = batch.cpu[:, None]
+    p_mem = batch.mem[:, None]
+    p_nnid = batch.node_name_id[:, None]
+    cpu_alloc = table.cpu_alloc[c0:c1]
+    mem_alloc = table.mem_alloc[c0:c1]
+    cpu_req = table.cpu_req[c0:c1]
+    mem_req = table.mem_req[c0:c1]
+    pods_free = table.pods_alloc[c0:c1].to(i32) - table.pods_req[c0:c1]
+    tid = table.taint_id[c0:c1].to(i64)                        # [C, TS]
+    if packed:
+        meta = table.meta[c0:c1]
+        teff = torch.stack(
+            [(meta >> (1 + 2 * t)) & 3 for t in range(ts)], dim=1
+        )
+        row_ok = (pods_free >= 1) & ((meta & 1) != 0)
+    else:
+        teff = table.taint_effect[c0:c1]
+        row_ok = pods_free >= 1
+
+    fits = (
+        (p_cpu <= (cpu_alloc - cpu_req)[None])
+        & (p_mem <= (mem_alloc - mem_req)[None])
+        & row_ok[None]
+    )
+    nn_ok = (p_nnid == NONE_ID) | (p_nnid == table.name_id[c0:c1][None])
+    # Taint slots count where the id is live and inside [0, M): the
+    # Pallas one-hot gather counts nothing for an id outside it.
+    counted = (tid != NONE_ID) & (tid >= 0) & (tid < m)
+    hard = counted & ((teff == EFFECT_NO_SCHEDULE) | (teff == EFFECT_NO_EXECUTE))
+    soft = counted & (teff == EFFECT_PREFER_NO_SCHEDULE)
+    untol = ~batch.tolerated[:, tid.clamp(0, m - 1)]             # [B, C, TS]
+    hard_cnt = (untol & hard[None]).sum(-1)
+    soft_cnt = (untol & soft[None]).sum(-1)
+    mask = fits & nn_ok & (hard_cnt == 0) & batch.valid[:, None]
+
+    score = torch.zeros(mask.shape, dtype=i32, device=dev)
+    cpu_after = (cpu_req[None] + p_cpu).to(f32)                # [B, C]
+    mem_after = (mem_req[None] + p_mem).to(f32)
+    alloc_cpu = cpu_alloc.clamp(min=1).to(f32)[None]           # [1, C]
+    alloc_mem = mem_alloc.clamp(min=1).to(f32)[None]
+    if profile.least_allocated:
+        la = 50.0 * (
+            ((alloc_cpu - cpu_after) / alloc_cpu).clamp(min=0.0)
+            + ((alloc_mem - mem_after) / alloc_mem).clamp(min=0.0)
+        )
+        score += torch.floor(la).to(i32) * profile.least_allocated
+    if profile.balanced_allocation:
+        f_cpu = (cpu_after / alloc_cpu).clamp(0.0, 1.0)
+        f_mem = (mem_after / alloc_mem).clamp(0.0, 1.0)
+        ba = 100.0 * (1.0 - torch.abs(f_cpu - f_mem) / 2.0)
+        score += torch.floor(ba).to(i32) * profile.balanced_allocation
+    if profile.taint_toleration:
+        tt = 100.0 * (1.0 - soft_cnt.to(f32) / _f32_scalar(float(ts), dev))
+        score += torch.floor(tt).to(i32) * profile.taint_toleration
+
+    if with_affinity:
+        lk = table.label_key[c0:c1]
+        if packed and table.spec.fuse_labels:
+            lv = lk >> table.spec.key_bits
+            lk = lk & ((1 << table.spec.key_bits) - 1)
+        else:
+            lv = table.label_val[c0:c1]
+        resolved = resolve_query_keys(lk, lv, table.label_num[c0:c1], batch.qkey)
+        mask &= node_affinity(batch, resolved)
+        if profile.node_affinity:
+            na = node_affinity_score(batch, resolved)
+            score += torch.floor(na).to(i32) * profile.node_affinity
+    if constraints is not None:
+        dom = DomainView(
+            valid=row_ok, zone=table.zone[c0:c1].to(i32), region=table.region[c0:c1].to(i32)
+        )
+        cmask, cscore = topology.filter_and_score(
+            dom, batch, slice_constraints(constraints, c0, c1 - c0), stats,
+            profile.topology_spread, profile.interpod_affinity,
+        )
+        mask &= cmask
+        score += cscore
+
+    return mask, score
 
 
 def fused_topk_reference(table, batch, seed, profile: Profile, *, k: int,
@@ -396,102 +597,19 @@ def fused_topk_reference(table, batch, seed, profile: Profile, *, k: int,
     columns of ``constraints``."""
     _check_common(profile, k, stratum_bits, constraints, stats)
     seed = operator.index(seed)
-    packed = is_packed(table)
     n = table.num_rows
     b = batch.batch
     dev = table.cpu_req.device
-    m = batch.tolerated.shape[1]
-    ts = table.taint_id.shape[1]
-    i32, i64, f32 = torch.int32, torch.int64, torch.float32
+    i32, i64 = torch.int32, torch.int64
     chunk = max(1, min(chunk, n))
-
-    p_cpu = batch.cpu[:, None]
-    p_mem = batch.mem[:, None]
-    p_nnid = batch.node_name_id[:, None]
     pod_rows = torch.arange(b, device=dev, dtype=i64)[:, None] + row_base
-    # A device tensor, not a Python scalar: PyTorch may turn division by a
-    # CPU scalar into multiplication by its reciprocal, which is not IEEE
-    # division for a divisor that is not a power of two.
-    ts_f = torch.tensor(float(ts), dtype=f32, device=dev)
 
     run_key = torch.full((b, k), -(1 << 32), dtype=i64, device=dev)
     for c0 in range(0, n, chunk):
         c1 = min(c0 + chunk, n)
-        cpu_alloc = table.cpu_alloc[c0:c1]
-        mem_alloc = table.mem_alloc[c0:c1]
-        cpu_req = table.cpu_req[c0:c1]
-        mem_req = table.mem_req[c0:c1]
-        pods_free = table.pods_alloc[c0:c1].to(i32) - table.pods_req[c0:c1]
-        tid = table.taint_id[c0:c1].to(i64)                        # [C, TS]
-        if packed:
-            meta = table.meta[c0:c1]
-            teff = torch.stack(
-                [(meta >> (1 + 2 * t)) & 3 for t in range(ts)], dim=1
-            )
-            row_ok = (pods_free >= 1) & ((meta & 1) != 0)
-        else:
-            teff = table.taint_effect[c0:c1]
-            row_ok = pods_free >= 1
-
-        fits = (
-            (p_cpu <= (cpu_alloc - cpu_req)[None])
-            & (p_mem <= (mem_alloc - mem_req)[None])
-            & row_ok[None]
-        )
-        nn_ok = (p_nnid == NONE_ID) | (p_nnid == table.name_id[c0:c1][None])
-        # Taint slots count where the id is live and inside [0, M): the
-        # Pallas one-hot gather counts nothing for an id outside it.
-        counted = (tid != NONE_ID) & (tid >= 0) & (tid < m)
-        hard = counted & ((teff == EFFECT_NO_SCHEDULE) | (teff == EFFECT_NO_EXECUTE))
-        soft = counted & (teff == EFFECT_PREFER_NO_SCHEDULE)
-        untol = ~batch.tolerated[:, tid.clamp(0, m - 1)]             # [B, C, TS]
-        hard_cnt = (untol & hard[None]).sum(-1)
-        soft_cnt = (untol & soft[None]).sum(-1)
-        mask = fits & nn_ok & (hard_cnt == 0) & batch.valid[:, None]
-
-        score = torch.zeros(mask.shape, dtype=i32, device=dev)
-        cpu_after = (cpu_req[None] + p_cpu).to(f32)                # [B, C]
-        mem_after = (mem_req[None] + p_mem).to(f32)
-        alloc_cpu = cpu_alloc.clamp(min=1).to(f32)[None]           # [1, C]
-        alloc_mem = mem_alloc.clamp(min=1).to(f32)[None]
-        if profile.least_allocated:
-            la = 50.0 * (
-                ((alloc_cpu - cpu_after) / alloc_cpu).clamp(min=0.0)
-                + ((alloc_mem - mem_after) / alloc_mem).clamp(min=0.0)
-            )
-            score += torch.floor(la).to(i32) * profile.least_allocated
-        if profile.balanced_allocation:
-            f_cpu = (cpu_after / alloc_cpu).clamp(0.0, 1.0)
-            f_mem = (mem_after / alloc_mem).clamp(0.0, 1.0)
-            ba = 100.0 * (1.0 - torch.abs(f_cpu - f_mem) / 2.0)
-            score += torch.floor(ba).to(i32) * profile.balanced_allocation
-        if profile.taint_toleration:
-            tt = 100.0 * (1.0 - soft_cnt.to(f32) / ts_f)
-            score += torch.floor(tt).to(i32) * profile.taint_toleration
-
-        if with_affinity:
-            lk = table.label_key[c0:c1]
-            if packed and table.spec.fuse_labels:
-                lv = lk >> table.spec.key_bits
-                lk = lk & ((1 << table.spec.key_bits) - 1)
-            else:
-                lv = table.label_val[c0:c1]
-            resolved = resolve_query_keys(lk, lv, table.label_num[c0:c1], batch.qkey)
-            mask &= node_affinity(batch, resolved)
-            if profile.node_affinity:
-                na = node_affinity_score(batch, resolved)
-                score += torch.floor(na).to(i32) * profile.node_affinity
-        if constraints is not None:
-            dom = DomainView(
-                valid=row_ok, zone=table.zone[c0:c1].to(i32), region=table.region[c0:c1].to(i32)
-            )
-            cmask, cscore = topology.filter_and_score(
-                dom, batch, slice_constraints(constraints, c0, c1 - c0), stats,
-                profile.topology_spread, profile.interpod_affinity,
-            )
-            mask &= cmask
-            score += cscore
-
+        mask, score = mask_and_score(table, batch, profile, c0, c1,
+                                     with_affinity=with_affinity, constraints=constraints,
+                                     stats=stats)
         local = torch.arange(c0, c1, device=dev, dtype=i64)
         prio = pack_hashed(
             score, seed, mask, pod_rows, (local + col_base)[None], stratum_bits

@@ -365,3 +365,157 @@ def test_delta_wave_matches_plain_version(cuda, layout):
         assert torch.equal(planes[0], ref_p[0]) and torch.equal(planes[1], ref_p[1])
         assert int((rows >= 0).sum()) > 0
         prev = rows
+
+
+# ---- pod groups, tiles and ties of the redesigned kernels -------------------
+
+
+def _regroup(batch, src, cpu=None):
+    """The batch with pod i replaced by pod src[i] in every per-pod field
+    (and, if given, cpu requests ``cpu``): sets which pods share a group."""
+    import dataclasses
+
+    idx = torch.as_tensor(src, device=batch.cpu.device).long()
+    fields = {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)}
+    out = {name: t if name == "qkey" else t[idx].contiguous() for name, t in fields.items()}
+    if cpu is not None:
+        out["cpu"] = torch.as_tensor(cpu, dtype=torch.int32, device=batch.cpu.device)
+    return type(batch)(**out)
+
+
+def _stage_state(cuda, stage, layout):
+    """(table, batch, kw, profile) of one stage configuration at N rows."""
+    if stage == "base":
+        spec, host, pb = _state()
+        table = (host.to_device(cuda) if layout == "plain" else
+                 pack_table_host(host, build_packing_spec(spec, host.vocab), cuda))
+        batch = unpack_pod_batch(pb.ints, pb.bools, pb.spec, pb.table_spec, pb.groups, cuda)
+        return table, batch, {}, BASE
+    if stage == "aff":
+        tables, batch = _aff_tables(cuda)
+        return tables[layout], batch, dict(with_affinity=True), AFF
+    table, cons, batch, aff = _cons_state(cuda, layout, stage == "aff+cons")
+    return table, batch, dict(with_affinity=aff, constraints=cons,
+                              stats=_prologue_stats(table, cons)), Profile()
+
+
+GROUP_CASES = ("distinct", "forty", "scattered", "unaligned")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", ["base", "aff", "cons", "aff+cons"])
+@pytest.mark.parametrize("layout", ["plain", "packed"])
+@pytest.mark.parametrize("k", [4, 128])
+@pytest.mark.parametrize("case", GROUP_CASES)
+def test_kernel_pod_groups_match_plain_version(cuda, stage, layout, k, case):
+    """Blocks of 128 distinct pods (32-row tiles), of ~40 groups (64-row
+    tiles, more than one 128-row staging pass takes), one group scattered
+    over the batch, and a window whose i16/i8 packed columns start off any
+    4-byte boundary: bit-equal to the plain version."""
+    table, batch, kw, profile = _stage_state(cuda, stage, layout)
+    b = batch.batch
+    i = np.arange(b)
+    if case == "distinct":
+        batch = _regroup(batch, i, cpu=60 + i)
+    elif case == "forty":
+        batch = _regroup(batch, i % 40)
+    elif case == "scattered":
+        batch = _regroup(batch, np.where(i % 7 == 3, 1, i))
+    rows = table.num_rows
+    off, n = (1001, rows - 1003) if case == "unaligned" else (0, rows)
+    view = table.narrow(off, n)
+    if "constraints" in kw:
+        kw = dict(kw, constraints=slice_constraints(kw["constraints"], off, n))
+    kw = dict(kw, k=k, stratum_bits=7, row_base=3, col_base=off)
+    idx, prio = fused_topk(view, batch, -2024, profile, **kw)
+    torch.cuda.synchronize()
+    ridx, rprio = fused_topk_reference(view, batch, -2024, profile, **kw)
+    assert torch.equal(prio, rprio)
+    assert torch.equal(idx, ridx)
+    assert (rprio >= 0).any()
+
+
+def _np_mix32(h):
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & 0xFFFFFFFF
+    h = h ^ (h >> 15)
+    h = (h * 0x846CA68B) & 0xFFFFFFFF
+    return h ^ (h >> 16)
+
+
+def _tied_columns(seed, near: bool):
+    """Two global columns c1 < c2 whose 20 hash bits are equal for every
+    pod (stratum bits 0: (col hash ^ row hash) & m ties when the column
+    hashes tie in their low 20 bits); ``near``: under 64 apart, else 300
+    to 3000 apart."""
+    cols = np.arange(1 << 22, dtype=np.uint64)
+    ch = _np_mix32((seed & 0xFFFFFFFF) ^ ((cols * 0x85EBCA6B) & 0xFFFFFFFF)) & 0xFFFFF
+    order = np.argsort(ch, kind="stable")
+    same = ch[order[1:]] == ch[order[:-1]]
+    for a, b in zip(order[:-1][same], order[1:][same]):
+        c1, c2 = sorted((int(a), int(b)))
+        if (c2 - c1 < 64) if near else (300 <= c2 - c1 <= 3000):
+            return c1, c2
+    raise AssertionError("no tied columns found")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("near", [True, False])
+@pytest.mark.parametrize("k", [4, 128])
+def test_kernel_tie_goes_to_the_earlier_row(cuda, near, k):
+    """Only two rows feasible, equal scores, equal hash bits: the earlier
+    row ranks first, inside one tile (near) and across splits (far)."""
+    seed = 777
+    c1, c2 = _tied_columns(seed, near)
+    spec = TableSpec(max_nodes=N)
+    host = NodeTableHost(spec)
+    populate_kwok_nodes(host, N, tainted_fraction=0.0)
+    host.pods_req[:] = host.pods_alloc                 # every row full ...
+    lo = 10
+    for r in (lo, lo + c2 - c1):                       # ... but two
+        host.pods_req[r] = 0
+        host.cpu_req[r] = 0
+        host.mem_req[r] = 0
+        host.cpu_alloc[r] = 4000
+        host.mem_alloc[r] = 8 << 20
+    pb = PodBatchHost(PodSpec(batch=B), spec, host.vocab).encode_packed(uniform_pods(B - 3))
+    batch = unpack_pod_batch(pb.ints, pb.bools, pb.spec, pb.table_spec, pb.groups, cuda)
+    for table in (host.to_device(cuda),
+                  pack_table_host(host, build_packing_spec(spec, host.vocab), cuda)):
+        kw = dict(k=k, col_base=c1 - lo)
+        idx, prio = fused_topk(table, batch, seed, BASE, **kw)
+        torch.cuda.synchronize()
+        ridx, rprio = fused_topk_reference(table, batch, seed, BASE, **kw)
+        assert torch.equal(prio, rprio) and torch.equal(idx, ridx)
+        real = batch.valid
+        assert bool((prio[real, 0] == prio[real, 1]).all() & (prio[real, 0] >= 0).all())
+        assert bool((idx[real, 0] == lo).all() & (idx[real, 1] == lo + c2 - c1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("near", [True, False])
+@pytest.mark.parametrize("k", [1, 4, 16, 128])
+def test_delta_kernel_tie_goes_to_the_earlier_column(cuda, near, k):
+    from k8s1m_tpu_torch.engine.deltacache import plane_topk
+    from k8s1m_tpu_torch.ops.delta_topk import delta_plane_topk
+
+    seed = -4242
+    c1, c2 = _tied_columns(seed, near)
+    n, lo = 4096, 10
+    mask = np.zeros((2, n), bool)
+    mask[0, [lo, lo + c2 - c1]] = True
+    mask[1] = np.random.default_rng(1).random(n) < 0.5
+    score = np.full((2, n), 900, np.int32)
+    slot = np.array([0] * 100 + [1] * 50 + [0] * 30, np.int32)
+    pm, ps, st = (torch.from_numpy(a).to(cuda) for a in (mask, score, slot))
+    kw = dict(chunk=512, k=k, row_offset=c1 - lo, pod_offset=5)
+    got = delta_plane_topk(pm, ps, st, seed, **kw)
+    torch.cuda.synchronize()
+    ref = plane_topk(pm, ps, st, seed, **kw)
+    assert torch.equal(got.idx, ref.idx) and torch.equal(got.prio, ref.prio)
+    tied = st == 0
+    if k >= 2:
+        assert bool((got.idx[tied, 0] == c1).all() & (got.idx[tied, 1] == c2).all())
+        assert bool((got.prio[tied, 0] == got.prio[tied, 1]).all())
+    else:
+        assert bool((got.idx[tied, 0] == c1).all())
