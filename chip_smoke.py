@@ -10,7 +10,9 @@ default (base stage of the fused kernel), the NodeAffinity wave of
 wave of ``bench.py --constraints`` (path B, configs 3-4) — and the
 deltasched wave ``engine.cycle.schedule_batch_delta`` over cached
 per-shape planes covering the whole table (path C: ``bench.py
---deltacache``, C1, and ``bench.py --affinity --deltacache``, C2).
+--deltacache``, C1, and ``bench.py --affinity --deltacache``, C2) — and
+then the host coordinator (store -> watch -> wave -> CAS bind) through its
+entry point ``tools/sched_bench.py`` (phase 8).
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device  — the card's name, and its name and power limit as
@@ -79,11 +81,28 @@ Phases (each raises on failure; the script then exits non-zero):
                layouts bind identically; no node over-committed; binds > 0.
                Prints binds/s, p50 wave ms, delta kernel ms/wave, merge,
                greedy-assign and fill ms, plane and table MB.
+  8a. coordinator parity — ``tools/sched_bench.py`` at 65,536 nodes and
+               16,384 pods (5% window, packed, depth 2) once on the card and
+               once with ``device="cpu"`` (the plain versions): the stored pod
+               values must be byte-identical;
+  8. coordinator — ``sched_bench`` at 1,048,576 nodes and 65,536 pods,
+               packed: D1 (``--batch 4096 --depth 2 --score-pct 5``, the
+               fused kernel on every wave) and D2 (the megarow shape:
+               ``--batch 512 --depth 3 --score-pct 100 --deltacache on
+               --delta-index-k 64 --stratum-bits 15``, the delta kernel on
+               the delta waves).
+               Each pod is bound exactly once in the store, the device
+               request columns equal the host mirror after ``flush``, no
+               node exceeds its allocatable; D1 launches the fused kernel
+               and D2 the delta kernel in the measured window.  Prints
+               binds/s, schedule-to-bind p50/p99, node write and cold build
+               seconds, the stage means and the device stage's share.
 Phases 5 and 6 print the same group and bound figures as phase 4.  The
 next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
 stage configuration and one for the delta kernel: times, bound, launches;
 the fused entries add ``bound_per_pair_ms``, ``groups`` and
-``all_distinct_ms``);
+``all_distinct_ms``; ``launches`` includes the coordinator's, which
+``coordinator_launches`` also gives alone);
 the last is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--steps 20] [--path-steps 10] [--delta-steps 5] [--warmup 2]
@@ -1393,6 +1412,128 @@ def _delta_wave_checks(tag, layout, i, pre, table, asg, rows, planes, packed, se
         f"to a fresh fill")
 
 
+# ---- phase 8: the coordinator (store -> watch -> wave -> CAS bind) -----------
+
+COORD_PODS = 65536
+PARITY_NODES, PARITY_PODS = 65536, 16384
+
+
+def _bench_args(**over):
+    """``tools/sched_bench.py`` arguments: the tool's defaults with
+    ``over`` applied (names as the flags, dashes as underscores)."""
+    from k8s1m_tpu_torch.tools import sched_bench
+
+    args = sched_bench.parse_args([])
+    for k, v in over.items():
+        check(hasattr(args, k), f"sched_bench has no --{k}")
+        setattr(args, k, v)
+    return args
+
+
+def _stored_pods(store) -> dict:
+    from k8s1m_tpu_torch.store.native import list_prefix
+
+    kvs, _rev = list_prefix(store, b"/registry/pods/")
+    return {kv.key: kv.value for kv in kvs}
+
+
+def _coordinator_checks(tag: str, report: dict, coord, store, pods: int) -> dict:
+    """Each pod bound exactly once in the store, the device request
+    columns equal to the host mirror after ``flush``, no node over its
+    allocatable; returns the stored pod values."""
+    coord.flush()
+    stored = _stored_pods(store)
+    check(len(stored) == pods, f"[{tag}] {len(stored)} pods stored, want {pods}")
+    per_node: dict = {}
+    for v in stored.values():
+        name = json.loads(v)["spec"].get("nodeName")
+        check(name is not None, f"[{tag}] a pod was left unbound")
+        per_node[name] = per_node.get(name, 0) + 1
+    d = report["detail"]
+    check(d["bound"] + 1 == pods, f"[{tag}] {d['bound']} binds + 1 warm-up != {pods} pods")
+    host = coord.host
+    check(int(host.pods_req.sum()) == pods,
+          f"[{tag}] host mirror counts {int(host.pods_req.sum())} bound pods, want {pods}")
+    rows = {name: host.row_of(name) for name in per_node}
+    check(all(int(host.pods_req[rows[n]]) == c for n, c in per_node.items()),
+          f"[{tag}] the store's binds per node disagree with the host mirror")
+    for col in ("cpu_req", "mem_req", "pods_req"):
+        dev = getattr(coord.table, col).cpu().numpy()
+        check(np.array_equal(dev, getattr(host, col)),
+              f"[{tag}] device {col} != host mirror after flush")
+    for req, alloc in (("cpu_req", "cpu_alloc"), ("mem_req", "mem_alloc"),
+                       ("pods_req", "pods_alloc")):
+        check(bool((getattr(host, req) <= getattr(host, alloc)).all()),
+              f"[{tag}] a node exceeds its {alloc}")
+    return stored
+
+
+def phase_coordinator_parity() -> dict:
+    """8a: the same sched_bench run on the card and with device='cpu' (the
+    plain versions) must leave byte-identical pod values in the store."""
+    from k8s1m_tpu_torch.tools import sched_bench
+
+    from k8s1m_tpu_torch.faultline import RetryPolicy
+
+    # Zero-delay backoff: a retried pod's next wave does not depend on the
+    # clock, so the two runs see the same waves.
+    policy = RetryPolicy("coordinator.bind", base_delay_s=0.0, jitter=0.0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        report, coord, store = sched_bench.run(_bench_args(
+            nodes=PARITY_NODES, pods=PARITY_PODS, score_pct=SCORE_PCT, packing="packed",
+            device=dev), retry_policy=policy)
+        stored = _coordinator_checks(f"8a {dev}", report, coord, store, PARITY_PODS)
+        coord.close()
+        store.close()
+        runs[dev] = (stored, report, time.perf_counter() - t0)
+    same = runs["cuda"][0] == runs["cpu"][0]
+    check(same, "[8a] stored pod values differ between cuda and cpu")
+    log(f"[8a] sched_bench {PARITY_NODES} nodes x {PARITY_PODS} pods: cuda and cpu runs "
+        f"left byte-identical pod values ({runs['cuda'][2]:.1f}s / {runs['cpu'][2]:.1f}s)")
+    return {"identical": same, "cuda": runs["cuda"][1], "cpu": runs["cpu"][1]}
+
+
+def phase_coordinator(config: str) -> dict:
+    """8: D1 (BASELINE config 1 through the coordinator: 4096-pod waves
+    over a 5% window at depth 2, the fused kernel on every wave) or D2
+    (the megarow shape of ``artifacts/megarow_cpu.json``: 512-pod waves at
+    depth 3, full scan, deltacache with a 64-deep candidate index and 15
+    stratum bits, the delta kernel on the delta waves); 1,048,576 nodes
+    and 65,536 pods, packed, pipelined."""
+    from k8s1m_tpu_torch.tools import sched_bench
+
+    over = dict(nodes=NODES, pods=COORD_PODS, packing="packed")
+    if config == "D1":
+        over.update(batch=BATCH, depth=2, score_pct=SCORE_PCT)
+    else:
+        # 15 stratum bits leave ~32 tied rows per class, ~3,500 pods of
+        # room per wave: the megarow drill's 512-pod batch fits it, a
+        # 4096-pod batch would park pods as unschedulable.
+        over.update(batch=512, depth=3, score_pct=100, deltacache="on",
+                    delta_index_k=64, stratum_bits=15)
+    t0 = time.perf_counter()
+    report, coord, store = sched_bench.run(_bench_args(**over))
+    _coordinator_checks(config, report, coord, store, COORD_PODS)
+    coord.close()
+    store.close()
+    d = report["detail"]
+    launches = d["launches"]
+    if config == "D1":
+        check(launches["fused_topk"] > 0, "[D1] no fused-kernel launch in the window")
+    else:
+        check(launches["delta_plane_topk"] > 0, "[D2] no delta-kernel launch in the window")
+    log(f"[{config}] {NODES} nodes x {COORD_PODS} pods: {report['value']} binds/s, "
+        f"schedule-to-bind p50 {d['p50_ms']} ms p99 {d['p99_ms']} ms, node write "
+        f"{d['node_write_s']} s, cold build {d['cold_build_s']} s, waves {d['waves']}, "
+        f"launches {launches}, device share {d['device_share']}, "
+        f"inflight depth {d['sustained_inflight_depth']}")
+    log(f"[{config}] stage means ms: {d['stage_means_ms']}  "
+        f"({time.perf_counter() - t0:.1f}s for the phase)")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20, help="timed waves per layout (phase 4)")
@@ -1434,16 +1575,27 @@ def main(argv=None) -> int:
     path_b = phase_path(device, "B", steps=args.path_steps, warmup=args.warmup)
     path_c = {c: phase_delta_path(device, c, steps=args.delta_steps, warmup=args.warmup)
               for c in ("C1", "C2")}
+    parity = phase_coordinator_parity()
+    coord = {c: phase_coordinator(c) for c in ("D1", "D2")}
     log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
+
+    # Launches of the coordinator's paths (phase 8, counts set to 0 just
+    # before each measured window and read just after it).
+    coord_launches = {
+        name: sum(r["detail"]["launches"][name] for r in coord.values())
+        for name in ("fused_topk", "delta_plane_topk")
+    }
 
     def entry(stage, replaces, res, err):
         prod = res["packed"]
+        extra = coord_launches["fused_topk"] if stage == "base" else 0
         return {
             "name": f"fused_topk[{stage}]",
             "route": "cuda",
             "source": "k8s1m_tpu_torch/csrc/fused_topk.cuh",
             "replaces": replaces,
-            "launches": res["launches"],
+            "launches": res["launches"] + extra,
+            "coordinator_launches": extra,
             "max_abs_err": max(err, float(res["plain"]["max_abs_err"]),
                                float(prod["max_abs_err"])),
             "ms": prod["kernel_ms_per_wave"],
@@ -1466,7 +1618,9 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "k8s1m_tpu_torch/csrc/delta_topk.cu",
             "replaces": "k8s1m_tpu/ops/pallas_topk.py:1041",
-            "launches": sum(r["launches"] for r in path_c.values()),
+            "launches": sum(r["launches"] for r in path_c.values())
+                        + coord_launches["delta_plane_topk"],
+            "coordinator_launches": coord_launches["delta_plane_topk"],
             "max_abs_err": max([err3d] + [float(r[lay]["max_abs_err"])
                                           for r in path_c.values()
                                           for lay in ("plain", "packed")]),
@@ -1485,7 +1639,8 @@ def main(argv=None) -> int:
                        "constraints_vs_plain_max_abs_err": err3c,
                        "delta_vs_plain_max_abs_err": err3d, "worst_case": worst,
                        "main_path": main_res, "path_a": path_a, "path_b": path_b,
-                       "path_c": path_c,
+                       "path_c": path_c, "coordinator_parity": parity,
+                       "coordinator": coord,
                        **kernels}, f, indent=1, default=str)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

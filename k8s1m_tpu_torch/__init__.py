@@ -6,7 +6,7 @@ it on the same inputs: the same candidate ``idx``/``prio``, the same
 bound rows, the same table after commit.  It imports ``torch`` and
 numpy only — never JAX, and nothing of ``k8s1m_tpu``.
 
-It carries the packed scheduling wave
+It carries the host coordinator and, under it, the packed scheduling wave
 (``engine.cycle.schedule_batch_packed``) with every plugin stage of the
 fused kernel — the base plugins, NodeAffinity, and the PodTopologySpread /
 InterPodAffinity constraint stage over count tables — and the deltasched
@@ -28,6 +28,13 @@ cached per-shape feasibility/score planes, with its candidate index:
                   deltasched plane cache;
 - ``cluster``   — the KWOK fleet, the workloads of BASELINE configs 1-4 and
                   the fleets the kernel is checked on;
+- ``control``   — the host coordinator (store -> watch -> wave -> CAS bind)
+                  and the Kubernetes object codec;
+- ``store``     — ctypes bindings of the native in-process store (the
+                  port's own ``libmemstore.so``, built from ``native/``);
+- ``obs``, ``faultline`` — the coordinator's metrics registry and retry
+                  policy;
+- ``tools``     — ``sched_bench``, the coordinator's end-to-end entry point;
 - ``interop``   — converters from the JAX package's state (as numpy).
 
 Entry points take ``device="cuda"`` unless the caller asks for

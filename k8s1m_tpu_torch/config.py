@@ -50,6 +50,9 @@ NONE_ID = 0
 
 # The schedulerName this framework answers to.
 DEFAULT_SCHEDULER = "dist-scheduler"
+# What Kubernetes assigns when spec.schedulerName is unset; such pods
+# belong to the stock scheduler, never to this framework's intake.
+K8S_DEFAULT_SCHEDULER = "default-scheduler"
 
 # Taint / toleration effects.
 EFFECT_NONE = 0                # toleration with no effect: matches all

@@ -17,9 +17,14 @@ into cached per-shape planes, candidates from the delta-tail kernel
 ``chunk_topk``/``merge_topk``/``empty_candidates``/``_slice_table`` are the
 XLA scan path's helpers it runs on.
 
-Ownership row masks and the mesh are later slices and are refused with
-``NotImplementedError`` — a wave the port cannot compute exactly fails
-loudly, never approximately.
+The coordinator's side (``control/coordinator.py``): ``Wave`` is one
+in-flight wave, ``mask_rows`` the ownership view ``row_mask=`` selects
+candidates from, ``commit_fields_np`` and ``adjust_constraints`` the
+signed count-table correction of CAS rollbacks and pod deletions.
+
+The mesh is a later slice and is refused with ``NotImplementedError`` —
+a wave the port cannot compute exactly fails loudly, never
+approximately.
 """
 
 from __future__ import annotations
@@ -40,12 +45,44 @@ from k8s1m_tpu_torch.snapshot.constraints import (
     slice_constraints,
 )
 from k8s1m_tpu_torch.snapshot.node_table import commit_binds
-from k8s1m_tpu_torch.snapshot.packing import is_packed, unpack_chunk
+from k8s1m_tpu_torch.snapshot.packing import is_packed, mask_rows_packed, unpack_chunk
 from k8s1m_tpu_torch.snapshot.pod_encoding import PodBatch, unpack_pod_batch
 
 # Pod field groups that need the NodeAffinity stage of the kernel.
 AFFINITY_GROUPS = frozenset({"sel", "req", "pref"})
 _M32 = 0xFFFFFFFF
+
+
+@dataclasses.dataclass
+class Wave:
+    """One in-flight pipelined wave: everything the coordinator needs to
+    retire it later (CAS the binds back, roll back conflicts).
+
+    ``epoch`` is the snapshot wave-epoch stamped at launch
+    (``NodeTableHost.begin_wave``): a row removed at epoch E stays
+    quarantined until every wave with ``epoch <= E`` has retired.
+    ``asg`` and ``rows_dev`` are tensors no later wave writes into (a
+    rollback reads them one or more waves later).  On a card,
+    ``rows_host`` is the pinned host buffer ``rows_dev`` is copied into
+    without blocking, and ``copied`` the CUDA event recorded after that
+    copy: the retire waits on it before it reads a byte."""
+
+    batch_pods: list
+    batch: object            # PackedPodBatch as dispatched
+    asg: "Assignment"
+    rows_dev: torch.Tensor   # i32[B] bound row per pod (-1 = unbound)
+    t_start: float
+    epoch: int
+    depth: int = 1           # in-flight depth including this wave
+    path: str = "full"       # "full" or the deltacache "delta" pass
+    # Candidate-index outcome of deltasched index waves: the i32 flag
+    # tensor (1 = candidates from the index), whether the index update
+    # was attempted, and the (index-path, plane-path) touched-row pair.
+    index_flag_dev: object | None = None
+    index_attempted: bool = False
+    index_touched: tuple = (0, 0)
+    rows_host: torch.Tensor | None = None
+    copied: object | None = None
 
 
 @dataclasses.dataclass
@@ -86,6 +123,17 @@ class CommitFields:
     ipa_own_valid: torch.Tensor  # pod's own required anti-affinity terms
     ipa_tid: torch.Tensor
     ipa_topo: torch.Tensor
+
+
+def commit_fields_np(fields: dict, device) -> CommitFields:
+    """CommitFields on ``device`` from a PackedPodBatch's host field dict
+    (the CAS-rollback and adjust paths); every array is copied."""
+    t = {k: to_tensor(fields[k], device) for k in (
+        "cpu", "mem", "valid", "sinc_valid", "sinc_cid", "sinc_topo",
+        "iinc_valid", "iinc_tid", "iinc_topo", "ipa_tid", "ipa_topo",
+    )}
+    own = fields["ipa_valid"] & fields["ipa_required"] & fields["ipa_anti"]
+    return CommitFields(ipa_own_valid=to_tensor(own, device), **t)
 
 
 def commit_fields_of(batch: PodBatch) -> CommitFields:
@@ -200,6 +248,57 @@ def finalize_batch(table, constraints: ConstraintState | None, cand: Candidates,
     return table, constraints, asg
 
 
+def adjust_constraints_impl(
+    constraints: ConstraintState,
+    fields: CommitFields,
+    node_row,      # i32[B] (any valid row where mask_node is off)
+    zone,          # i32[B]
+    region,        # i32[B]
+    mask_node,     # bool[B] gate for node-domain tables
+    mask_domain,   # bool[B] gate for zone/region tables
+    sign: int = -1,
+) -> ConstraintState:
+    """Signed count-table correction outside the scheduling wave, IN
+    PLACE: bind-CAS conflicts (sign=-1 rolls back the wave's optimistic
+    commit for pods whose store write lost), pod deletions (sign=-1 at
+    the recorded placement; ``mask_node`` is off when the node has since
+    been removed, while the zone/region decrement still applies) and
+    externally bound pods (sign=+1).  Returns ``constraints``."""
+    zero = torch.zeros_like(node_row)
+    return commit_constraint_binds(
+        constraints,
+        mask_node, mask_domain, torch.where(mask_node, node_row, zero), zone, region,
+        fields.sinc_valid, fields.sinc_cid, fields.sinc_topo,
+        fields.iinc_valid, fields.iinc_tid, fields.iinc_topo,
+        fields.ipa_own_valid, fields.ipa_tid, fields.ipa_topo,
+        sign=sign,
+    )
+
+
+# The JAX package jits the correction path under this name; here the
+# one body already updates in place.
+adjust_constraints = adjust_constraints_impl
+
+
+def mask_rows(table, row_mask: torch.Tensor):
+    """A candidate-selection view where rows outside ``row_mask`` (bool[N]
+    on the table's device) are infeasible: ``valid`` cleared for the plain
+    plugins and ``pods_alloc == 0``, the fused kernel's row-validity rule.
+    The request columns are shared with ``table``, untouched — binds
+    commit into the unmasked table."""
+    if not (isinstance(row_mask, torch.Tensor) and row_mask.dtype == torch.bool
+            and tuple(row_mask.shape) == (table.num_rows,)):
+        raise TypeError(f"row_mask must be a bool tensor of {table.num_rows} rows")
+    if is_packed(table):
+        return mask_rows_packed(table, row_mask)
+    return dataclasses.replace(
+        table,
+        valid=table.valid & row_mask,
+        pods_alloc=torch.where(row_mask, table.pods_alloc,
+                               torch.zeros_like(table.pods_alloc)),
+    )
+
+
 def sample_rows_for(nodes: int, score_pct: int, chunk: int) -> int | None:
     """percentageOfNodesToScore -> chunk-aligned window rows (None = the
     rounded window covers the whole table, i.e. scan everything)."""
@@ -246,13 +345,14 @@ def schedule_batch_packed(
     constraint stage: the domain statistics come from the FULL table and
     count tables, and only the node count columns follow the window.
     The binds commit into ``table`` — and the constraint counts into
-    ``constraints`` — IN PLACE.  ``reference=True`` runs the top-K
+    ``constraints`` — IN PLACE.  ``row_mask`` (bool[N] on the table's
+    device) restricts candidate selection to the owned rows
+    (``mask_rows``); the domain statistics stay global and the binds
+    commit into the unmasked table.  ``reference=True`` runs the top-K
     through the plain version (the comparison path).
 
     Returns (table, Assignment, rows i32[B] — bound row per pod, -1 unbound).
     """
-    if row_mask is not None:
-        raise NotImplementedError("row_mask ownership views are not ported yet")
     if mesh is not None:
         raise NotImplementedError("the sharded mesh step is not ported yet")
     if constraints is None and not supports(profile):
@@ -269,12 +369,14 @@ def schedule_batch_packed(
     # packed field groups already say so.
     kw = dict(chunk=chunk, k=k, stratum_bits=stratum_bits, reference=reference,
               with_affinity=bool(packed.groups & AFFINITY_GROUPS))
+    # Domain statistics are global: the full, unmasked table.
     stats = None if constraints is None else _prologue_stats(table, constraints)
+    src = table if row_mask is None else mask_rows(table, row_mask)
     if sample_rows is None:
-        cand = candidates(table, batch, seed, profile, constraints=constraints,
+        cand = candidates(src, batch, seed, profile, constraints=constraints,
                           stats=stats, **kw)
     else:
-        view = table.narrow(sample_offset, sample_rows)
+        view = src.narrow(sample_offset, sample_rows)
         view_cons = (None if constraints is None
                      else slice_constraints(constraints, sample_offset, sample_rows))
         cand = candidates(view, batch, seed, profile, constraints=view_cons,

@@ -12,10 +12,20 @@ in int64 on values masked to 32 bits: the int64 product wraps mod 2^64
 and its low 32 bits are exactly the uint32 product, and ``>>`` on a
 non-negative masked value is the logical shift.  A negative i32 seed
 enters as ``seed & 0xFFFFFFFF`` (its uint32 bit pattern).
+
+The wave seed itself comes from a PRNG key the coordinator splits once
+per wave.  ``prng_key``/``prng_split``/``seed_of`` are a numpy twin of
+``jax.random.key``, ``jax.random.split`` and the one scalar
+``jax.random.randint`` draw the JAX step takes (threefry2x32, with the
+``jax_threefry_partitionable`` layout of counters), so a port coordinator
+draws the same seed for every wave as the JAX coordinator with the same
+``seed`` argument.  ``pod_priority_of`` reads a pod object's
+``spec.priority``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 JITTER_BITS = 20
@@ -88,3 +98,66 @@ def class_key(score_int, col_ids, stratum_bits: int) -> torch.Tensor:
 
 def unpack_score(prio: torch.Tensor) -> torch.Tensor:
     return torch.where(prio >= 0, prio >> JITTER_BITS, torch.full_like(prio, -1))
+
+
+# ---- the wave seed: threefry2x32 as jax.random draws it --------------------
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+
+
+def _rotl(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def threefry2x32(key, x0, x1):
+    """Threefry-2x32 (20 rounds) of the counter pairs ``(x0, x1)`` under
+    ``key`` (two uint32 words), as ``jax._src.prng`` computes it; uint32
+    arithmetic wraps."""
+    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(_KS_PARITY))
+    x = [np.asarray(x0, np.uint32) + ks[0], np.asarray(x1, np.uint32) + ks[1]]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x[0], x[1]
+
+
+def prng_key(seed: int) -> tuple[int, int]:
+    """``jax.random.key(seed)`` with 64-bit types off: the seed is taken
+    as an int32 and the key is ``(0, seed & 0xFFFFFFFF)``."""
+    s = int(np.array(seed, np.int64).astype(np.int32))
+    return 0, s & _M32
+
+
+def prng_split(key) -> tuple[tuple[int, int], tuple[int, int]]:
+    """``jax.random.split(key)`` into two keys: counters (0, 0) and (0, 1)
+    of ``iota_2x32_shape((2,))``, each key the pair of output words."""
+    b0, b1 = threefry2x32(key, [0, 0], [0, 1])
+    return (int(b0[0]), int(b1[0])), (int(b0[1]), int(b1[1]))
+
+
+def seed_of(key) -> int:
+    """``jax.random.randint(key, (), -2**31, 2**31 - 1, int32)`` — the
+    i32 hash seed of one wave.  randint splits the key, draws 32 bits
+    from each half (``bits0 ^ bits1`` of counter (0, 0)) and reduces the
+    second draw modulo the span 2^32 - 1 (the first draw's multiplier
+    2^32 mod span is 0 in uint32 arithmetic)."""
+    _hi_key, lo_key = prng_split(key)
+    b0, b1 = threefry2x32(lo_key, [0], [0])
+    lo = int(b0[0] ^ b1[0])
+    off = lo % _M32
+    return int(np.array((off - (1 << 31)) & _M32, np.uint32).view(np.int32))
+
+
+def pod_priority_of(obj: dict) -> int:
+    """``spec.priority`` of a pod API object dict (0 when unset or not an
+    integer) — the pod's PriorityClass value, never encoded for the
+    device."""
+    try:
+        return int((obj.get("spec") or {}).get("priority") or 0)
+    except (TypeError, ValueError, AttributeError):
+        return 0

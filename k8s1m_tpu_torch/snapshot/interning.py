@@ -36,8 +36,14 @@ class Interner:
             return NONE_ID
         return self._to_id.get(s, NONE_ID)
 
+    def value(self, i: int):
+        return self._to_val[i]
+
     def __len__(self) -> int:
         return len(self._to_val)
+
+    def __contains__(self, s) -> bool:
+        return s in self._to_id
 
     def items(self):
         """Yields (id, value) for every interned value (skips the 0 slot)."""
@@ -76,3 +82,17 @@ class Vocab:
         self.node_names = Interner()
         self.zones = Interner()
         self.regions = Interner()
+
+    def generation(self) -> int:
+        """Monotonic counter over the encode-relevant namespaces (label
+        keys and values, taint triples): the hotfeed encode cache keys
+        its templates on it.  Interners only grow, so the sum of lengths
+        is a valid generation.  Node names, zones and regions are left
+        out: node churn must not invalidate the shape cache."""
+        return len(self.label_keys) + len(self.label_values) + len(self.taints)
+
+    def feed_generation(self) -> int:
+        """Staleness stamp of a fully encoded batch: ``generation()`` plus
+        the node-name namespace, which the batch's ``node_name_id``
+        column bakes."""
+        return self.generation() + len(self.node_names)

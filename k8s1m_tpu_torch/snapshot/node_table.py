@@ -9,9 +9,17 @@ decisions into the request columns in place, and ``scatter_rows`` /
 ``RowVersions`` is the host journal of row mutations that the deltasched
 plane cache invalidates through.
 
-Left out of this slice: the wave-epoch row quarantine, the mirror
-metrics and the thread-ownership guards — coordinator machinery that
-arrives with the coordinator port.
+**Wave epochs & the free-row quarantine** (the coordinator's half).  A
+pipelined coordinator keeps several waves in flight; a wave launched
+before a node removal may still hold the removed row among its
+candidates.  Freeing the row at once would let the next allocation reuse
+it, and the in-flight wave's bind would land on the new node.  So
+``remove`` tombstones the row (``valid=0``, columns zeroed) and parks it
+in a quarantine stamped with ``wave_epoch`` (the count of waves launched,
+``begin_wave``); ``release_rows(before_epoch)`` frees it once every wave
+launched at or before the removal has retired.  Fresh rows append past
+the high-water mark or reuse a released row, so structural adds never
+need the pipeline quiesced; only quarantine exhaustion does.
 """
 
 from __future__ import annotations
@@ -24,7 +32,14 @@ import torch
 
 from k8s1m_tpu_torch.config import EFFECT_NO_SCHEDULE, NONE_ID, TableSpec
 from k8s1m_tpu_torch.device import resolve_device, to_tensor
+from k8s1m_tpu_torch.obs.metrics import Counter
 from k8s1m_tpu_torch.snapshot.interning import Vocab, numeric_of
+
+_BULK_ROWS = Counter(
+    "megarow_bulk_ingest_rows_total",
+    "Node rows ingested through the vectorized bulk lane "
+    "(NodeTableHost.bulk_upsert / snapshot.bulkload)", (),
+)
 
 
 def mirror_dtype(bound: int) -> np.dtype:
@@ -39,7 +54,15 @@ def mirror_dtype(bound: int) -> np.dtype:
 
 
 class RowsExhausted(ValueError):
-    """No allocatable row: the table is at ``max_nodes``."""
+    """No allocatable row: the table is at ``max_nodes`` and the free
+    list is empty.  ``quarantined`` says how many rows are parked in the
+    wave-epoch quarantine — nonzero means a pipeline quiesce (retire all
+    in-flight waves, then ``release_rows(None)``) recovers capacity; zero
+    means the table is genuinely full."""
+
+    def __init__(self, msg: str, quarantined: int = 0):
+        super().__init__(msg)
+        self.quarantined = quarantined
 
 
 UNSCHEDULABLE_TAINT_KEY = "node.kubernetes.io/unschedulable"
@@ -150,43 +173,111 @@ class NodeTableHost:
         self.region = np.zeros((n,), mirror_dtype(spec.max_regions))
         self.name_id = np.zeros((n,), np.int32)
         self._row_of: dict[str, int] = {}
+        self._free_rows: list[int] = []
         self._next_row = 0
+        # Pipelined-scheduler wave clock: bumped by begin_wave() at every
+        # device dispatch.  0 = no consumer pipelines waves, and removes
+        # free their row immediately (standalone/tool users of this
+        # class never quarantine).
+        self.wave_epoch = 0
+        # Removed rows awaiting release: (removal wave_epoch, row),
+        # epoch-ordered by construction (the clock is monotone).  A row
+        # here is tombstoned (valid=0, columns zeroed) but NOT reusable —
+        # a wave launched before the removal may still bind into it.
+        self._quarantine: collections.deque[tuple[int, int]] = (
+            collections.deque()
+        )
+        # Bumped on every row->name mapping change (new node, removal,
+        # row reuse) — consumers holding derived per-row state (the shard
+        # set's ownership mask) refresh when this moves.
+        self.epoch = 0
+        # Opt-in delta journal of those changes: (name, row, alive)
+        # appended in order, so a consumer can update per-row state
+        # incrementally instead of re-scanning 1M rows per change.  The
+        # consumer owns draining it (enable_row_journal returns the list;
+        # clear after consuming).
+        self._row_journal: list[tuple[str, int, bool]] | None = None
+
+    def mirror_nbytes(self) -> int:
+        """Total bytes held by the mirror's column arrays (excludes the
+        row mapping and vocab, which are Python dicts)."""
+        return sum(getattr(self, c).nbytes for c in COLUMNS)
+
+    def enable_row_journal(self) -> list[tuple[str, int, bool]]:
+        if self._row_journal is None:
+            self._row_journal = []
+        return self._row_journal
 
     # ---- row management -------------------------------------------------
+
+    def row_of(self, name: str) -> int:
+        return self._row_of[name]
 
     def _alloc_row(self, name: str) -> int:
         if name in self._row_of:
             return self._row_of[name]
-        row = self._next_row
-        if row >= self.spec.max_nodes:
-            raise RowsExhausted(
-                f"node table full ({self.spec.max_nodes}); re-bucket TableSpec"
-            )
-        self._next_row += 1
+        if self._free_rows:
+            row = self._free_rows.pop()
+        else:
+            row = self._next_row
+            if row >= self.spec.max_nodes:
+                raise RowsExhausted(
+                    f"node table full ({self.spec.max_nodes}); re-bucket "
+                    "TableSpec" + (
+                        f" ({len(self._quarantine)} rows quarantined; a "
+                        "pipeline quiesce releases them)"
+                        if self._quarantine else ""
+                    ),
+                    quarantined=len(self._quarantine),
+                )
+            self._next_row += 1
         self._row_of[name] = row
+        self.epoch += 1
+        if self._row_journal is not None:
+            self._row_journal.append((name, row, True))
         return row
 
     def bulk_alloc(self, names) -> np.ndarray:
-        """Allocate (or resolve) a row per name; RowsExhausted raises
-        before any allocation when the fresh names do not all fit."""
-        fresh = {n for n in names if n not in self._row_of}
-        free = self.spec.max_nodes - self._next_row
+        """Allocate (or resolve) a row per name, with the capacity
+        check front-loaded: either every name gets a row, or
+        RowsExhausted raises BEFORE any allocation — a mid-batch raise
+        would leave names mapped to rows whose columns were never
+        written (the bulk lanes write columns only after every row is
+        allocated)."""
+        row_of = self._row_of
+        fresh = {n for n in names if n not in row_of}
+        free = len(self._free_rows) + (self.spec.max_nodes - self._next_row)
         if len(fresh) > free:
             raise RowsExhausted(
                 f"bulk ingest needs {len(fresh)} fresh rows but only "
-                f"{free} are allocatable (max_nodes={self.spec.max_nodes})"
+                f"{free} are allocatable (max_nodes="
+                f"{self.spec.max_nodes})" + (
+                    f" ({len(self._quarantine)} rows quarantined; a "
+                    "pipeline quiesce releases them)"
+                    if self._quarantine else ""
+                ),
+                quarantined=len(self._quarantine),
             )
         rows = np.empty((len(names),), np.int64)
+        alloc = self._alloc_row
         for i, name in enumerate(names):
-            rows[i] = self._alloc_row(name)
+            rows[i] = alloc(name)
         return rows
 
     def alloc_rows(self, names: list[str]) -> np.ndarray:
-        """Bulk-allocate rows for many new nodes and mark them valid;
-        callers fill the columns vectorized (the KWOK load generator)."""
-        rows = self.bulk_alloc(names)
+        """Bulk-allocate contiguous-ish rows for many new nodes.
+
+        Fast path for load generators (the make_nodes equivalent,
+        reference kwok/make_nodes/main.go:116-182): callers fill the table
+        columns vectorized; per-row python dispatch would dominate at 1M.
+        """
+        rows = np.empty((len(names),), np.int64)
+        for i, name in enumerate(names):
+            rows[i] = self._alloc_row(name)
         self.valid[rows] = True
         return rows
+
+    # ---- deltas ---------------------------------------------------------
 
     def upsert(self, node: NodeInfo) -> int:
         """Add or update a node; returns its row."""
@@ -220,6 +311,9 @@ class NodeTableHost:
         te = np.zeros((self.spec.taint_slots,), self.taint_effect.dtype)
         for i, taint in enumerate(taints):
             if not 0 <= taint.effect < 4:
+                # Same fail-closed contract as pack_meta_np's 2-bit
+                # budget: an out-of-range effect must raise here, not
+                # truncate into the int8 mirror.
                 raise ValueError(
                     f"node {node.name}: taint effect {taint.effect} "
                     "outside the EFFECT_* range [0, 4)"
@@ -232,9 +326,9 @@ class NodeTableHost:
             tk[i] = tid
             te[i] = taint.effect
 
-        zone_id = v.zones.intern(labels[ZONE_LABEL]) if ZONE_LABEL in labels else NONE_ID
+        zone_id = v.zones.intern(labels.get(ZONE_LABEL)) if ZONE_LABEL in labels else NONE_ID
         region_id = (
-            v.regions.intern(labels[REGION_LABEL]) if REGION_LABEL in labels else NONE_ID
+            v.regions.intern(labels.get(REGION_LABEL)) if REGION_LABEL in labels else NONE_ID
         )
         if zone_id >= self.spec.max_zones or region_id >= self.spec.max_regions:
             raise ValueError("zone/region id overflow; grow TableSpec.max_zones/max_regions")
@@ -249,6 +343,212 @@ class NodeTableHost:
         self.region[row] = region_id
         self.name_id[row] = v.node_names.intern(node.name)
         return row
+
+    def bulk_upsert(self, nodes) -> np.ndarray:
+        """Vectorized ``upsert`` over many nodes; returns their rows.
+
+        Byte-identical to ``[self.upsert(n) for n in nodes]`` — same
+        column bytes, same row mapping, same vocab contents in the same
+        intern order, same row-journal entries — but the per-node numpy
+        allocations and scattered row writes collapse into block fills
+        and one fancy-indexed write per column, the first wall a 1M-row
+        cold build hits.  A name repeated within the batch
+        resolves like repeated upserts: the later entry wins (numpy
+        fancy assignment applies in order).
+
+        Validation is front-loaded: any per-node error (label/taint
+        overflow, id past a TableSpec bound) raises BEFORE any table
+        column, row mapping or journal mutation — strictly cleaner than
+        the loop's partial application (interned strings from the batch
+        may remain; interners are append-only and ids are data).
+        """
+        spec = self.spec
+        v = self.vocab
+        b, nslots, tslots = len(nodes), spec.label_slots, spec.taint_slots
+        lk = np.zeros((b, nslots), np.int32)
+        lv = np.zeros((b, nslots), np.int32)
+        ln = np.zeros((b, nslots), np.int32)
+        tk = np.zeros((b, tslots), self.taint_id.dtype)
+        te = np.zeros((b, tslots), self.taint_effect.dtype)
+        zone = np.zeros((b,), np.int32)
+        region = np.zeros((b,), np.int32)
+        name_id = np.zeros((b,), np.int32)
+        cpu = np.zeros((b,), np.int32)
+        mem = np.zeros((b,), np.int32)
+        pods = np.zeros((b,), np.int32)
+        # Interner internals bound once per batch: the per-label
+        # ``intern`` method-call overhead is a measured slice of the 1M
+        # ingest wall (same-package access, mirrors Interner.intern).
+        lk_id, lk_val = v.label_keys._to_id, v.label_keys._to_val
+        lv_id, lv_val = v.label_values._to_id, v.label_values._to_val
+        # numeric_of memo keyed by interned value id: repeated label
+        # values (zones, groups) pay the parse once per distinct value.
+        num_of: dict[int, int] = {}
+        for i, node in enumerate(nodes):
+            labels = dict(node.labels)
+            labels.setdefault(HOSTNAME_LABEL, node.name)
+            if len(labels) > nslots:
+                raise ValueError(
+                    f"node {node.name}: {len(labels)} labels > "
+                    f"label_slots={nslots}"
+                )
+            for j, (k, val) in enumerate(sorted(labels.items())):
+                ik = lk_id.get(k)
+                if ik is None:
+                    ik = len(lk_val)
+                    lk_id[k] = ik
+                    lk_val.append(k)
+                if val is None:
+                    # Interner.intern's None -> NONE_ID mapping (a JSON
+                    # null label value reaches here via decode_node);
+                    # the inlined fast path must not intern None as a
+                    # fresh id or the bulk lane diverges from upsert.
+                    iv, num = NONE_ID, numeric_of(val)
+                else:
+                    iv = lv_id.get(val)
+                    if iv is None:
+                        iv = len(lv_val)
+                        lv_id[val] = iv
+                        lv_val.append(val)
+                    num = num_of.get(iv)
+                    if num is None:
+                        num = numeric_of(val)
+                        num_of[iv] = num
+                lk[i, j] = ik
+                lv[i, j] = iv
+                ln[i, j] = num
+            taints = list(node.taints)
+            if node.unschedulable:
+                taints.append(
+                    Taint(UNSCHEDULABLE_TAINT_KEY, "", EFFECT_NO_SCHEDULE)
+                )
+            if len(taints) > tslots:
+                raise ValueError(
+                    f"node {node.name}: {len(taints)} taints > "
+                    f"taint_slots={tslots}"
+                )
+            for j, taint in enumerate(taints):
+                if not 0 <= taint.effect < 4:
+                    raise ValueError(
+                        f"node {node.name}: taint effect {taint.effect} "
+                        "outside the EFFECT_* range [0, 4)"
+                    )
+                tid = v.taints.intern((taint.key, taint.value, taint.effect))
+                if tid >= spec.max_taint_ids:
+                    raise ValueError(
+                        "distinct taint triples overflow "
+                        "TableSpec.max_taint_ids"
+                    )
+                tk[i, j] = tid
+                te[i, j] = taint.effect
+            zid = (
+                v.zones.intern(labels[ZONE_LABEL])
+                if ZONE_LABEL in labels else NONE_ID
+            )
+            rid = (
+                v.regions.intern(labels[REGION_LABEL])
+                if REGION_LABEL in labels else NONE_ID
+            )
+            if zid >= spec.max_zones or rid >= spec.max_regions:
+                raise ValueError(
+                    "zone/region id overflow; grow "
+                    "TableSpec.max_zones/max_regions"
+                )
+            zone[i] = zid
+            region[i] = rid
+            name_id[i] = v.node_names.intern(node.name)
+            cpu[i] = node.cpu_milli
+            mem[i] = node.mem_kib
+            pods[i] = node.pods
+        # Every node validated: allocate rows (capacity pre-checked;
+        # journal + epoch side effects in batch order, exactly like the
+        # loop) and land the blocks in one write per column.
+        rows = self.bulk_alloc([node.name for node in nodes])
+        self.valid[rows] = True
+        self.cpu_alloc[rows] = cpu
+        self.mem_alloc[rows] = mem
+        self.pods_alloc[rows] = pods
+        self.label_key[rows] = lk
+        self.label_val[rows] = lv
+        self.label_num[rows] = ln
+        self.taint_id[rows] = tk
+        self.taint_effect[rows] = te
+        self.zone[rows] = zone
+        self.region[rows] = region
+        self.name_id[rows] = name_id
+        _BULK_ROWS.inc(b)
+        return rows
+
+    def remove(self, name: str) -> int:
+        row = self._row_of.pop(name)
+        self.valid[row] = False
+        # Zero the row so stale ids can't match future queries.
+        for arr in (
+            self.cpu_alloc, self.mem_alloc, self.pods_alloc,
+            self.cpu_req, self.mem_req, self.pods_req,
+            self.zone, self.region, self.name_id,
+        ):
+            arr[row] = 0
+        for arr in (
+            self.label_key, self.label_val, self.label_num,
+            self.taint_id, self.taint_effect,
+        ):
+            arr[row] = 0
+        if self.wave_epoch:
+            # Two-phase free: the row is tombstoned now (the caller
+            # scatters valid=0 immediately) but its id stays quarantined
+            # until every wave launched at or before this epoch retires
+            # (see release_rows).
+            self._quarantine.append((self.wave_epoch, row))
+        else:
+            self._free_rows.append(row)
+        self.epoch += 1
+        if self._row_journal is not None:
+            self._row_journal.append((name, row, False))
+        return row
+
+    # ---- wave epochs ----------------------------------------------------
+
+    def begin_wave(self) -> int:
+        """Stamp one device-wave launch; returns the wave's epoch."""
+        self.wave_epoch += 1
+        return self.wave_epoch
+
+    def release_rows(self, before_epoch: int | None = None) -> int:
+        """Return quarantined rows to the free list.
+
+        ``before_epoch`` is the oldest still-in-flight wave's epoch: a
+        row removed at epoch E is only referenced by waves launched at
+        epoch <= E, so it is safe once ``E < before_epoch``.  ``None``
+        (no wave in flight) releases everything.  Returns the count.
+        """
+        n = 0
+        q = self._quarantine
+        while q and (before_epoch is None or q[0][0] < before_epoch):
+            self._free_rows.append(q.popleft()[1])
+            n += 1
+        return n
+
+    @property
+    def quarantined(self) -> int:
+        return len(self._quarantine)
+
+    def add_pod(self, name: str, cpu_milli: int, mem_kib: int) -> None:
+        """Account an already-bound pod (host mirror of commit_binds)."""
+        row = self._row_of[name]
+        self.cpu_req[row] += cpu_milli
+        self.mem_req[row] += mem_kib
+        self.pods_req[row] += 1
+
+    def remove_pod(self, name: str, cpu_milli: int, mem_kib: int) -> None:
+        row = self._row_of[name]
+        self.cpu_req[row] -= cpu_milli
+        self.mem_req[row] -= mem_kib
+        self.pods_req[row] -= 1
+
+    @property
+    def num_nodes(self) -> int:
+        return len(self._row_of)
 
     def columns(self) -> dict:
         """Every mirror column by NodeTable name (the arrays themselves)."""

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 
 import numpy as np
 import torch
@@ -28,6 +29,13 @@ import torch
 from k8s1m_tpu_torch.config import TableSpec
 from k8s1m_tpu_torch.device import resolve_device, to_tensor
 from k8s1m_tpu_torch.snapshot.node_table import NodeTable, NodeTableHost, _map_tensors
+
+# Columns the packed layout compresses, in NodeTable naming (the
+# bytes/node evidence compares exactly this set between layouts).
+COLD_COLUMNS = (
+    "label_key", "label_val", "taint_id", "taint_effect", "valid",
+    "zone", "region", "pods_alloc",
+)
 
 # Default label-fusion bit budget: 4096 distinct label keys and 512K
 # distinct label values before the fail-closed split.
@@ -42,6 +50,24 @@ class PackingOverflow(ValueError):
     def __init__(self, field: str, msg: str):
         super().__init__(msg)
         self.field = field
+
+
+# Every reason a coordinator's packed layout can fall back for: the
+# PackingOverflow field names plus the static fallback (meta word too
+# narrow for the TableSpec's taint slots).
+FALLBACK_REASONS = (
+    "label_key", "label_val", "taint_id", "taint_effect",
+    "zone", "region", "pods_alloc", "taint_slots",
+)
+
+
+def resolve_packing(arg: str | None = None) -> str:
+    """Packing mode from an explicit arg or the K8S1M_PACKING env var:
+    "off" or "packed"; unknown values raise."""
+    mode = arg if arg is not None else os.environ.get("K8S1M_PACKING", "off")
+    if mode not in ("off", "packed"):
+        raise ValueError(f"K8S1M_PACKING/packing must be off|packed, got {mode!r}")
+    return mode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,6 +296,15 @@ def pack_table_auto(
     return pack_table_host(host, pspec, device)
 
 
+def pack_row_delta(host: NodeTableHost, rows: np.ndarray, pspec: PackingSpec, columns) -> dict:
+    """Packed dirty-row delta for ``scatter_rows``: the packed-layout
+    equivalent of ``{c: getattr(host, c)[rows] for c in columns}``.
+    ``columns`` is CAP_COLUMNS or ALL_COLUMNS (NodeTable naming); the
+    returned dict uses PackedNodeTable field names."""
+    cols = {c: getattr(host, c)[rows] for c in columns}
+    return pack_columns_np(cols, pspec)
+
+
 # ---- device-side unpacking -------------------------------------------------
 
 
@@ -304,3 +339,84 @@ def unpack_chunk(chunk: PackedNodeTable) -> NodeTable:
         region=chunk.region.to(i32),
         name_id=chunk.name_id,
     )
+
+
+def mask_rows_packed(table: PackedNodeTable, row_mask: torch.Tensor) -> PackedNodeTable:
+    """``engine.cycle.mask_rows`` for the packed layout: rows outside the
+    mask lose their valid bit and their ``pods_alloc`` (the fused
+    kernel's row-validity rule), in a new view; the commit state (request
+    columns) is shared with ``table``."""
+    return dataclasses.replace(
+        table,
+        meta=torch.where(row_mask, table.meta, table.meta & ~1),
+        pods_alloc=torch.where(row_mask, table.pods_alloc,
+                               torch.zeros((), dtype=table.pods_alloc.dtype,
+                                           device=table.pods_alloc.device)),
+    )
+
+
+# ---- in-place evidence -------------------------------------------------------
+
+# The planes every wave commits into or every scatter writes (i32[N]).
+_HOT_PLANES = (
+    "cpu_alloc", "mem_alloc", "cpu_req", "mem_req", "pods_req", "name_id",
+)
+
+
+def donation_probe(table) -> frozenset:
+    """Storage pointers of the table's hot planes, read before a wave:
+    the port's counterpart of the JAX package's buffer-donation probe."""
+    return frozenset(getattr(table, c).data_ptr() for c in _HOT_PLANES)
+
+
+def donation_inplace(table, probe: frozenset) -> bool:
+    """True when the post-wave table still holds every probed plane (the
+    wave committed in place, as ``commit_binds`` and ``scatter_rows``
+    do); False would mean a plane was reallocated."""
+    return all(getattr(table, c).data_ptr() in probe for c in _HOT_PLANES)
+
+
+# ---- device bytes ------------------------------------------------------------
+
+
+# The JAX package's name for the same count.
+hbm_bytes = table_bytes
+
+
+_PACKED_COLD = (
+    "label_key", "label_val", "taint_id", "meta", "zone", "region",
+    "pods_alloc",
+)
+
+
+def cold_bytes_per_node(table) -> float:
+    """Bytes/node of the COLD_COLUMNS set under the table's layout."""
+    names = _PACKED_COLD if is_packed(table) else COLD_COLUMNS
+    return sum(
+        getattr(table, c).numel() * getattr(table, c).element_size() for c in names
+    ) / max(table.num_rows, 1)
+
+
+def unpacked_cold_bytes(table_spec: TableSpec) -> float:
+    """COLD_COLUMNS bytes/node under the plain i32 layout — the fixed
+    denominator of the reduction ratio."""
+    l, t = table_spec.label_slots, table_spec.taint_slots
+    #      label_key+label_val  taint_id+effect  valid  zone+region+pods
+    return 8 * l + 8 * t + 1 + 4 + 4 + 4
+
+
+def bytes_report(table, table_spec: TableSpec | None = None) -> dict:
+    """Layout evidence for a report: layout name, total and cold
+    bytes/node and (given the TableSpec) the cold-column reduction
+    against the plain layout."""
+    n = max(table.num_rows, 1)
+    out = {
+        "layout": "packed" if is_packed(table) else "unpacked",
+        "hbm_bytes_per_node": round(hbm_bytes(table) / n, 2),
+        "cold_bytes_per_node": round(cold_bytes_per_node(table), 3),
+    }
+    if table_spec is not None:
+        out["cold_bytes_reduction"] = round(
+            unpacked_cold_bytes(table_spec) / max(out["cold_bytes_per_node"], 1e-9), 3,
+        )
+    return out

@@ -253,13 +253,23 @@ ALL_GROUPS: frozenset = frozenset(_GROUP_FIELDS)
 @dataclasses.dataclass
 class PackedPodBatch:
     """A pod batch as two host buffers (all-int32, all-bool) holding only
-    the field groups this wave uses."""
+    the field groups this wave uses, plus the full host field dict."""
 
     ints: np.ndarray    # i32[sum of included int field sizes]
     bools: np.ndarray   # bool[sum of included bool field sizes]
     spec: PodSpec
     table_spec: TableSpec
     groups: frozenset   # included group names
+    # name -> host numpy array, every field (excluded groups zero): what
+    # the coordinator's constraint rollback reads a wave or more later.
+    fields: dict | None = None
+    # Vocab.feed_generation() the encode ran against (snapshot/hotfeed.py
+    # stamps it); None = vocab-independent (the plain lane).
+    vocab_gen: int | None = None
+
+    @property
+    def batch(self) -> int:
+        return self.spec.batch
 
 
 def unpack_pod_batch(
@@ -318,7 +328,7 @@ class PodBatchHost:
             (bool_parts if is_bool else int_parts).append(out[name].ravel())
         ints = np.concatenate(int_parts) if int_parts else np.zeros(0, np.int32)
         bools = np.concatenate(bool_parts) if bool_parts else np.zeros(0, np.bool_)
-        return PackedPodBatch(ints, bools, self.spec, self.table_spec, groups)
+        return PackedPodBatch(ints, bools, self.spec, self.table_spec, groups, fields=out)
 
     def encode_packed(self, pods: list[PodInfo]) -> PackedPodBatch:
         """Encode into the sparse two-buffer packed form."""

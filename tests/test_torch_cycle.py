@@ -323,11 +323,15 @@ def _packed_for(selector):
     return th, enc.encode_packed(_pods(tpe, 8, selector))
 
 
-@pytest.mark.parametrize("bad", ["row_mask", "mesh"])
-def test_unsupported_waves_raise(bad):
+@pytest.mark.parametrize("bad, exc", [
+    # Row masks are ported; one that is not a bool[N] tensor raises.
+    pytest.param("row_mask", TypeError, id="row_mask"),
+    pytest.param("mesh", NotImplementedError, id="mesh"),
+])
+def test_unsupported_waves_raise(bad, exc):
     th, packed = _packed_for(True)
     table = th.to_device("cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(exc):
         schedule_batch_packed(table, packed, 1, profile=BASE, chunk=32, **{bad: object()})
 
 

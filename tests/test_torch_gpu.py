@@ -519,3 +519,63 @@ def test_delta_kernel_tie_goes_to_the_earlier_column(cuda, near, k):
         assert bool((got.prio[tied, 0] == got.prio[tied, 1]).all())
     else:
         assert bool((got.idx[tied, 0] == c1).all())
+
+
+# ---- the coordinator on the card --------------------------------------------
+
+
+def _bench_stored(device, batch, **over):
+    """``tools/sched_bench.run`` at 16,384 nodes, pipelined at depth 3,
+    with a zero-delay, zero-jitter retry policy (a retried pod's next wave
+    does not depend on the clock): (stored pod values, host request
+    columns, device request columns, report)."""
+    from k8s1m_tpu_torch.faultline import RetryPolicy
+    from k8s1m_tpu_torch.store.native import list_prefix
+    from k8s1m_tpu_torch.tools import sched_bench
+
+    args = sched_bench.parse_args([
+        "--nodes", "16384", "--pods", "8192", "--batch", str(batch), "--chunk", "1024",
+        "--depth", "3", "--packing", "packed", "--device", device,
+    ])
+    for k, v in over.items():
+        setattr(args, k, v)
+    report, coord, store = sched_bench.run(
+        args, retry_policy=RetryPolicy("coordinator.bind", base_delay_s=0.0, jitter=0.0))
+    try:
+        coord.flush()
+        kvs, _rev = list_prefix(store, b"/registry/pods/")
+        req = {c: getattr(coord.host, c).copy() for c in ("cpu_req", "mem_req", "pods_req")}
+        dev = {c: getattr(coord.table, c).cpu().numpy() for c in req}
+        return {kv.key: kv.value for kv in kvs}, req, dev, report
+    finally:
+        coord.close()
+        store.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["fused", "fused-serial", "delta"])
+def test_coordinator_on_card_equals_cpu(cuda, path):
+    """The coordinator on the card leaves the same bytes in the store as
+    with device='cpu', pipelined at depth 3 and (``-serial``) unpipelined.
+    Its retire reads each wave's bound rows from a pinned buffer filled by
+    a non-blocking copy; reading before the copy's event completes binds
+    from stale bytes, which only a card shows — most of all unpipelined,
+    where the retire follows the launch at once.  The delta case runs the
+    candidate index with 9 stratum bits (~32 tied rows per class at
+    16,384 nodes, the megarow sizing), and pods retry."""
+    if path == "fused":
+        batch, over = 1024, dict(score_pct=25)
+    elif path == "fused-serial":
+        batch, over = 1024, dict(score_pct=25, no_pipeline=True)
+    else:
+        batch, over = 512, dict(score_pct=100, deltacache="on", delta_index_k=64,
+                                stratum_bits=9)
+    got, req, dev, report = _bench_stored("cuda", batch, **over)
+    want, want_req, _dev, _report = _bench_stored("cpu", batch, **over)
+    assert got == want
+    assert all(b'"nodeName"' in v for v in got.values())
+    for c in req:
+        np.testing.assert_array_equal(req[c], want_req[c])
+        np.testing.assert_array_equal(dev[c], req[c])
+    launches = report["detail"]["launches"]
+    assert launches["delta_plane_topk" if path == "delta" else "fused_topk"] > 0
