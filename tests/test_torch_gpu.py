@@ -552,17 +552,37 @@ def _bench_stored(device, batch, **over):
         store.close()
 
 
+@pytest.fixture
+def slow_card(monkeypatch):
+    """Keep the card busy for ~20 ms after every wave, before the
+    coordinator queues the copy of its bound rows: on an idle card the
+    copy lands within microseconds, and a retire that forgot to wait for
+    it would still read the right bytes."""
+    from k8s1m_tpu_torch.control import coordinator
+
+    def slowed(fn):
+        def wave(table, *args, **kw):
+            out = fn(table, *args, **kw)
+            if table.cpu_req.is_cuda:
+                torch.cuda._sleep(40_000_000)
+            return out
+        return wave
+
+    for name in ("schedule_batch_packed", "schedule_batch_delta"):
+        monkeypatch.setattr(coordinator, name, slowed(getattr(coordinator, name)))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("path", ["fused", "fused-serial", "delta"])
-def test_coordinator_on_card_equals_cpu(cuda, path):
+def test_coordinator_on_card_equals_cpu(cuda, slow_card, path):
     """The coordinator on the card leaves the same bytes in the store as
     with device='cpu', pipelined at depth 3 and (``-serial``) unpipelined.
     Its retire reads each wave's bound rows from a pinned buffer filled by
     a non-blocking copy; reading before the copy's event completes binds
-    from stale bytes, which only a card shows — most of all unpipelined,
-    where the retire follows the launch at once.  The delta case runs the
-    candidate index with 9 stratum bits (~32 tied rows per class at
-    16,384 nodes, the megarow sizing), and pods retry."""
+    from stale bytes, which only a card shows — unpipelined, the retire
+    follows the launch at once, and ``slow_card`` holds the copy back.
+    The delta case runs the candidate index with 9 stratum bits (~32 tied
+    rows per class at 16,384 nodes, the megarow sizing), and pods retry."""
     if path == "fused":
         batch, over = 1024, dict(score_pct=25)
     elif path == "fused-serial":
