@@ -12,7 +12,9 @@ deltasched wave ``engine.cycle.schedule_batch_delta`` over cached
 per-shape planes covering the whole table (path C: ``bench.py
 --deltacache``, C1, and ``bench.py --affinity --deltacache``, C2) — and
 then the host coordinator (store -> watch -> wave -> CAS bind) through its
-entry point ``tools/sched_bench.py`` (phase 8).
+entry point ``tools/sched_bench.py`` (phase 8: the closed loop, template
+pods under node churn, constraints, a paced offered load) and
+``tools/kernel_probe.py`` (phase 9).
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device  — the card's name, and its name and power limit as
@@ -45,7 +47,7 @@ Phases (each raises on failure; the script then exits non-zero):
                each stage configuration, packed: bit-equal to the plain
                version and timed (``--worst-case-only`` runs just this and
                times the kernel of the tree it is run from);
-  4. main path — uniform pods, 20 timed waves per layout with seeds from
+  4. main path — uniform pods, 4 timed waves per layout with seeds from
                ``numpy.random.default_rng(0)``; one launch of the base stage
                per wave (launch counts reset just before, read just after);
                one wave re-run through the plain version from a clone of the
@@ -58,7 +60,7 @@ Phases (each raises on failure; the script then exits non-zero):
                groups per block, the grouped bound and the per-pair bound
                (``bound_per_pair_ms``) with the kernel's share of each;
   5. path A  — ``node_affinity_pods(4096)``, Profile without constraint
-               plugins; 10 timed waves per layout, one ``aff`` launch per
+               plugins; 3 timed waves per layout, one ``aff`` launch per
                wave; the plain-version re-run and layout checks of phase 4;
                every bound pod sits in one of its two zones and outside its
                excluded region;
@@ -71,7 +73,7 @@ Phases (each raises on failure; the script then exits non-zero):
                Also prints prologue and constraint-commit ms/wave;
   7. path C  — C1 (``uniform_pods(4096)``, one shape) and C2
                (``node_affinity_pods(4096)``, 64 shapes): planes filled in
-               16-shape groups, then 2 + 5 delta waves per layout, each
+               16-shape groups, then 2 + 2 delta waves per layout, each
                after ``scatter_rows`` rewrote ``cpu_req`` of 128 journaled
                rows (its dirty vector) with the previous wave's rows in
                flight; exactly one delta-kernel and no fused-kernel launch
@@ -81,31 +83,47 @@ Phases (each raises on failure; the script then exits non-zero):
                layouts bind identically; no node over-committed; binds > 0.
                Prints binds/s, p50 wave ms, delta kernel ms/wave, merge,
                greedy-assign and fill ms, plane and table MB.
-  8a. coordinator parity — ``tools/sched_bench.py`` at 65,536 nodes and
-               16,384 pods (5% window, packed, depth 2) once on the card and
-               once with ``device="cpu"`` (the plain versions): the stored pod
-               values must be byte-identical;
-  8. coordinator — ``sched_bench`` at 1,048,576 nodes and 65,536 pods,
-               packed: D1 (``--batch 4096 --depth 2 --score-pct 5``, the
-               fused kernel on every wave) and D2 (the megarow shape:
+  8a. coordinator parity — three groups at 65,536 nodes x 16,384 pods
+               (5% window, packed, depth 2, chunk 4096, zero-delay
+               retries), each leaving byte-identical stored pod values:
+               ``tools/sched_bench.py`` with uniform pods on the card's
+               kernels, on the card's scan path (``--backend xla``) and on
+               the CPU; with template pods (``--shape-pool 8 --shape-share
+               0.9 --seed 3``) on the card and the CPU; and D4's constraint
+               construction on the card and the CPU;
+  8. coordinator — at 1,048,576 nodes, packed: D1 (``sched_bench --batch
+               4096 --depth 2 --score-pct 5``, 65,536 pods, the fused kernel
+               on every wave, with ``--encode-profile --delta-profile
+               --stats --kernel-profile`` and the knock-out variants over the
+               live table on both backends), D2 (the megarow shape:
                ``--batch 512 --depth 3 --score-pct 100 --deltacache on
                --delta-index-k 64 --stratum-bits 15``, the delta kernel on
-               the delta waves).
-               Each pod is bound exactly once in the store, the device
-               request columns equal the host mirror after ``flush``, no
-               node exceeds its allocatable; D1 launches the fused kernel
-               and D2 the delta kernel in the measured window.  Prints
-               binds/s, schedule-to-bind p50/p99, node write and cold build
-               seconds, the stage means and the device stage's share.
+               the delta waves), D3 (D1 with ``--shape-pool 8 --shape-share
+               0.9 --seed 3 --node-churn 4000``: the ``aff`` stage, the sync
+               stage, no structural or resync quiesce), D4 (path B through a
+               ``Coordinator(with_constraints=True)``: 8 waves of 2048 spread
+               + 2048 anti pods, the ``cons`` stage, no node holding anti
+               pods of two waves, the count tables equal to a host recount
+               from the stored binds) and D5 (D1 at ``--rate 2000``, 32,768 pods:
+               p50/p95/p99 schedule-to-bind, adaptive quiesces).  Each pod
+               is bound exactly once in the store, the device request
+               columns (D3: and allocatable columns) equal the host mirror
+               after ``flush``, no node exceeds its allocatable.  Prints
+               binds/s, schedule-to-bind quantiles, node write and cold
+               build seconds, stage means, quiesces and the device stage's
+               share;
+  9. kernel_probe — ``tools/kernel_probe.py`` at its default shape
+               (53,248 rows x 8192 pods, packed) on the fused kernel and on
+               the scan path: ms per batch of every knock-out variant.
 Phases 5 and 6 print the same group and bound figures as phase 4.  The
 next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
 stage configuration and one for the delta kernel: times, bound, launches;
 the fused entries add ``bound_per_pair_ms``, ``groups`` and
 ``all_distinct_ms``; ``launches`` includes the coordinator's, which
-``coordinator_launches`` also gives alone);
+``coordinator_launches`` also gives alone, per fused stage);
 the last is ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py [--steps 20] [--path-steps 10] [--delta-steps 5] [--warmup 2]
+    python3 chip_smoke.py [--steps 4] [--path-steps 3] [--delta-steps 2] [--warmup 2]
                           [--out results.json] [--worst-case-only]
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
@@ -1375,7 +1393,7 @@ def _delta_wave_checks(tag, layout, i, pre, table, asg, rows, planes, packed, se
     """One wave of path C held to the deltasched contract, from clones of
     the pre-wave state: (a) the full recompute (``schedule_batch_packed``
     over the whole table, on the fused kernel) binds identically, (b) the
-    plain-tail re-run (``reference=True``) gives the same rows and planes,
+    plain-tail re-run (``backend="xla"``) gives the same rows and planes,
     (c) the merged planes equal a fresh fill over the pre-wave table."""
     import torch
 
@@ -1397,7 +1415,7 @@ def _delta_wave_checks(tag, layout, i, pre, table, asg, rows, planes, packed, se
     del full_t
     ref_t, _ra, ref_rows, ref_planes = schedule_batch_delta(
         pre_table.clone(), packed, seed, planes=(pre_mask.clone(), pre_score.clone()),
-        dirty=dirty, inflight_rows=inflight, reference=True, **kw)
+        dirty=dirty, inflight_rows=inflight, backend="xla", **kw)
     check(torch.equal(ref_rows, rows) and torch.equal(ref_planes[0], planes[0])
           and torch.equal(ref_planes[1], planes[1]),
           f"{tag} {layout} wave {i}: kernel wave != plain-tail wave")
@@ -1416,6 +1434,12 @@ def _delta_wave_checks(tag, layout, i, pre, table, asg, rows, planes, packed, se
 
 COORD_PODS = 65536
 PARITY_NODES, PARITY_PODS = 65536, 16384
+D4_WAVES, D4_PER = 8, 2048          # 8 waves of 2048 spread + 2048 anti pods
+D5_RATE, D5_PODS = 2000, 32768
+SHAPE_POOL = dict(shape_pool=8, shape_share=0.9, seed=3)
+# Zero-delay, zero-jitter retries: a retried pod's next wave does not
+# depend on the clock, so a card run and a CPU run see the same waves.
+_ZERO_DELAY = dict(component="coordinator.bind", base_delay_s=0.0, jitter=0.0)
 
 
 def _bench_args(**over):
@@ -1437,13 +1461,17 @@ def _stored_pods(store) -> dict:
     return {kv.key: kv.value for kv in kvs}
 
 
-def _coordinator_checks(tag: str, report: dict, coord, store, pods: int) -> dict:
-    """Each pod bound exactly once in the store, the device request
-    columns equal to the host mirror after ``flush``, no node over its
-    allocatable; returns the stored pod values."""
+def _coordinator_checks(tag: str, report: dict, coord, store, pods: int, *, warm: int = 0,
+                        alloc: bool = False) -> dict:
+    """Each pod bound exactly once in the store (``pods`` of the run and
+    ``warm`` bucket warm-up pods), the device request columns — and with
+    ``alloc`` (node churn rewrites them) the allocatable columns — equal
+    to the host mirror after ``flush``, no node over its allocatable;
+    returns the stored pod values."""
     coord.flush()
     stored = _stored_pods(store)
-    check(len(stored) == pods, f"[{tag}] {len(stored)} pods stored, want {pods}")
+    total = pods + warm
+    check(len(stored) == total, f"[{tag}] {len(stored)} pods stored, want {total}")
     per_node: dict = {}
     for v in stored.values():
         name = json.loads(v)["spec"].get("nodeName")
@@ -1452,94 +1480,353 @@ def _coordinator_checks(tag: str, report: dict, coord, store, pods: int) -> dict
     d = report["detail"]
     check(d["bound"] + 1 == pods, f"[{tag}] {d['bound']} binds + 1 warm-up != {pods} pods")
     host = coord.host
-    check(int(host.pods_req.sum()) == pods,
-          f"[{tag}] host mirror counts {int(host.pods_req.sum())} bound pods, want {pods}")
+    check(int(host.pods_req.sum()) == total,
+          f"[{tag}] host mirror counts {int(host.pods_req.sum())} bound pods, want {total}")
     rows = {name: host.row_of(name) for name in per_node}
     check(all(int(host.pods_req[rows[n]]) == c for n, c in per_node.items()),
           f"[{tag}] the store's binds per node disagree with the host mirror")
-    for col in ("cpu_req", "mem_req", "pods_req"):
+    cols = ["cpu_req", "mem_req", "pods_req"]
+    if alloc:
+        cols += ["cpu_alloc", "mem_alloc", "pods_alloc"]
+    for col in cols:
         dev = getattr(coord.table, col).cpu().numpy()
         check(np.array_equal(dev, getattr(host, col)),
               f"[{tag}] device {col} != host mirror after flush")
-    for req, alloc in (("cpu_req", "cpu_alloc"), ("mem_req", "mem_alloc"),
-                       ("pods_req", "pods_alloc")):
-        check(bool((getattr(host, req) <= getattr(host, alloc)).all()),
-              f"[{tag}] a node exceeds its {alloc}")
+    for req, cap in (("cpu_req", "cpu_alloc"), ("mem_req", "mem_alloc"),
+                     ("pods_req", "pods_alloc")):
+        check(bool((getattr(host, req) <= getattr(host, cap)).all()),
+              f"[{tag}] a node exceeds its {cap}")
     return stored
 
 
+def _constraint_waves(waves: int, per: int):
+    """Path B's pods as store objects: per wave ``per`` ``bench-spread``
+    (zone spread, maxSkew 1, DoNotSchedule) and ``per`` ``bench-anti``
+    (required hostname anti-affinity) pods from ``spread_deployment`` /
+    ``affinity_deployment``, with the raw specs the coordinator decodes
+    back into the same constraint refs; plus one warm-up spread pod."""
+    from k8s1m_tpu_torch.cluster import affinity_deployment, spread_deployment
+    from k8s1m_tpu_torch.config import TOPO_ZONE, TableSpec
+    from k8s1m_tpu_torch.control.objects import encode_pod, pod_key
+    from k8s1m_tpu_torch.snapshot.constraints import ConstraintTracker
+
+    spread = [{"topologyKey": "topology.kubernetes.io/zone", "maxSkew": 1,
+               "whenUnsatisfiable": "DoNotSchedule",
+               "labelSelector": {"matchLabels": {"app": "bench-spread"}}}]
+    anti = {"podAntiAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [{
+        "topologyKey": "kubernetes.io/hostname",
+        "labelSelector": {"matchLabels": {"app": "bench-anti"}}}]}}
+    tracker = ConstraintTracker(TableSpec(max_nodes=16))
+
+    def spreads(n, start):
+        return [(pod_key(p.namespace, p.name), encode_pod(p, raw_spread=spread))
+                for p in spread_deployment(tracker, "bench-spread", n, topo=TOPO_ZONE,
+                                           start=start)]
+
+    out = []
+    for w in range(waves):
+        out.append(spreads(per, w * per) + [
+            (pod_key(p.namespace, p.name), encode_pod(p, raw_affinity=anti))
+            for p in affinity_deployment(tracker, "bench-anti", per, anti=True, start=w * per)
+        ])
+    return spreads(1, waves * per), out
+
+
+def _recount_constraints(coord, stored) -> None:
+    """The nine count tables recounted on the host from the stored binds
+    (each pod decoded with the coordinator's tracker: its spread and
+    affinity increments and its own required anti-affinity terms at its
+    node's row, zone and region) must equal the device tables."""
+    from k8s1m_tpu_torch.config import TOPO_HOSTNAME, TOPO_REGION, TOPO_ZONE
+    from k8s1m_tpu_torch.control.objects import decode_pod
+    from k8s1m_tpu_torch.snapshot.constraints import FIELDS
+
+    cons = coord.constraints
+    want = {f: np.zeros(tuple(getattr(cons, f).shape), np.int64) for f in FIELDS}
+    host = coord.host
+    suffix = {TOPO_HOSTNAME: "node", TOPO_ZONE: "zone", TOPO_REGION: "region"}
+    for v in stored.values():
+        pod = decode_pod(v, coord.tracker)
+        row = host.row_of(pod.node_name)
+        dom = {TOPO_HOSTNAME: row, TOPO_ZONE: int(host.zone[row]),
+               TOPO_REGION: int(host.region[row])}
+        for cid, topo in pod.spread_incs:
+            want[f"spread_{suffix[topo]}"][cid, dom[topo]] += 1
+        for tid, topo in pod.ipa_incs:
+            want[f"tgt_{suffix[topo]}"][tid, dom[topo]] += 1
+        for ref in pod.affinity_refs:
+            if ref.required and ref.anti:
+                want[f"own_{suffix[ref.topo]}"][ref.tid, dom[ref.topo]] += 1
+    for f in FIELDS:
+        check(np.array_equal(getattr(cons, f).cpu().numpy(), want[f]),
+              f"device count table {f} != the host recount from the stored binds")
+
+
+def _constraint_run(device: str, *, nodes: int, waves: int, per: int, **coord_kw):
+    """D4's construction (``sched_bench`` always builds its coordinator
+    without constraints): path B / BASELINE configs 3-4 through the
+    coordinator — ``Coordinator(with_constraints=True)``, the full
+    ``Profile()``, ``PodSpec(batch=2*per, spread_refs=1, affinity_refs=1,
+    spread_incs=1, ipa_incs=1)``, path B's TableSpec, a 5% window, packed,
+    depth 2 — over ``build_node`` nodes written by sched_bench's
+    ``write_nodes``.
+    One warm-up spread pod, then ``waves`` waves of ``per`` + ``per`` pods
+    with a ``step()`` after each and ``run_until_idle`` for the tail.
+    Returns (report, coordinator, store), both left open."""
+    from k8s1m_tpu_torch.config import PodSpec, TableSpec
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
+    from k8s1m_tpu_torch.obs.metrics import REGISTRY, quantile_report_ms
+    from k8s1m_tpu_torch.ops import fused_topk
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.store.native import MemStore
+    from k8s1m_tpu_torch.tools.sched_bench import _stage_means_ms, write_nodes
+
+    store = MemStore()
+    t0 = time.perf_counter()
+    write_nodes(store, nodes)
+    nodes_s = time.perf_counter() - t0
+    cap = 1 << max(10, (nodes - 1).bit_length())
+    coord = Coordinator(
+        store, TableSpec(max_nodes=cap, max_zones=128, max_regions=16),
+        PodSpec(batch=2 * per, spread_refs=1, affinity_refs=1, spread_incs=1, ipa_incs=1),
+        Profile(), chunk=CHUNK, with_constraints=True, pipeline=True, depth=2,
+        score_pct=SCORE_PCT, packing="packed", device=device, **coord_kw,
+    )
+    coord.bootstrap()
+    warm, items = _constraint_waves(waves, per)
+    store.put_batch(warm)
+    while coord.run_until_idle() == 0:
+        pass
+    for name in ("coordinator_schedule_to_bind_seconds", "coordinator_cycle_seconds"):
+        REGISTRY.get(name).reset()
+    coord.waves.clear()
+    fused_topk.reset_launches()
+    bound = 0
+    t0 = time.perf_counter()
+    for wave in items:
+        store.put_batch(wave)
+        bound += coord.step()
+    bound += coord.run_until_idle()
+    sched_s = time.perf_counter() - t0
+    lat = REGISTRY.get("coordinator_schedule_to_bind_seconds")
+    report = {"value": round(bound / sched_s, 1), "detail": {
+        "bound": bound, "schedule_s": round(sched_s, 3), "node_create_s": round(nodes_s, 3),
+        "cold_build_s": round(REGISTRY.get("megarow_cold_build_seconds").value(), 3),
+        "device_share": round(REGISTRY.get("coordinator_cycle_seconds").sum(stage="device")
+                              / sched_s, 4),
+        **quantile_report_ms(lat, (0.5, 0.99)),
+        "stage_means_ms": _stage_means_ms(),
+        "waves": dict(coord.waves),
+        "launches": {"fused_topk": fused_topk.fused_topk.launches,
+                     "fused_topk_by_stage": dict(fused_topk.fused_topk.launches_by_stage)},
+    }}
+    return report, coord, store
+
+
 def phase_coordinator_parity() -> dict:
-    """8a: the same sched_bench run on the card and with device='cpu' (the
-    plain versions) must leave byte-identical pod values in the store."""
+    """8a: three groups of the same run, each at 65,536 nodes x 16,384
+    pods, 5% window, packed, chunk 4096, zero-delay retries — uniform pods
+    on the card's kernels, on the card's scan path (``backend="xla"``) and
+    on the CPU; template pods (``--shape-pool 8 --shape-share 0.9 --seed
+    3``) on the card and the CPU; D4's constraint construction on the card
+    and the CPU.  Each group must leave byte-identical pod values."""
+    from k8s1m_tpu_torch.faultline import RetryPolicy
     from k8s1m_tpu_torch.tools import sched_bench
 
-    from k8s1m_tpu_torch.faultline import RetryPolicy
+    policy = RetryPolicy(**_ZERO_DELAY)
+    groups = {
+        "uniform": [("cuda", {}), ("cuda", {"backend": "xla"}), ("cpu", {})],
+        "shape-pool": [("cuda", SHAPE_POOL), ("cpu", SHAPE_POOL)],
+        "constraints": [("cuda", None), ("cpu", None)],
+    }
+    out = {}
+    for group, members in groups.items():
+        runs = []
+        for dev, over in members:
+            t0 = time.perf_counter()
+            if over is None:
+                report, coord, store = _constraint_run(
+                    dev, nodes=PARITY_NODES, waves=PARITY_PODS // 4096, per=2048,
+                    retry_policy=policy)
+                pods = PARITY_PODS + 1
+            else:
+                # chunk 4096 on both devices: the window rounds up to a
+                # whole chunk, so the CPU's scan-path default (16384)
+                # would score a different window.
+                report, coord, store = sched_bench.run(_bench_args(
+                    nodes=PARITY_NODES, pods=PARITY_PODS, score_pct=SCORE_PCT,
+                    packing="packed", chunk=CHUNK, device=dev, **over), retry_policy=policy)
+                pods = PARITY_PODS
+            tag = f"8a {group} {dev} {coord.backend}"
+            stored = _coordinator_checks(tag, report, coord, store, pods)
+            if over is None:
+                _recount_constraints(coord, stored)
+            coord.close()
+            store.close()
+            runs.append((tag, stored, report, time.perf_counter() - t0))
+        for tag, stored, _r, _t in runs[1:]:
+            check(stored == runs[0][1], f"[{tag}] stored pod values differ from [{runs[0][0]}]")
+        log(f"[8a] {group}: " + ", ".join(f"{t} ({s:.1f}s)" for t, _st, _r, s in runs)
+            + f" left byte-identical pod values ({len(runs[0][1])} pods)")
+        out[group] = {tag: rep for tag, _st, rep, _s in runs}
+    return out
 
-    # Zero-delay backoff: a retried pod's next wave does not depend on the
-    # clock, so the two runs see the same waves.
-    policy = RetryPolicy("coordinator.bind", base_delay_s=0.0, jitter=0.0)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        report, coord, store = sched_bench.run(_bench_args(
-            nodes=PARITY_NODES, pods=PARITY_PODS, score_pct=SCORE_PCT, packing="packed",
-            device=dev), retry_policy=policy)
-        stored = _coordinator_checks(f"8a {dev}", report, coord, store, PARITY_PODS)
-        coord.close()
-        store.close()
-        runs[dev] = (stored, report, time.perf_counter() - t0)
-    same = runs["cuda"][0] == runs["cpu"][0]
-    check(same, "[8a] stored pod values differ between cuda and cpu")
-    log(f"[8a] sched_bench {PARITY_NODES} nodes x {PARITY_PODS} pods: cuda and cpu runs "
-        f"left byte-identical pod values ({runs['cuda'][2]:.1f}s / {runs['cpu'][2]:.1f}s)")
-    return {"identical": same, "cuda": runs["cuda"][1], "cpu": runs["cpu"][1]}
+
+def _log_report(config: str, report: dict, t0: float) -> None:
+    d = report["detail"]
+    log(f"[{config}] {report['value']} {report.get('unit', 'binds/s')}: binds/s "
+        f"{d.get('binds_per_sec', report['value'])}, schedule-to-bind p50 {d['p50_ms']} ms "
+        f"p95 {d.get('p95_ms')} ms p99 {d['p99_ms']} ms, node write "
+        f"{d.get('node_create_s')} s, cold build {d.get('cold_build_s')} s, waves "
+        f"{d['waves']}, launches {d['launches']}, device share {d.get('device_share')}, "
+        f"inflight depth {d.get('sustained_inflight_depth')} (max "
+        f"{d.get('max_inflight_depth')}), quiesces {d.get('pipeline_quiesce')}, "
+        f"node churn events {d.get('node_churn_events')}")
+    log(f"[{config}] stage means ms: {d['stage_means_ms']}  "
+        f"({time.perf_counter() - t0:.1f}s for the phase)")
 
 
 def phase_coordinator(config: str) -> dict:
     """8: D1 (BASELINE config 1 through the coordinator: 4096-pod waves
-    over a 5% window at depth 2, the fused kernel on every wave) or D2
-    (the megarow shape of ``artifacts/megarow_cpu.json``: 512-pod waves at
-    depth 3, full scan, deltacache with a 64-deep candidate index and 15
-    stratum bits, the delta kernel on the delta waves); 1,048,576 nodes
-    and 65,536 pods, packed, pipelined."""
+    over a 5% window at depth 2, the fused kernel on every wave, with the
+    encode, delta and kernel profiles), D2 (the megarow shape of
+    ``artifacts/megarow_cpu.json``: 512-pod waves at depth 3, full scan,
+    deltacache with a 64-deep candidate index and 15 stratum bits, the
+    delta kernel on the delta waves), D3 (D1 with template pods under
+    4,000 capacity-only node updates/s: the ``aff`` stage and the sync
+    stage) or D5 (D1 at an offered 2,000 pods/s: adaptive buckets);
+    1,048,576 nodes, packed, pipelined.  D4 is ``phase_constraints``."""
     from k8s1m_tpu_torch.tools import sched_bench
+    from k8s1m_tpu_torch.tools.kernel_probe import profile_stages
 
     over = dict(nodes=NODES, pods=COORD_PODS, packing="packed")
+    d1 = dict(batch=BATCH, depth=2, score_pct=SCORE_PCT)
     if config == "D1":
-        over.update(batch=BATCH, depth=2, score_pct=SCORE_PCT)
-    else:
+        over.update(d1, encode_profile=True, delta_profile=True, stats=True,
+                    kernel_profile=True)
+    elif config == "D2":
         # 15 stratum bits leave ~32 tied rows per class, ~3,500 pods of
         # room per wave: the megarow drill's 512-pod batch fits it, a
         # 4096-pod batch would park pods as unschedulable.
         over.update(batch=512, depth=3, score_pct=100, deltacache="on",
-                    delta_index_k=64, stratum_bits=15)
+                    delta_index_k=64, stratum_bits=15, encode_profile=True,
+                    delta_profile=True, stats=True)
+    elif config == "D3":
+        over.update(d1, node_churn=4000.0, **SHAPE_POOL)
+    else:
+        over.update(d1, rate=D5_RATE, pods=D5_PODS)
     t0 = time.perf_counter()
     report, coord, store = sched_bench.run(_bench_args(**over))
-    _coordinator_checks(config, report, coord, store, COORD_PODS)
+    d = report["detail"]
+    warm = sum(1 for k in coord._bound if k.startswith("warm2/"))
+    _coordinator_checks(config, report, coord, store, over["pods"], warm=warm,
+                        alloc=config == "D3")
+    launches = d["launches"]
+    if config in ("D1", "D5"):
+        check(launches["fused_topk"] > 0, f"[{config}] no fused-kernel launch in the window")
+    elif config == "D2":
+        check(launches["delta_plane_topk"] > 0, "[D2] no delta-kernel launch in the window")
+    if config == "D3":
+        check(launches["fused_topk_by_stage"]["aff"] > 0, "[D3] no aff-stage launch")
+        check(d["node_churn_events"] > 0, "[D3] no node churn was written")
+        check("sync" in d["stage_means_ms"], "[D3] the sync stage never ran")
+    if config in ("D3", "D5"):
+        q = d["pipeline_quiesce"]
+        check(q["structural"] == 0 and q["resync"] == 0,
+              f"[{config}] structural or resync quiesces: {q}")
+    if config == "D5":
+        check(d["pipeline_quiesce"]["adaptive"] > 0, "[D5] no adaptive quiesce")
+        check(d["unbound"] == 0, f"[D5] {d['unbound']} pods left unbound")
+    _log_report(config, report, t0)
+    for lane in ("encode_profile", "delta_profile"):
+        if lane in d:
+            log(f"[{config}] {lane}: {json.dumps(d[lane])}")
+    if config == "D1":
+        # The knock-out variants over the live table on both backends
+        # (sched_bench's --kernel-profile ran the kernels; one block of
+        # one call per variant on the scan path).
+        prof = {"pallas": d["kernel_profile"],
+                "xla": profile_stages(coord.table, coord.encoder, chunk=CHUNK, k=coord.k,
+                                      steps=1, repeats=1, backend="xla")}
+        for backend, res in prof.items():
+            log(f"[D1] kernel profile over the live table, {backend} (repeats "
+                f"{res['repeats']}): ms per batch {res['ms_per_batch']}, stages {res['stages']}")
+        report["kernel_profile"] = prof
     coord.close()
     store.close()
-    d = report["detail"]
-    launches = d["launches"]
-    if config == "D1":
-        check(launches["fused_topk"] > 0, "[D1] no fused-kernel launch in the window")
-    else:
-        check(launches["delta_plane_topk"] > 0, "[D2] no delta-kernel launch in the window")
-    log(f"[{config}] {NODES} nodes x {COORD_PODS} pods: {report['value']} binds/s, "
-        f"schedule-to-bind p50 {d['p50_ms']} ms p99 {d['p99_ms']} ms, node write "
-        f"{d['node_write_s']} s, cold build {d['cold_build_s']} s, waves {d['waves']}, "
-        f"launches {launches}, device share {d['device_share']}, "
-        f"inflight depth {d['sustained_inflight_depth']}")
-    log(f"[{config}] stage means ms: {d['stage_means_ms']}  "
-        f"({time.perf_counter() - t0:.1f}s for the phase)")
     return report
+
+
+def phase_constraints() -> dict:
+    """8, D4: path B through the coordinator at 1,048,576 nodes, 8 waves
+    of 2048 spread + 2048 anti pods: the ``cons`` stage launched, no node
+    holding anti pods of two waves, and the device count tables equal to
+    the host recount from the stored binds."""
+    t0 = time.perf_counter()
+    report, coord, store = _constraint_run("cuda", nodes=NODES, waves=D4_WAVES, per=D4_PER)
+    pods = D4_WAVES * 2 * D4_PER + 1
+    stored = _coordinator_checks("D4", report, coord, store, pods)
+    d = report["detail"]
+    check(d["launches"]["fused_topk_by_stage"]["cons"] > 0, "[D4] no cons-stage launch")
+    # Anti pods of one wave may share a node: the greedy scan re-checks
+    # capacity within a wave, not topology (k8s1m_tpu/engine/cycle.py's
+    # module doc; the reference binds its shards the same way).  Across
+    # waves the count tables forbid it.
+    waves_on: dict = {}
+    for v in stored.values():
+        obj = json.loads(v)
+        name = obj["metadata"]["name"]
+        if name.startswith("bench-anti-"):
+            wave = int(name.rsplit("-", 1)[1]) // D4_PER
+            waves_on.setdefault(obj["spec"]["nodeName"], []).append(wave)
+    shared = sum(1 for w in waves_on.values() if len(w) > 1)
+    check(sum(len(w) for w in waves_on.values()) == D4_WAVES * D4_PER,
+          "[D4] anti pods missing from the store")
+    check(all(len(set(w)) == 1 for w in waves_on.values()),
+          "[D4] anti-affinity pods of two waves share a node")
+    d["anti_nodes_shared_within_a_wave"] = shared
+    log(f"[D4] {D4_WAVES * D4_PER} anti pods on {len(waves_on)} nodes; {shared} nodes hold "
+        f"two or more, each time from one wave")
+    _recount_constraints(coord, stored)
+    log("[D4] the nine device count tables equal the host recount from the stored binds")
+    _log_report("D4", report, t0)
+    coord.close()
+    store.close()
+    return report
+
+
+# ---- phase 9: kernel_probe -----------------------------------------------------
+
+
+def phase_probe() -> dict:
+    """9: ``tools/kernel_probe.py`` at its default shape (53,248 rows, the
+    1M table's 5% window; 8192 pods; chunk 4096), packed, on the fused
+    kernel (its default 3 blocks of 10 calls) and on the scan path (2
+    blocks of 2 calls: ~0.1-0.2 s a call)."""
+    import contextlib
+    import io
+
+    from k8s1m_tpu_torch.tools import kernel_probe
+
+    out = {}
+    for backend in ("pallas", "xla"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            reps = [] if backend == "pallas" else ["--steps", "2", "--repeats", "2"]
+            lines = kernel_probe.main(["--backend", backend, "--packing", "packed", *reps])
+        out[backend] = {ln["variant"]: ln["ms_per_batch"] for ln in lines}
+        check(all(ms > 0 for ms in out[backend].values()), f"[9] {backend}: a zero time")
+        log(f"[9] kernel_probe {backend}, packed, 53248 rows x 8192 pods: ms per batch "
+            f"{out[backend]} ({time.perf_counter() - t0:.1f}s)")
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, default=20, help="timed waves per layout (phase 4)")
-    ap.add_argument("--path-steps", type=int, default=10,
+    ap.add_argument("--steps", type=int, default=4, help="timed waves per layout (phase 4)")
+    ap.add_argument("--path-steps", type=int, default=3,
                     help="timed waves per layout of paths A and B (phases 5, 6)")
-    ap.add_argument("--delta-steps", type=int, default=5,
+    ap.add_argument("--delta-steps", type=int, default=2,
                     help="timed delta waves per layout of path C (phase 7)")
     ap.add_argument("--warmup", type=int, default=2, help="warm-up waves per layout")
     ap.add_argument("--out", default=None, help="also write the full results as JSON here")
@@ -1576,19 +1863,25 @@ def main(argv=None) -> int:
     path_c = {c: phase_delta_path(device, c, steps=args.delta_steps, warmup=args.warmup)
               for c in ("C1", "C2")}
     parity = phase_coordinator_parity()
-    coord = {c: phase_coordinator(c) for c in ("D1", "D2")}
+    coord = {c: phase_coordinator(c) for c in ("D1", "D2", "D3")}
+    coord["D4"] = phase_constraints()
+    coord["D5"] = phase_coordinator("D5")
+    probe = phase_probe()
     log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
 
     # Launches of the coordinator's paths (phase 8, counts set to 0 just
-    # before each measured window and read just after it).
+    # before each measured window and read just after it), per fused stage.
     coord_launches = {
-        name: sum(r["detail"]["launches"][name] for r in coord.values())
-        for name in ("fused_topk", "delta_plane_topk")
+        stage: sum(r["detail"]["launches"]["fused_topk_by_stage"][stage]
+                   for r in coord.values())
+        for stage in ("base", "aff", "cons")
     }
+    coord_launches["delta_plane_topk"] = sum(
+        r["detail"]["launches"].get("delta_plane_topk", 0) for r in coord.values())
 
     def entry(stage, replaces, res, err):
         prod = res["packed"]
-        extra = coord_launches["fused_topk"] if stage == "base" else 0
+        extra = coord_launches[stage]
         return {
             "name": f"fused_topk[{stage}]",
             "route": "cuda",
@@ -1640,7 +1933,7 @@ def main(argv=None) -> int:
                        "delta_vs_plain_max_abs_err": err3d, "worst_case": worst,
                        "main_path": main_res, "path_a": path_a, "path_b": path_b,
                        "path_c": path_c, "coordinator_parity": parity,
-                       "coordinator": coord,
+                       "coordinator": coord, "kernel_probe": probe,
                        **kernels}, f, indent=1, default=str)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

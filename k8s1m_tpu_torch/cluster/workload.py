@@ -1,9 +1,22 @@
 """Synthetic pod workloads (port of the part of ``k8s1m_tpu/cluster/workload.py``
 the port's paths use): the uniform pods the reference's make_pods floods
-the cluster with, and the NodeAffinity, topology-spread and
-(anti-)affinity shapes of BASELINE configs 2-4."""
+the cluster with, the NodeAffinity, topology-spread and (anti-)affinity
+shapes of BASELINE configs 2-4, and the tenant stream of ``sched_bench
+--tenants``.
+
+``zipf_weights`` / ``tenant_assignments`` turn a pod-index sequence into a
+seed-deterministic tenant stream with zipf-skewed tenant sizes and three
+arrival shapes — ``steady`` (the mix is constant), ``diurnal`` (each
+tenant's offered rate follows a phase-shifted day curve), ``flash``
+(tenant 0 flash-crowds to 10x its weight for the middle fifth of the
+sequence).  The paced producer emits pods in index order, so position in
+the sequence is arrival time and the schedules reproduce exactly by seed.
+"""
 
 from __future__ import annotations
+
+import math
+import random
 
 from k8s1m_tpu_torch.config import (
     SEL_OP_IN,
@@ -22,6 +35,57 @@ from k8s1m_tpu_torch.snapshot.pod_encoding import (
     SelectorRequirement,
     SpreadConstraintRef,
 )
+
+TENANT_SCHEDULES = ("steady", "diurnal", "flash")
+
+
+def zipf_weights(tenants: int, skew: float = 1.0) -> list[float]:
+    """Zipf-skewed tenant sizes: weight of tenant t is 1/(t+1)^skew,
+    normalized to sum 1 (skew 0 is uniform)."""
+    if tenants < 1:
+        raise ValueError("tenants must be >= 1")
+    w = [1.0 / (t + 1) ** skew for t in range(tenants)]
+    s = sum(w)
+    return [x / s for x in w]
+
+
+def tenant_rate_multipliers(schedule: str, frac: float, tenants: int) -> list[float]:
+    """Per-tenant offered-rate multiplier at position ``frac`` in [0, 1)
+    of the sequence (multiplies the zipf base weight): ``steady`` 1.0;
+    ``diurnal`` 1 + 0.8*sin(2*pi*(2*frac + t/T)), two phase-shifted days;
+    ``flash`` 10x for tenant 0 while frac is in [0.4, 0.6)."""
+    if schedule == "steady":
+        return [1.0] * tenants
+    if schedule == "diurnal":
+        return [
+            1.0 + 0.8 * math.sin(2.0 * math.pi * (2.0 * frac + t / tenants))
+            for t in range(tenants)
+        ]
+    if schedule == "flash":
+        m = [1.0] * tenants
+        if 0.4 <= frac < 0.6:
+            m[0] = 10.0
+        return m
+    raise ValueError(f"unknown tenant schedule {schedule!r} "
+                     f"(want one of {TENANT_SCHEDULES})")
+
+
+def tenant_assignments(count: int, tenants: int, *, skew: float = 1.0, seed: int = 0,
+                       schedule: str = "steady") -> list[int]:
+    """Tenant id per pod index, deterministic by (seed, shape args).  The
+    mixture is re-derived every 256 pods and each block is ONE weighted
+    draw (``random.choices`` rebuilds its cumulative table per call)."""
+    base = zipf_weights(tenants, skew)
+    rng = random.Random(seed ^ 0x7E4A47)
+    ids = list(range(tenants))
+    out: list[int] = []
+    step = 256
+    for off in range(0, count, step):
+        frac = off / max(count, 1)
+        mult = tenant_rate_multipliers(schedule, frac, tenants)
+        weights = [b * m for b, m in zip(base, mult)]
+        out.extend(rng.choices(ids, weights=weights, k=min(step, count - off)))
+    return out
 
 
 def uniform_pods(

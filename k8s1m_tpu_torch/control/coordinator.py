@@ -10,10 +10,14 @@ drives the whole cluster:
 - **Node cache** — a watch on /registry/minions/ streams adds, updates
   and removes into ``NodeTableHost`` and scatters compiled rows into the
   device table; bound-pod resource accounting is folded in the same way.
-- **Cycle** — pending pods are drained in batches of PodSpec.batch,
-  encoded (``snapshot/hotfeed.py``) and run through
-  ``engine.cycle.schedule_batch_packed`` (the fused kernel) or, with the
-  deltacache on, ``schedule_batch_delta`` (the delta kernel); winners are
+- **Cycle** — pending pods are drained in batches of PodSpec.batch (with
+  ``adaptive_batch``, the smallest power-of-two bucket from ``min_batch``
+  up that holds the queue), encoded (``snapshot/hotfeed.py``) and run
+  through ``engine.cycle.schedule_batch_packed`` or, with the deltacache
+  on, ``schedule_batch_delta``, on the ``backend`` the caller picks:
+  ``"pallas"`` (the fused and delta kernels), ``"xla"`` (the scan path) or
+  ``"auto"`` (the default: the kernels on ``cuda``, the scan path on the
+  CPU — where the JAX coordinator defaults to ``"xla"``); winners are
   written back as spec.nodeName under a CAS on the pod's mod revision,
   and a pod whose CAS loses is rolled back and re-queued.
 - **Retries** — a pod whose bind CAS fails or that finds no feasible
@@ -31,12 +35,17 @@ CUDA stream, in order; the tables are updated in place.  A wave's bound
 rows come back by a non-blocking copy into pinned memory, and the retire
 waits on the CUDA event recorded after that copy before it reads them.
 
+With ``adaptive_batch`` a wave of a partial bucket retires at once
+(``pipeline_quiesce_total{reason="adaptive"}``): under light load the
+queue drains faster than it fills, and holding the wave for the next step
+would add a wave time to every pod's latency.
+
 Entry points run on ``device="cuda"`` unless the caller asks for
 ``device="cpu"`` (the plain versions of the kernels).  The JAX
 coordinator's mesh, overload control (loadshed, breaker and the oracle
 fallback), tenancy (preemption, gangs), lease fencing, warm standby,
-tracing, fault injection, webhook intake and adaptive batches are not
-part of the port: passing them raises ``NotImplementedError``.
+tracing, fault injection and webhook intake are not part of the port:
+passing them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from k8s1m_tpu_torch.engine.cycle import (
     adjust_constraints,
     commit_fields_np,
     fill_shape_planes,
+    resolve_backend,
     sample_offset_for,
     sample_rows_for,
     schedule_batch_delta,
@@ -250,7 +260,7 @@ def splice_node_name(raw: bytes, node_name: str) -> bytes | None:
 
 _NOT_PORTED = (
     "mesh", "loadshed", "breaker", "tenancy", "fence", "tracer",
-    "flight_recorder", "profiler", "adaptive_batch",
+    "flight_recorder", "profiler",
 )
 
 
@@ -267,6 +277,7 @@ class Coordinator:
         chunk: int = 16384,
         k: int = 4,
         with_constraints: bool = True,
+        backend: str = "auto",
         max_attempts: int = 5,
         retry_policy: RetryPolicy | None = None,
         scheduler_name: str = DEFAULT_SCHEDULER,
@@ -293,6 +304,9 @@ class Coordinator:
         stratum_bits: int = 0,
         delta_index_dirty_cap: int | None = None,
         device: str | torch.device = "cuda",
+        # Power-of-two batch buckets from min_batch up to pod_spec.batch
+        # instead of one fixed size (the paced lane's latency mode).
+        adaptive_batch: bool = False,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -303,6 +317,7 @@ class Coordinator:
                     f"Coordinator({name}=...) is not part of the port"
                 )
         self.device = resolve_device(device)
+        self.backend = resolve_backend(backend, self.device)
         self.store = store
         self.table_spec = table_spec
         self.pod_spec = pod_spec
@@ -351,6 +366,9 @@ class Coordinator:
         self.encoder = HotPodBatchHost(
             pod_spec, table_spec, self.host.vocab, cache=self.encode_cache
         )
+        self.adaptive_batch = adaptive_batch
+        self.min_batch = min(64, pod_spec.batch)
+        self._encoders = {pod_spec.batch: self.encoder}
         if hotfeed is None:
             hotfeed = pipeline
         self._feed = (
@@ -1046,6 +1064,26 @@ class Coordinator:
             return None
         return max(0.0, self._backoff[0][0] - time.perf_counter())
 
+    def _encoder_for(self, n: int) -> HotPodBatchHost:
+        """Smallest power-of-two batch bucket from ``min_batch`` holding n
+        pods (clamped to pod_spec.batch, which need not be a power of
+        two); every bucket's encoder shares the one encode cache."""
+        if not self.adaptive_batch:
+            return self.encoder
+        b = self.min_batch
+        while b < n:
+            b <<= 1
+        if b > self.pod_spec.batch:
+            return self.encoder
+        enc = self._encoders.get(b)
+        if enc is None:
+            enc = HotPodBatchHost(
+                dataclasses.replace(self.pod_spec, batch=b),
+                self.table_spec, self.host.vocab, cache=self.encode_cache,
+            )
+            self._encoders[b] = enc
+        return enc
+
     def _take_batch(self):
         """Pop and encode up to one batch of pending pods; (None, None)
         when the queue is empty.  A feed-staged batch is claimed first;
@@ -1063,7 +1101,7 @@ class Coordinator:
             if self._feed is not None:
                 batch = self._feed.claim(batch_pods, self.host.vocab.feed_generation())
             if batch is None:
-                batch = encode_batch(self.encoder, batch_pods)
+                batch = encode_batch(self._encoder_for(len(batch_pods)), batch_pods)
         return batch_pods, batch
 
     def _next_window(self, rows: int) -> int:
@@ -1156,6 +1194,7 @@ class Coordinator:
                 rep_idx=plan.rep_idx if index is not None else None,
                 rebuild_slots=plan.rebuild_slots if index is not None else None,
                 index_dirty_cap=cache.index_dirty_cap,
+                backend=self.backend,
             )
         except Exception:
             # The planes are in an unknown state: drop them and re-raise.
@@ -1202,7 +1241,7 @@ class Coordinator:
                 _table, asg, rows_dev = schedule_batch_packed(
                     self.table, batch, seed,
                     profile=self.profile, constraints=self.constraints,
-                    chunk=self.chunk, k=self.k,
+                    chunk=self.chunk, k=self.k, backend=self.backend,
                     sample_rows=sample_rows,
                     sample_offset=self._next_window(sample_rows) if sample_rows else 0,
                     stratum_bits=self.stratum_bits,
@@ -1432,6 +1471,11 @@ class Coordinator:
             if self._feed is not None:
                 # Peek (never pop) the next full batch for the worker.
                 self._feed.stage(self.queue, self.pod_spec.batch)
+            if self.adaptive_batch and batch.batch < self.pod_spec.batch:
+                # A partial bucket: the queue drains faster than it
+                # fills, so retire now rather than add a wave time to
+                # every pod's latency; full buckets keep the pipeline.
+                done += self._quiesce("adaptive")
         return done
 
     def flush(self) -> int:

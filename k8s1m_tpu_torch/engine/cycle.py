@@ -1,14 +1,26 @@
 """The scheduling wave: filter -> score -> top-K -> assign -> commit.
 
-Port of the packed production step of ``k8s1m_tpu/engine/cycle.py``
-(``schedule_batch_packed``), fused backend.  One call schedules a whole
-batch of pods against the node table (or a rotating
+Port of ``k8s1m_tpu/engine/cycle.py``: the packed production step
+``schedule_batch_packed`` and the unpacked ``schedule_batch``.  One call
+schedules a whole batch of pods against the node table (or a rotating
 percentageOfNodesToScore window of it) and folds the binds into the table
 — and, with constraint state, into the count tables — in place.
 
-Every plugin stage of the fused kernel runs: the NodeAffinity stage for
-waves whose pods carry ``sel``/``req``/``pref`` groups, the constraint
-stage when ``constraints=`` is given.
+Two backends compute the candidates, as in the JAX package, and give the
+same bytes:
+
+- ``"pallas"`` — the hand-written CUDA kernels (``ops/fused_topk.py``,
+  ``ops/delta_topk.py``); on CPU tensors their plain versions.  Every
+  plugin stage of the fused kernel runs: the NodeAffinity stage for waves
+  whose pods carry ``sel``/``req``/``pref`` groups, the constraint stage
+  when ``constraints=`` is given.
+- ``"xla"`` — the chunked scan ``filter_score_topk`` (``score_and_filter``
+  -> ``pack_hashed`` -> top-K per chunk -> ``merge_topk``) in torch ops,
+  and ``deltacache.plane_topk`` for the delta wave's tail.
+
+``"auto"`` picks the kernels on a ``cuda`` table and the scan on the CPU,
+as the JAX ``sched_bench`` picks Pallas only on a TPU.  The wave entry
+points default to ``"pallas"``.
 
 The deltasched wave ``schedule_batch_delta`` (with ``fill_shape_planes``)
 is the steady-state twin: filter+score over the dirty rows only, merged
@@ -37,8 +49,9 @@ import torch
 from k8s1m_tpu_torch.device import to_tensor
 from k8s1m_tpu_torch.engine.assign import greedy_assign
 from k8s1m_tpu_torch.ops.fused_topk import candidates, supports
+from k8s1m_tpu_torch.ops.priority import pack_hashed
 from k8s1m_tpu_torch.plugins import topology
-from k8s1m_tpu_torch.plugins.registry import Profile
+from k8s1m_tpu_torch.plugins.registry import Profile, score_and_filter
 from k8s1m_tpu_torch.snapshot.constraints import (
     ConstraintState,
     commit_constraint_binds,
@@ -51,6 +64,17 @@ from k8s1m_tpu_torch.snapshot.pod_encoding import PodBatch, unpack_pod_batch
 # Pod field groups that need the NodeAffinity stage of the kernel.
 AFFINITY_GROUPS = frozenset({"sel", "req", "pref"})
 _M32 = 0xFFFFFFFF
+BACKENDS = ("auto", "xla", "pallas")
+
+
+def resolve_backend(backend: str, device) -> str:
+    """``"xla"`` or ``"pallas"``: ``"auto"`` is the kernels on a ``cuda``
+    device and the scan path elsewhere."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "auto":
+        return "pallas" if torch.device(device).type == "cuda" else "xla"
+    return backend
 
 
 @dataclasses.dataclass
@@ -160,6 +184,28 @@ def _slice_table(table, start: int, chunk: int):
     return unpack_chunk(sliced) if is_packed(sliced) else sliced
 
 
+def topk_by_argmax(prio, k: int):
+    """``lax.top_k`` semantics (values descending, the earlier index wins
+    a tie) as ``k`` argmax knock-out passes over the last axis: (top
+    [..., k], idx i32[..., k]).  ``torch.argmax`` returns the first
+    maximal index; each pass knocks its winner out with the dtype's
+    lowest value, and values are read from the original array, so the
+    input must not hold that value (``pack_hashed`` emits -1 or >= 0)."""
+    width = prio.shape[-1]
+    if not 1 <= k <= width:
+        raise ValueError(f"k must be in [1, {width}], got {k}")
+    lowest = (float("-inf") if prio.is_floating_point()
+              else torch.iinfo(prio.dtype).min)
+    p = prio.clone()
+    vals, idxs = [], []
+    for _ in range(k):
+        i = torch.argmax(p, dim=-1, keepdim=True)
+        vals.append(prio.gather(-1, i))
+        idxs.append(i)
+        p.scatter_(-1, i, lowest)
+    return torch.cat(vals, dim=-1), torch.cat(idxs, dim=-1).to(torch.int32)
+
+
 def chunk_topk(prio, k: int):
     """``lax.top_k`` over the last axis with its tie rule — values
     descending, the earlier index first — as (top i32[..., k], idx
@@ -199,6 +245,53 @@ def empty_candidates(b: int, k: int, device="cuda") -> Candidates:
         cpu=zeros, mem=zeros.clone(), pods=zeros.clone(), zone=zeros.clone(),
         region=zeros.clone(),
     )
+
+
+def filter_score_topk(table, batch, seed: int, profile: Profile, *, chunk: int, k: int,
+                      constraints: ConstraintState | None = None, stats=None,
+                      row_offset: int = 0, pod_offset: int = 0, stratum_bits: int = 0,
+                      groups=None) -> Candidates:
+    """The scan path: stream the table in ``chunk``-row pieces, keeping
+    each pod's top-k candidates with their payload (free capacity and
+    domains gathered in the chunk).
+
+    Per chunk: ``score_and_filter`` (with the chunk's columns of
+    ``constraints`` and the batch prologue ``stats``, built from the whole
+    ``table`` when not given), ``pack_hashed`` over (pod row +
+    ``pod_offset``, node row + ``row_offset``), the chunk's top-k, then
+    ``merge_topk`` with the running set (earlier chunks win ties).  Rows
+    whose priority is < 0 come back as ``idx = -1``.  ``groups`` are the
+    packed batch's field groups: an absent group's plugin is skipped,
+    which gives the same mask and score."""
+    n = table.num_rows
+    if n % chunk:
+        raise ValueError(f"table rows {n} not divisible by chunk {chunk}")
+    if constraints is not None and stats is None:
+        stats = _prologue_stats(table, constraints)
+    b = batch.batch
+    dev = table.cpu_req.device
+    i32, i64 = torch.int32, torch.int64
+    pod_rows = torch.arange(b, device=dev, dtype=i64)[:, None] + pod_offset
+    cand = empty_candidates(b, k, dev)
+    for start in range(0, n, chunk):
+        tchunk = _slice_table(table, start, chunk)
+        cchunk = (None if constraints is None
+                  else slice_constraints(constraints, start, chunk))
+        mask, score = score_and_filter(tchunk, batch, profile, cchunk, stats, groups)
+        cols = torch.arange(start, start + chunk, device=dev, dtype=i64)[None] + row_offset
+        prio = pack_hashed(score, seed, mask, pod_rows, cols, stratum_bits)
+        top, idx = chunk_topk(prio, k)
+        at = idx.to(i64)
+        free_cpu, free_mem, free_pods = tchunk.free()
+        local = Candidates(
+            idx=(idx + (start + row_offset)).to(i32), prio=top,
+            cpu=free_cpu.to(i32)[at], mem=free_mem.to(i32)[at],
+            pods=free_pods.to(i32)[at],
+            zone=tchunk.zone.to(i32)[at], region=tchunk.region.to(i32)[at],
+        )
+        cand = merge_topk(cand, local, k)
+    cand.idx = torch.where(cand.prio >= 0, cand.idx, torch.full_like(cand.idx, -1))
+    return cand
 
 
 def _prologue_stats(table, constraints: ConstraintState):
@@ -318,6 +411,76 @@ def sample_offset_for(i: int, nodes: int, rows: int) -> int:
     return nodes - rows if i == w else i * rows
 
 
+def _wave_candidates(backend: str, src, batch, seed: int, profile: Profile, *, chunk: int,
+                     k: int, constraints, stats, stratum_bits: int, with_affinity: bool,
+                     groups, reference: bool) -> Candidates:
+    """Candidates from one backend over ``src`` (the table or a window
+    view); ``constraints`` cover the same rows, ``stats`` the whole
+    table."""
+    if backend == "xla":
+        return filter_score_topk(src, batch, seed, profile, chunk=chunk, k=k,
+                                 constraints=constraints, stats=stats,
+                                 stratum_bits=stratum_bits, groups=groups)
+    return candidates(src, batch, seed, profile, chunk=chunk, k=k, constraints=constraints,
+                      stats=stats, stratum_bits=stratum_bits, with_affinity=with_affinity,
+                      reference=reference)
+
+
+def _check_backend(backend: str, device, profile: Profile, constraints) -> str:
+    backend = resolve_backend(backend, device)
+    if backend == "pallas" and constraints is None and not supports(profile):
+        raise ValueError(
+            "profile enables constraint plugins but no constraint state "
+            "was passed (see ops/fused_topk.py)"
+        )
+    return backend
+
+
+def _schedule_batch_impl(table, batch, seed: int, constraints: ConstraintState | None,
+                         profile: Profile, chunk: int, k: int, backend: str = "xla",
+                         with_affinity: bool = True, src=None, stratum_bits: int = 0,
+                         groups=None, reference: bool = False):
+    """One wave over the whole table: candidates from ``src`` (default:
+    ``table``; a ``mask_rows`` view narrows them), greedy assignment and
+    the commit into ``table`` and ``constraints``, in place.  The domain
+    statistics come from ``table``, never the view."""
+    src = table if src is None else src
+    stats = None if constraints is None else _prologue_stats(table, constraints)
+    cand = _wave_candidates(backend, src, batch, seed, profile, chunk=chunk, k=k,
+                            constraints=constraints, stats=stats, stratum_bits=stratum_bits,
+                            with_affinity=with_affinity, groups=groups, reference=reference)
+    return finalize_batch(table, constraints, cand, commit_fields_of(batch))
+
+
+def schedule_batch(
+    table,
+    batch: PodBatch,
+    seed: int,
+    *,
+    profile: Profile,
+    constraints: ConstraintState | None = None,
+    chunk: int = 16384,
+    k: int = 4,
+    backend: str = "pallas",
+    with_affinity: bool = True,
+    stratum_bits: int = 0,
+):
+    """Schedule one unpacked pod batch (``PodBatchHost.encode``) against
+    the whole table on the table's device — the replay and comparison
+    entry point; the coordinator runs ``schedule_batch_packed``.
+
+    ``backend`` is ``"pallas"`` (the kernels; the port's default, where
+    the JAX package defaults to ``"xla"``), ``"xla"`` (the scan path) or
+    ``"auto"``.  ``with_affinity=False`` runs the kernel without its
+    NodeAffinity stage: pass it only when no pod carries selectors (the
+    scan path ignores it).  The binds commit IN PLACE.
+
+    Returns (table, constraints, Assignment)."""
+    backend = _check_backend(backend, table.cpu_req.device, profile, constraints)
+    return _schedule_batch_impl(table, batch, seed, constraints, profile, chunk, k, backend,
+                                with_affinity=with_affinity, stratum_bits=stratum_bits)
+
+
 def schedule_batch_packed(
     table,
     packed,
@@ -327,6 +490,7 @@ def schedule_batch_packed(
     constraints: ConstraintState | None = None,
     chunk: int = 16384,
     k: int = 4,
+    backend: str = "pallas",
     sample_rows: int | None = None,
     sample_offset: int = 0,
     stratum_bits: int = 0,
@@ -338,7 +502,8 @@ def schedule_batch_packed(
 
     ``table`` is a NodeTable or PackedNodeTable; ``packed`` a
     PackedPodBatch; ``seed`` the wave's i32 seed (the JAX step derives it
-    from its key with ``seed_of``).  ``sample_rows``/``sample_offset``
+    from its key with ``seed_of``).  ``backend``: ``"pallas"`` (default),
+    ``"xla"`` or ``"auto"`` (module doc).  ``sample_rows``/``sample_offset``
     restrict filter+score to rows ``[offset, offset+sample_rows)``; the
     hash's node coordinate is window-local and emitted rows are shifted
     back to global.  ``constraints`` (a ConstraintState) turns on the
@@ -348,19 +513,15 @@ def schedule_batch_packed(
     ``constraints`` — IN PLACE.  ``row_mask`` (bool[N] on the table's
     device) restricts candidate selection to the owned rows
     (``mask_rows``); the domain statistics stay global and the binds
-    commit into the unmasked table.  ``reference=True`` runs the top-K
-    through the plain version (the comparison path).
+    commit into the unmasked table.  ``reference=True`` runs the kernel's
+    top-K through its plain version (the comparison path).
 
     Returns (table, Assignment, rows i32[B] — bound row per pod, -1 unbound).
     """
     if mesh is not None:
         raise NotImplementedError("the sharded mesh step is not ported yet")
-    if constraints is None and not supports(profile):
-        raise ValueError(
-            "profile enables constraint plugins but no constraint state "
-            "was passed (see ops/fused_topk.py)"
-        )
     device = table.cpu_req.device
+    backend = _check_backend(backend, device, profile, constraints)
     batch = unpack_pod_batch(
         packed.ints, packed.bools, packed.spec, packed.table_spec,
         packed.groups, device=device,
@@ -368,23 +529,23 @@ def schedule_batch_packed(
     # Waves whose pods carry no selectors skip the affinity stage; the
     # packed field groups already say so.
     kw = dict(chunk=chunk, k=k, stratum_bits=stratum_bits, reference=reference,
-              with_affinity=bool(packed.groups & AFFINITY_GROUPS))
-    # Domain statistics are global: the full, unmasked table.
-    stats = None if constraints is None else _prologue_stats(table, constraints)
+              with_affinity=bool(packed.groups & AFFINITY_GROUPS), groups=packed.groups)
     src = table if row_mask is None else mask_rows(table, row_mask)
     if sample_rows is None:
-        cand = candidates(src, batch, seed, profile, constraints=constraints,
-                          stats=stats, **kw)
+        table, _cons, asg = _schedule_batch_impl(table, batch, seed, constraints, profile,
+                                                 backend=backend, src=src, **kw)
     else:
+        # Domain statistics are global: the full, unmasked table.
+        stats = None if constraints is None else _prologue_stats(table, constraints)
         view = src.narrow(sample_offset, sample_rows)
         view_cons = (None if constraints is None
                      else slice_constraints(constraints, sample_offset, sample_rows))
-        cand = candidates(view, batch, seed, profile, constraints=view_cons,
-                          stats=stats, **kw)
+        cand = _wave_candidates(backend, view, batch, seed, profile, constraints=view_cons,
+                                stats=stats, **kw)
         cand.idx = torch.where(
             cand.idx >= 0, cand.idx + sample_offset, torch.full_like(cand.idx, -1)
         )
-    table, _cons, asg = finalize_batch(table, constraints, cand, commit_fields_of(batch))
+        table, _cons, asg = finalize_batch(table, constraints, cand, commit_fields_of(batch))
     rows = torch.where(asg.bound, asg.node_row, torch.full_like(asg.node_row, -1))
     return table, asg, rows
 
@@ -418,7 +579,7 @@ def schedule_batch_delta(
     rebuild_slots=None,
     index_dirty_cap: int = 0,
     mesh=None,
-    reference: bool = False,
+    backend: str = "pallas",
 ):
     """``schedule_batch_packed``'s delta-wave twin (deltasched): every
     pod's feasibility/score plane is cached, so the wave runs filter+score
@@ -430,10 +591,11 @@ def schedule_batch_delta(
     ``DeltaPlaneCache.planes``; ``slot_ids`` maps each batch position to
     its slot (sentinel S for padding); ``dirty`` the sentinel-padded
     journaled rows; ``inflight_rows`` the unretired waves' bound-row
-    tensors (-1 unbound).  The plane tail runs on the hand-written kernel
-    (``ops/delta_topk.py``); ``reference=True`` runs it through the plain
-    version ``deltacache.plane_topk`` instead — the comparison path, never
-    a fallback.
+    tensors (-1 unbound).  With ``backend="pallas"`` the plane tail runs
+    on the hand-written kernel (``ops/delta_topk.py``); ``"xla"`` runs its
+    plain version ``deltacache.plane_topk`` instead — the scan path and the
+    comparison path (the two differ on padding pods only, which never
+    bind).
 
     ``index`` is the (idx_row, idx_class, idx_floor) triple of
     ``DeltaPlaneCache.index_state`` (with ``rep_idx``/``rebuild_slots``
@@ -455,6 +617,7 @@ def schedule_batch_delta(
         raise NotImplementedError("the sharded delta step is not ported yet")
     pmask, pscore = planes
     device = table.cpu_req.device
+    backend = resolve_backend(backend, device)
     batch = unpack_pod_batch(
         packed.ints, packed.bools, packed.spec, packed.table_spec,
         packed.groups, device=device,
@@ -465,7 +628,7 @@ def schedule_batch_delta(
     pmask, pscore, mask_d, score_d = dc.merge_dirty_planes(
         table, batch, profile, slot_ids, pmask, pscore, rows, packed.groups
     )
-    tail = dc.plane_topk if reference else delta_plane_topk
+    tail = dc.plane_topk if backend == "xla" else delta_plane_topk
 
     def plane_tail():
         return tail(pmask, pscore, slot_ids, seed, chunk=chunk, k=k,

@@ -75,6 +75,13 @@ def take_planes(plane, qidx):
     return torch.where(ok[..., None], got, torch.zeros((), dtype=plane.dtype, device=plane.device))
 
 
+def used_slots(mask) -> int:
+    """1 + the last index of the last axis where any entry of ``mask`` is
+    set, 0 when none is."""
+    hit = torch.nonzero(mask.reshape(-1, mask.shape[-1]).any(dim=0))
+    return int(hit[-1]) + 1 if hit.numel() else 0
+
+
 def match_expressions(
     resolved: ResolvedKeys,
     expr_valid,  # bool[..., E]
@@ -87,7 +94,16 @@ def match_expressions(
 
     Returns (term_match: bool[..., N], has_expr: bool[...]): the AND over
     valid expressions; a term with no valid expression matches nothing,
-    which the caller enforces with has_expr."""
+    which the caller enforces with has_expr.
+
+    Trailing expression slots no pod uses and trailing value slots that
+    hold NONE_ID for every expression are cut first: an invalid
+    expression passes the AND, and a NONE_ID value can equal ``v`` only
+    where the key is absent, which ``found`` gates — so the result is the
+    same (one host read of each cut)."""
+    e = used_slots(expr_valid)
+    expr_valid, qidx, op, num = (t[..., :e] for t in (expr_valid, qidx, op, num))
+    vals = vals[..., :e, :used_slots(vals != NONE_ID)]
     f = take_planes(resolved.found, qidx)                              # [..., E, N]
     v = take_planes(resolved.val, qidx)
     x = take_planes(resolved.num, qidx)

@@ -26,6 +26,7 @@ from k8s1m_tpu_torch.ops.label_match import (
     match_expressions,
     resolve_query_keys,
     take_planes,
+    used_slots,
 )
 
 
@@ -80,19 +81,23 @@ def node_affinity(batch, resolved: ResolvedKeys):
     """NodeAffinity required terms (OR of ANDed terms) + spec.nodeSelector.
 
     ``batch`` is a PodBatch; ``resolved`` the chunk's query-key planes."""
-    # nodeSelector: ANDed exact matches; inactive slots pass.
-    f = take_planes(resolved.found, batch.sel_qidx)                    # [B, S, N]
-    v = take_planes(resolved.val, batch.sel_qidx)
-    sel_ok = f & (v == batch.sel_val[:, :, None])
-    sel_pass = (sel_ok | ~batch.sel_valid[:, :, None]).all(dim=1)
+    # nodeSelector: ANDed exact matches; inactive slots pass (and slots
+    # past the last one any pod uses are cut).
+    s = used_slots(batch.sel_valid)
+    f = take_planes(resolved.found, batch.sel_qidx[:, :s])             # [B, S, N]
+    v = take_planes(resolved.val, batch.sel_qidx[:, :s])
+    sel_ok = f & (v == batch.sel_val[:, :s, None])
+    sel_pass = (sel_ok | ~batch.sel_valid[:, :s, None]).all(dim=1)
 
     # Required affinity: OR over live terms; an empty term matches
-    # nothing, and a pod with no term passes everywhere.
+    # nothing, and a pod with no term passes everywhere.  Terms past the
+    # last one any pod uses are not live anywhere and are cut.
+    t = used_slots(batch.req_term_valid)
     term_match, has_expr = match_expressions(
-        resolved, batch.req_expr_valid, batch.req_qidx, batch.req_op,
-        batch.req_vals, batch.req_num,
+        resolved, batch.req_expr_valid[:, :t], batch.req_qidx[:, :t], batch.req_op[:, :t],
+        batch.req_vals[:, :t], batch.req_num[:, :t],
     )                                                            # [B, T, N]
-    live = batch.req_term_valid & has_expr
+    live = batch.req_term_valid[:, :t] & has_expr
     any_term = (term_match & live[:, :, None]).any(dim=1)
     has_terms = batch.req_term_valid.any(dim=1)
     aff_pass = torch.where(has_terms[:, None], any_term, torch.ones_like(any_term))

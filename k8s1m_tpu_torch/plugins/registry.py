@@ -67,7 +67,7 @@ def score_and_filter(table, batch, profile: Profile, constraints=None, stats=Non
         score += w(profile.balanced_allocation, scores.balanced_allocation(table, batch))
     if profile.taint_toleration:
         score += w(profile.taint_toleration, scores.taint_toleration(table, batch))
-    if profile.node_affinity:
+    if profile.node_affinity and not filters.absent(groups, "pref"):
         score += w(profile.node_affinity, scores.node_affinity_score(batch, resolved))
     if constraints is not None:
         tmask, tscore = topology.filter_and_score(

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from k8s1m_tpu_torch.config import EFFECT_PREFER_NO_SCHEDULE, NONE_ID
-from k8s1m_tpu_torch.ops.label_match import ResolvedKeys, match_expressions
+from k8s1m_tpu_torch.ops.label_match import ResolvedKeys, match_expressions, used_slots
 from k8s1m_tpu_torch.plugins.filters import take_tolerated
 
 _F32 = torch.float32
@@ -71,13 +71,15 @@ def node_affinity_score(batch, resolved: ResolvedKeys):
     in f32 term by term, then ``100 * sum / max(total, 1)``.  Every
     partial sum is an integer below 2^24, so the XLA path's integer sum
     gives the same float."""
+    # Terms past the last one any pod uses weigh 0 everywhere: cut.
+    t = used_slots(batch.pref_term_valid)
     term_match, has_expr = match_expressions(
-        resolved, batch.pref_expr_valid, batch.pref_qidx, batch.pref_op,
-        batch.pref_vals, batch.pref_num,
+        resolved, batch.pref_expr_valid[:, :t], batch.pref_qidx[:, :t], batch.pref_op[:, :t],
+        batch.pref_vals[:, :t], batch.pref_num[:, :t],
     )                                                            # [B, P, N]
     b, p_slots, n = term_match.shape
-    live = batch.pref_term_valid & has_expr
-    w = (live.to(torch.int32) * batch.pref_weight).to(_F32)      # [B, P]
+    live = batch.pref_term_valid[:, :t] & has_expr
+    w = (live.to(torch.int32) * batch.pref_weight[:, :t]).to(_F32)  # [B, P]
     acc = torch.zeros((b, n), dtype=_F32, device=w.device)
     wtot = torch.zeros((b, 1), dtype=_F32, device=w.device)
     for p in range(p_slots):

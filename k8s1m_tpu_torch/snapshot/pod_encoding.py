@@ -341,6 +341,15 @@ class PodBatchHost:
             groups.add("qkey")
         return self._pack(out, frozenset(groups))
 
+    def encode(self, pods: list[PodInfo], device: str | torch.device = "cuda") -> PodBatch:
+        """Encode into an unpacked PodBatch on ``device``: every field,
+        absent groups as zeros — field for field what ``unpack_pod_batch``
+        gives for ``encode_packed`` of the same pods."""
+        dev = resolve_device(device)
+        out = self._zeros()
+        self._fill(out, pods)
+        return PodBatch(**{k: torch.from_numpy(a).to(dev, copy=True) for k, a in out.items()})
+
     def encode_packed_plain(self, cpu, mem) -> PackedPodBatch:
         """Packed encode of a wave of plain pods (no selectors,
         tolerations, affinity or constraint refs) from their cpu/mem

@@ -71,7 +71,8 @@ def pods(prefix, count, **kw):
 class Pair:
     """A JAX and a port coordinator over their own stores, one script."""
 
-    def __init__(self, *, profile=BASE, max_nodes=N, batch=128, chunk=512, **kw):
+    def __init__(self, *, profile=BASE, max_nodes=N, batch=128, chunk=512, port_kw=None,
+                 **kw):
         self.jstore, self.tstore = jnative.MemStore(), tnative.MemStore()
         dims = dict(max_nodes=max_nodes, max_zones=16, max_regions=8)
         pdims = dict(batch=batch, spread_refs=1, affinity_refs=1, spread_incs=1, ipa_incs=1)
@@ -85,6 +86,7 @@ class Pair:
         self.t = Coordinator(
             self.tstore, TableSpec(**dims), PodSpec(**pdims), Profile(**profile),
             chunk=chunk, k=4, retry_policy=RetryPolicy(**pol), device="cpu", **kw,
+            **(port_kw or {}),
         )
         self.bound = 0
 
@@ -303,10 +305,124 @@ def test_row_mask_half(pair_factory, pipeline):
 
 def test_unported_options_raise():
     with tnative.MemStore() as store:
-        for kw in (dict(mesh="2x4"), dict(tracer=object()), dict(adaptive_batch=True)):
+        for kw in (dict(mesh="2x4"), dict(tracer=object()), dict(loadshed=object())):
             with pytest.raises(NotImplementedError):
                 Coordinator(store, TableSpec(max_nodes=N), PodSpec(batch=64),
                             Profile(**BASE), chunk=512, device="cpu", **kw)
         with pytest.raises(ValueError):
             Coordinator(store, TableSpec(max_nodes=N), PodSpec(batch=64), Profile(**BASE),
                         chunk=512, device="cpu", delta_index_k=8)
+
+
+# ---- backends, adaptive buckets, template pods, node churn -------------------
+
+AFFINITY = dict(topology_spread=0, interpod_affinity=0)
+
+
+def _quiesce(registry):
+    q = registry.get("pipeline_quiesce_total")
+    return {r: q.value(reason=r) for r in ("structural", "resync", "adaptive")}
+
+
+class QuiesceDelta:
+    """Quiesce counts of both packages' registries since construction."""
+
+    def __init__(self):
+        from k8s1m_tpu.obs.metrics import REGISTRY as JREG
+        from k8s1m_tpu_torch.obs.metrics import REGISTRY as TREG
+
+        self.regs = (JREG, TREG)
+        self.base = [_quiesce(r) for r in self.regs]
+
+    def deltas(self):
+        return [{k: now[k] - b[k] for k in now}
+                for now, b in zip((_quiesce(r) for r in self.regs), self.base)]
+
+
+def shape_pool_pods(prefix, count, pool=4, share=0.9, seed=3):
+    """``sched_bench --shape-pool``'s pods: NodeAffinity templates
+    (``node_affinity_pods(5 * pool, zones=8, regions=4)``, ``cpu_milli =
+    10 + j``) drawn per pod from ``random.Random((seed << 20) | i)``."""
+    import random
+
+    from k8s1m_tpu.cluster.workload import node_affinity_pods
+
+    templates = node_affinity_pods(5 * pool, zones=8, regions=4)
+    out = []
+    for i in range(count):
+        rng = random.Random((seed << 20) | i)
+        j = (rng.randrange(pool) if rng.random() < share
+             else pool + rng.randrange(4 * pool))
+        t = templates[j]
+        out.append(pod_item(f"{prefix}-{i}", cpu=10 + j, required_terms=t.required_terms,
+                            preferred_terms=t.preferred_terms))
+    return out
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_backend_shape_pool_lockstep(pair_factory, backend):
+    """Template-shaped NodeAffinity pods through the port's scan path and
+    through the kernel's plain version, against the JAX coordinator's XLA
+    path, sampled window, packed."""
+    p = pair_factory(profile=AFFINITY, pipeline=True, depth=2, packing="packed", score_pct=25,
+                     port_kw=dict(backend=backend))
+    assert p.t.backend == backend
+    p.write(fleet())
+    p.bootstrap()
+    for w in range(4):
+        p.write(shape_pool_pods(f"w{w}", 128))
+        p.step()
+    p.run_until_idle()
+    kvs = p.check()
+    assert _all_bound(kvs) and p.bound == 512
+
+
+def test_adaptive_batch_buckets_lockstep(pair_factory):
+    """Queue depths 5, 100, 200, 600 and then 88 + 40 take the 64, 128,
+    256, 512 and 128 buckets; every partial bucket retires at once,
+    counted as an adaptive quiesce in both packages."""
+    q = QuiesceDelta()
+    p = pair_factory(pipeline=True, depth=2, packing="packed", batch=512, adaptive_batch=True)
+    assert p.t.min_batch == 64
+    p.write(fleet())
+    p.bootstrap()
+    sizes = []
+    for w, n in enumerate((5, 100, 200, 600, 40)):
+        p.write(pods(f"w{w}", n))
+        for c in (p.t, p.j):
+            c.drain_watches()
+        sizes.append(p.t._encoder_for(len(p.t.queue)).spec.batch)
+        p.step()
+    p.run_until_idle()
+    kvs = p.check()
+    assert _all_bound(kvs) and p.bound == 945
+    assert sizes == [64, 128, 256, 512, 128]
+    assert sorted(p.t._encoders) == sorted(p.j._encoders) == [64, 128, 256, 512]
+    jq, tq = q.deltas()
+    assert tq == jq and tq["adaptive"] > 0 and tq["structural"] == 0
+
+
+def test_node_churn_lockstep(pair_factory):
+    """Each package's ``sched_bench._NodeChurn`` writes capacity-only
+    updates into its own store at 4,000 updates/s of synthetic elapsed
+    time (never the wall clock) while pods arrive; the pipeline never
+    quiesces and both coordinators stay byte-identical."""
+    from k8s1m_tpu.tools.sched_bench import _NodeChurn as JChurn
+    from k8s1m_tpu_torch.tools.sched_bench import _NodeChurn as TChurn
+
+    q = QuiesceDelta()
+    p = pair_factory(pipeline=True, depth=3, packing="packed", max_nodes=1024)
+    p.write(fleet(256))
+    p.bootstrap()
+    churns = (JChurn(p.jstore, 256, 4000.0), TChurn(p.tstore, 256, 4000.0))
+    for w in range(8):
+        p.write(pods(f"w{w}", 96))
+        for c in churns:
+            c.advance(0.05 * (w + 1))
+        p.step()
+    p.run_until_idle()
+    kvs = p.check()
+    assert _all_bound(kvs) and p.bound == 8 * 96
+    assert churns[0].emitted == churns[1].emitted == 1600
+    jq, tq = q.deltas()
+    assert tq == jq and tq["structural"] == tq["resync"] == 0

@@ -314,7 +314,7 @@ def test_delta_kernel_matches_plain_version(cuda, s, n, b, k, stratum_bits, row_
 @pytest.mark.parametrize("layout", ["plain", "packed"])
 def test_delta_wave_matches_plain_version(cuda, layout):
     """Three churned delta waves with the kernel and with the plain tail
-    (``reference=True``) from clones: identical rows, table and planes;
+    (``backend="xla"``) from clones: identical rows, table and planes;
     and each equals the full wave from the same table."""
     from k8s1m_tpu_torch.cluster.workload import node_affinity_pods
     from k8s1m_tpu_torch.engine.cycle import fill_shape_planes, schedule_batch_delta
@@ -357,7 +357,7 @@ def test_delta_wave_matches_plain_version(cuda, layout):
         torch.cuda.synchronize()
         assert delta_plane_topk.launches == before + 1
         ref_t, _ra, ref_rows, ref_p = schedule_batch_delta(ref_t, pb, 50 + w, planes=ref_p,
-                                                           reference=True, **kw)
+                                                           backend="xla", **kw)
         assert torch.equal(rows, ref_rows) and torch.equal(rows, full_rows)
         for c in ("cpu_req", "mem_req", "pods_req"):
             assert torch.equal(getattr(table, c), getattr(ref_t, c))
@@ -572,8 +572,89 @@ def slow_card(monkeypatch):
         monkeypatch.setattr(coordinator, name, slowed(getattr(coordinator, name)))
 
 
+def _spread_anti_waves(waves: int, per: int):
+    """``waves`` lists of (key, value): ``per`` zone-spread (maxSkew 1) and
+    ``per`` hostname anti-affinity pods each, from the port's
+    ``spread_deployment``/``affinity_deployment`` with their raw specs."""
+    from k8s1m_tpu_torch.cluster.workload import affinity_deployment, spread_deployment
+    from k8s1m_tpu_torch.control.objects import encode_pod, pod_key
+    from k8s1m_tpu_torch.snapshot.constraints import ConstraintTracker
+
+    spread = [{"topologyKey": "topology.kubernetes.io/zone", "maxSkew": 1,
+               "whenUnsatisfiable": "DoNotSchedule",
+               "labelSelector": {"matchLabels": {"app": "sp"}}}]
+    anti = {"podAntiAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [{
+        "topologyKey": "kubernetes.io/hostname",
+        "labelSelector": {"matchLabels": {"app": "anti"}}}]}}
+    tracker = ConstraintTracker(TableSpec(max_nodes=16))
+    out = []
+    for w in range(waves):
+        items = [(pod_key(p.namespace, p.name), encode_pod(p, raw_spread=spread))
+                 for p in spread_deployment(tracker, "sp", per, start=w * per, cpu_milli=10)]
+        items += [(pod_key(p.namespace, p.name), encode_pod(p, raw_affinity=anti))
+                  for p in affinity_deployment(tracker, "anti", per, anti=True,
+                                               start=w * per, cpu_milli=10)]
+        out.append(items)
+    return out
+
+
+def _drive_stored(device, case):
+    """A coordinator built here (not through sched_bench) over 16,384 KWOK
+    nodes, pipelined at depth 3, packed, zero-delay retries: ``constraints``
+    runs the full Profile with count tables over 4 waves of 512 spread +
+    512 anti pods; ``adaptive`` writes waves of 5, 100, 300 and 1500 pods
+    into 1024-pod adaptive buckets.  Returns (stored pod values, the count
+    tables or None, the fused kernel's launches by stage)."""
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
+    from k8s1m_tpu_torch.control.objects import encode_node, encode_pod, node_key, pod_key
+    from k8s1m_tpu_torch.faultline import RetryPolicy
+    from k8s1m_tpu_torch.ops import fused_topk as ft
+    from k8s1m_tpu_torch.store.native import MemStore, list_prefix
+    from k8s1m_tpu_torch.tools.make_nodes import build_node
+
+    store = MemStore()
+    store.put_batch([(node_key(f"kwok-node-{i}"), encode_node(build_node(i)))
+                     for i in range(16384)])
+    kw = dict(chunk=1024, pipeline=True, depth=3, packing="packed", score_pct=25,
+              retry_policy=RetryPolicy("coordinator.bind", base_delay_s=0.0, jitter=0.0),
+              device=device)
+    if case == "constraints":
+        coord = Coordinator(store, TableSpec(max_nodes=16384, max_zones=128, max_regions=16),
+                            PodSpec(batch=1024, spread_refs=1, affinity_refs=1,
+                                    spread_incs=1, ipa_incs=1),
+                            Profile(), with_constraints=True, **kw)
+        waves = _spread_anti_waves(4, 512)
+    else:
+        coord = Coordinator(store, TableSpec(max_nodes=16384), PodSpec(batch=1024), BASE,
+                            with_constraints=False, adaptive_batch=True, **kw)
+        waves, off = [], 0
+        for n in (5, 100, 300, 1500):
+            waves.append([(pod_key("default", f"a-{off + i}"),
+                           encode_pod(PodInfo(f"a-{off + i}", cpu_milli=10, mem_kib=1024)))
+                          for i in range(n)])
+            off += n
+    try:
+        coord.bootstrap()
+        ft.reset_launches()
+        for items in waves:
+            store.put_batch(items)
+            coord.step()
+        coord.run_until_idle()
+        coord.flush()
+        kvs, _rev = list_prefix(store, b"/registry/pods/")
+        cons = None
+        if coord.constraints is not None:
+            cons = {f: getattr(coord.constraints, f).cpu() for f in CONSTRAINT_FIELDS}
+        return ({kv.key: kv.value for kv in kvs}, cons,
+                dict(ft.fused_topk.launches_by_stage))
+    finally:
+        coord.close()
+        store.close()
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("path", ["fused", "fused-serial", "delta"])
+@pytest.mark.parametrize("path", ["fused", "fused-serial", "delta", "xla", "shape-pool",
+                                  "constraints", "adaptive"])
 def test_coordinator_on_card_equals_cpu(cuda, slow_card, path):
     """The coordinator on the card leaves the same bytes in the store as
     with device='cpu', pipelined at depth 3 and (``-serial``) unpipelined.
@@ -582,11 +663,31 @@ def test_coordinator_on_card_equals_cpu(cuda, slow_card, path):
     from stale bytes, which only a card shows — unpipelined, the retire
     follows the launch at once, and ``slow_card`` holds the copy back.
     The delta case runs the candidate index with 9 stratum bits (~32 tied
-    rows per class at 16,384 nodes, the megarow sizing), and pods retry."""
+    rows per class at 16,384 nodes, the megarow sizing), and pods retry.
+    ``xla`` runs the scan path on the card; ``shape-pool`` NodeAffinity
+    template pods (the kernel's ``aff`` stage); ``constraints`` the count
+    tables (``cons`` stage), which must also agree; ``adaptive`` the
+    adaptive batch buckets."""
+    if path in ("constraints", "adaptive"):
+        got, cons, stages = _drive_stored("cuda", path)
+        want, want_cons, _stages = _drive_stored("cpu", path)
+        assert got == want
+        assert all(b'"nodeName"' in v for v in got.values())
+        if path == "constraints":
+            assert stages["cons"] > 0
+            for f in CONSTRAINT_FIELDS:
+                assert torch.equal(cons[f], want_cons[f]), f
+        else:
+            assert stages["base"] > 0
+        return
     if path == "fused":
         batch, over = 1024, dict(score_pct=25)
     elif path == "fused-serial":
         batch, over = 1024, dict(score_pct=25, no_pipeline=True)
+    elif path == "xla":
+        batch, over = 1024, dict(score_pct=25, backend="xla")
+    elif path == "shape-pool":
+        batch, over = 1024, dict(score_pct=25, shape_pool=8, shape_share=0.9, seed=3)
     else:
         batch, over = 512, dict(score_pct=100, deltacache="on", delta_index_k=64,
                                 stratum_bits=9)
@@ -598,4 +699,9 @@ def test_coordinator_on_card_equals_cpu(cuda, slow_card, path):
         np.testing.assert_array_equal(req[c], want_req[c])
         np.testing.assert_array_equal(dev[c], req[c])
     launches = report["detail"]["launches"]
-    assert launches["delta_plane_topk" if path == "delta" else "fused_topk"] > 0
+    if path == "xla":
+        assert launches["fused_topk"] == launches["delta_plane_topk"] == 0
+    elif path == "shape-pool":
+        assert launches["fused_topk_by_stage"]["aff"] > 0
+    else:
+        assert launches["delta_plane_topk" if path == "delta" else "fused_topk"] > 0

@@ -81,3 +81,32 @@ def test_generators_pack_the_same_buffers(dims):
     assert jp.groups == tp.groups
     np.testing.assert_array_equal(jp.ints, tp.ints)
     np.testing.assert_array_equal(jp.bools, tp.bools)
+
+
+# ---- the tenant stream of sched_bench --tenants ----------------------------------
+
+
+@pytest.mark.parametrize("tenants,skew", [(1, 1.0), (5, 0.0), (7, 1.0), (40, 1.7)])
+def test_zipf_weights_match(tenants, skew):
+    from k8s1m_tpu_torch.cluster.workload import zipf_weights
+
+    assert zipf_weights(tenants, skew) == jwl.zipf_weights(tenants, skew)
+    with pytest.raises(ValueError):
+        zipf_weights(0)
+
+
+@pytest.mark.parametrize("schedule", ["steady", "diurnal", "flash"])
+@pytest.mark.parametrize("seed,skew", [(0, 1.0), (3, 0.0), (11, 2.0)])
+def test_tenant_assignments_match(schedule, seed, skew):
+    from k8s1m_tpu_torch.cluster import workload as twl
+
+    for count, tenants in ((1000, 6), (257, 3), (3000, 32)):
+        got = twl.tenant_assignments(count, tenants, skew=skew, seed=seed, schedule=schedule)
+        assert got == jwl.tenant_assignments(count, tenants, skew=skew, seed=seed,
+                                             schedule=schedule)
+        assert len(got) == count and set(got) <= set(range(tenants))
+    for frac in (0.0, 0.45, 0.7):
+        assert (twl.tenant_rate_multipliers(schedule, frac, 5)
+                == jwl.tenant_rate_multipliers(schedule, frac, 5))
+    with pytest.raises(ValueError):
+        twl.tenant_rate_multipliers("weekly", 0.1, 3)
