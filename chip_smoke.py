@@ -13,8 +13,9 @@ per-shape planes covering the whole table (path C: ``bench.py
 --deltacache``, C1, and ``bench.py --affinity --deltacache``, C2) — and
 then the host coordinator (store -> watch -> wave -> CAS bind) through its
 entry point ``tools/sched_bench.py`` (phase 8: the closed loop, template
-pods under node churn, constraints, a paced offered load) and
-``tools/kernel_probe.py`` (phase 9).
+pods under node churn, constraints, a paced offered load),
+``tools/kernel_probe.py`` (phase 9) and ``tools/megarow_drill.py``, the
+headline run with overload control, fault injection and tenancy (phase 10).
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device  — the card's name, and its name and power limit as
@@ -114,13 +115,35 @@ Phases (each raises on failure; the script then exits non-zero):
                share;
   9. kernel_probe — ``tools/kernel_probe.py`` at its default shape
                (53,248 rows x 8192 pods, packed) on the fused kernel and on
-               the scan path: ms per batch of every knock-out variant.
+               the scan path: ms per batch of every knock-out variant;
+  10. megarow — ``megarow_drill.run(parse_args([]))`` on the card at its
+               default shape (1,048,576 nodes, batch 512, chunk 4096, depth
+               3, 4 tenants, deltacache on, index K 64, automatic stratum
+               bits, comparison lane and differential at 131,072): the
+               drill's ``passed`` with every gate, fused base-stage and
+               delta-kernel launches counted in the run (counts set to 0
+               just before it).  Prints saturated and composed binds/s,
+               cold build, the compare speedup, the states seen and the
+               recovery tick, lost and give-ups, index waves, peak RSS and
+               the launches per kernel;
+  10a. composed parity — the drill's tick sequence (steady, overload,
+               recover) through ``Coordinator(tenancy=..., pipeline=True,
+               depth=3)`` at 65,536 nodes with the drill's seeded bind-CAS
+               conflict plan and zero-delay retries, on the card and on the
+               CPU (chunk 4096 both): byte-identical stored pods, the same
+               admitted/rejected counts and the same controller state after
+               every tick, through SHEDDING and back to HEALTHY;
+  10b. breaker — at 65,536 nodes a ``stall`` plan on the wave launch opens
+               a ``CircuitBreaker``; the fallback binds equal the oracle's
+               argmax over the host mirror, the breaker walks CLOSED -> OPEN
+               -> HALF_OPEN -> CLOSED, and after ``flush`` the device request
+               columns equal the host mirror, no node over its allocatable.
 Phases 5 and 6 print the same group and bound figures as phase 4.  The
 next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
 stage configuration and one for the delta kernel: times, bound, launches;
 the fused entries add ``bound_per_pair_ms``, ``groups`` and
-``all_distinct_ms``; ``launches`` includes the coordinator's, which
-``coordinator_launches`` also gives alone, per fused stage);
+``all_distinct_ms``; ``launches`` includes the coordinator's of phases 8
+and 10, which ``coordinator_launches`` also gives alone, per fused stage);
 the last is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--steps 4] [--path-steps 3] [--delta-steps 2] [--warmup 2]
@@ -1463,22 +1486,28 @@ def _stored_pods(store) -> dict:
 
 def _coordinator_checks(tag: str, report: dict, coord, store, pods: int, *, warm: int = 0,
                         alloc: bool = False) -> dict:
-    """Each pod bound exactly once in the store (``pods`` of the run and
-    ``warm`` bucket warm-up pods), the device request columns — and with
-    ``alloc`` (node churn rewrites them) the allocatable columns — equal
-    to the host mirror after ``flush``, no node over its allocatable;
-    returns the stored pod values."""
+    """``_store_checks`` over the run's ``pods`` and ``warm`` bucket warm-up
+    pods, and the report's bind count; returns the stored pod values."""
+    d = report["detail"]
+    check(d["bound"] + 1 == pods, f"[{tag}] {d['bound']} binds + 1 warm-up != {pods} pods")
+    return _store_checks(tag, coord, store, pods + warm, alloc=alloc)
+
+
+def _store_checks(tag: str, coord, store, total: int, *, alloc: bool = False,
+                  capacity: bool = True) -> dict:
+    """After ``flush``: ``total`` pods in the store, each bound exactly once
+    and counted on its node by the host mirror, the device request columns
+    — and with ``alloc`` (node churn rewrites them) the allocatable columns
+    — equal to the host mirror, and (``capacity``) no node over its
+    allocatable; returns the stored pod values."""
     coord.flush()
     stored = _stored_pods(store)
-    total = pods + warm
     check(len(stored) == total, f"[{tag}] {len(stored)} pods stored, want {total}")
     per_node: dict = {}
     for v in stored.values():
         name = json.loads(v)["spec"].get("nodeName")
         check(name is not None, f"[{tag}] a pod was left unbound")
         per_node[name] = per_node.get(name, 0) + 1
-    d = report["detail"]
-    check(d["bound"] + 1 == pods, f"[{tag}] {d['bound']} binds + 1 warm-up != {pods} pods")
     host = coord.host
     check(int(host.pods_req.sum()) == total,
           f"[{tag}] host mirror counts {int(host.pods_req.sum())} bound pods, want {total}")
@@ -1494,7 +1523,7 @@ def _coordinator_checks(tag: str, report: dict, coord, store, pods: int, *, warm
               f"[{tag}] device {col} != host mirror after flush")
     for req, cap in (("cpu_req", "cpu_alloc"), ("mem_req", "mem_alloc"),
                      ("pods_req", "pods_alloc")):
-        check(bool((getattr(host, req) <= getattr(host, cap)).all()),
+        check(not capacity or bool((getattr(host, req) <= getattr(host, cap)).all()),
               f"[{tag}] a node exceeds its {cap}")
     return stored
 
@@ -1821,6 +1850,314 @@ def phase_probe() -> dict:
     return out
 
 
+# ---- phase 10: the megarow drill, composed parity, breaker ---------------------
+
+COMPOSED_NODES = 65536
+# 10a runs the drill's tick sequence (steady, overload, recover) at the
+# drill's batch; 10b's oracle fallback costs ~60 us per (pod, node) on the
+# host, so its open-state wave takes 2 pods.
+BREAKER_NODES, BREAKER_FALLBACK = 65536, 2
+
+
+def phase_megarow() -> dict:
+    """10: ``megarow_drill.run(parse_args([]))`` on the card at its default
+    shape — 1,048,576 nodes, batch 512, chunk 4096, depth 3, 4 tenants,
+    deltacache on, index K 64, automatic stratum bits, the comparison lane
+    and the differential at 131,072 — with every gate of the drill.  The
+    launch counts are set to 0 just before the run and read just after."""
+    from k8s1m_tpu_torch.ops import delta_topk, fused_topk
+    from k8s1m_tpu_torch.tools import megarow_drill
+
+    args = megarow_drill.parse_args([])
+    check(args.device == "cuda" and args.nodes == NODES, "[10] the drill's default shape moved")
+    fused_topk.reset_launches()
+    delta_topk.reset_launches()
+    t0 = time.perf_counter()
+    ev = megarow_drill.run(args)
+    secs = time.perf_counter() - t0
+    launches = {"fused_topk": fused_topk.fused_topk.launches,
+                "delta_plane_topk": delta_topk.delta_plane_topk.launches,
+                "fused_topk_by_stage": dict(fused_topk.fused_topk.launches_by_stage)}
+    check(ev["passed"], f"[10] the drill failed its gates: {json.dumps(ev)}")
+    check(launches["fused_topk_by_stage"]["base"] > 0, "[10] no fused base-stage launch")
+    check(launches["delta_plane_topk"] > 0, "[10] no delta-kernel launch")
+    cmp_ = ev["cold_build_compare"]
+    log(f"[10] megarow drill, {args.nodes:,} nodes on the card: saturated "
+        f"{ev['binds_per_sec']} binds/s, composed {ev['binds_per_sec_composed']} binds/s "
+        f"({ev['window_bound']} binds in {ev['window_seconds']} s), cold build "
+        f"{ev['cold_build_seconds']} s, registration {ev['bulk_ingest']['rate_per_sec']} "
+        f"nodes/s, compare speedup {cmp_['speedup']} (bulk {cmp_['bulk_lane_seconds']} s vs "
+        f"loop {cmp_['per_node_loop_seconds']} s), states {ev['states_seen']}, recovered at "
+        f"tick {ev['recovered_at_tick']}, admitted {ev['admitted']} rejected "
+        f"{ev['rejected']}, lost {ev['lost']}, give-ups {ev['retry_give_ups']}, index waves "
+        f"{ev['index_waves']} drops {ev['index_drops']}, differential "
+        f"{ev['index_differential']}, inflight depth {ev['sustained_inflight_depth']}, "
+        f"peak RSS {ev['peak_rss_mib']} MiB, launches {launches} ({secs:.1f}s)")
+    return {"evidence": ev, "launches": launches, "seconds": round(secs, 3)}
+
+
+def _composed_run(device: str) -> dict:
+    """10a's construction: the drill's sustained window — tenant-weighted
+    ``submit_external`` intake, 256 capacity-only node updates per tick,
+    its seeded bind-CAS conflict plan, steady / overload / recover ticks —
+    through ``Coordinator(tenancy=..., pipeline=True, depth=3)`` at
+    ``COMPOSED_NODES`` nodes, chunk 4096, packed, deltacache with the
+    candidate index, and a zero-delay, zero-jitter retry policy (no wall
+    clock reaches placement: ``cycle_slow_s`` stays ``inf``).  Returns the
+    stored pods, the admitted/rejected counts and the controller state
+    after every tick."""
+    from k8s1m_tpu_torch.cluster.workload import zipf_weights
+    from k8s1m_tpu_torch.config import PodSpec, TableSpec
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
+    from k8s1m_tpu_torch.control.objects import encode_pod, node_key, pod_key
+    from k8s1m_tpu_torch.faultline import FaultPlan, FaultSpec, RetryPolicy, install_plan
+    from k8s1m_tpu_torch.loadshed import LoadshedConfig, Overloaded
+    from k8s1m_tpu_torch.ops import delta_topk, fused_topk
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.snapshot.pod_encoding import PodInfo
+    from k8s1m_tpu_torch.store.native import MemStore
+    from k8s1m_tpu_torch.tenancy import TenancyController, TenancyPolicy
+    from k8s1m_tpu_torch.tools import megarow_drill as md
+    from k8s1m_tpu_torch.tools.make_nodes import build_node
+
+    args = md.parse_args(["--nodes", str(COMPOSED_NODES)])
+    b, n = args.batch, args.nodes
+    z = zipf_weights(args.tenants, args.tenant_skew)
+    weights = {f"tenant-{t}": max(1, round(z[t] / z[-1])) for t in range(args.tenants)}
+    tenants, total_w = list(weights), sum(weights.values())
+    cfg = LoadshedConfig(queue_degraded=3 * b, queue_shed=6 * b, queue_cap=64 * b,
+                         queue_recover=b, recover_cycles=3)
+    tn = TenancyController(TenancyPolicy(weights=weights), loadshed_config=cfg,
+                           name="composed_parity")
+    plan = FaultPlan([FaultSpec("coordinator.bind", "cas", kind="err5xx",
+                                probability=1.0 / args.conflict_every)], seed=args.seed)
+    store = MemStore()
+    md.register_nodes(store, n, args.bulk)
+    coord = Coordinator(
+        store, TableSpec(max_nodes=n, max_zones=16, max_regions=8), PodSpec(batch=b),
+        Profile(topology_spread=0, interpod_affinity=0), chunk=args.chunk, k=4,
+        with_constraints=False, seed=args.seed, pipeline=True, depth=args.depth, tenancy=tn,
+        packing="packed", deltacache="on", delta_index_k=args.delta_index_k,
+        stratum_bits=args.stratum_bits, device=device,
+        retry_policy=RetryPolicy("coordinator.bind", base_delay_s=0.0, jitter=0.0),
+    )
+    seq = churned = admitted = rejected = 0
+    states = []
+
+    def submit(count):
+        nonlocal seq, admitted, rejected
+        lanes = []
+        for t in tenants:
+            share = max(1, round(count * weights[t] / total_w))
+            lanes += [(k / share, t) for k in range(share)]
+        lanes.sort()
+        for _, t in lanes:
+            seq += 1
+            pod = PodInfo(f"p{seq:07d}", namespace=t, cpu_milli=10, mem_kib=1 << 10)
+            try:
+                coord.submit_external(json.loads(encode_pod(pod)))
+            except Overloaded:
+                rejected += 1
+                continue
+            store.put(pod_key(t, pod.name), encode_pod(pod))
+            admitted += 1
+
+    try:
+        coord.bootstrap()
+        submit(b)
+        coord.run_until_idle()
+        install_plan(plan)
+        fused_topk.reset_launches()
+        delta_topk.reset_launches()
+        t0 = time.perf_counter()
+        for count, ticks in ((b, args.steady_ticks), (args.factor * b, args.overload_ticks),
+                             (b // 2, args.recover_ticks)):
+            for _ in range(ticks):
+                submit(count)
+                for _ in range(args.churn_per_tick):
+                    i = churned % n
+                    store.put(node_key(build_node(i).name), md._node_bytes(i, churned))
+                    churned += 1
+                coord.step()
+                states.append(tn.controller.current_state())
+        coord.run_until_idle()
+        secs = time.perf_counter() - t0
+        install_plan(None)
+        # The conflict plan's rollbacks re-upload whole rows while waves
+        # are in flight, which erases those waves' assumes until they
+        # retire: the JAX coordinator over-commits the same nodes by the
+        # same counts (ROADMAP §C), so the over-commit is reported and
+        # compared, not gated.
+        stored = _store_checks(f"10a {device}", coord, store, admitted, capacity=False)
+        host = coord.host
+        excess = host.pods_req.astype(np.int64) - host.pods_alloc
+        return {"stored": stored, "admitted": admitted, "rejected": rejected,
+                "overcommitted_nodes": int((excess > 0).sum()),
+                "max_pods_over": int(max(0, excess.max())),
+                "states": states, "counters": tn.admission.counters(), "seconds": secs,
+                "launches": {"fused_topk_by_stage": dict(fused_topk.fused_topk.launches_by_stage),
+                             "delta_plane_topk": delta_topk.delta_plane_topk.launches}}
+    finally:
+        install_plan(None)
+        coord.close()
+        store.close()
+
+
+def phase_composed_parity() -> dict:
+    """10a: ``_composed_run`` on the card and on the CPU must leave
+    byte-identical stored pods, the same admitted / rejected counts and
+    per-tenant ledger, and the same controller state after every tick,
+    walking through SHEDDING and back to HEALTHY."""
+    from k8s1m_tpu_torch.loadshed import HEALTHY, SHEDDING, STATE_NAMES
+
+    runs = {dev: _composed_run(dev) for dev in ("cuda", "cpu")}
+    card, cpu = runs["cuda"], runs["cpu"]
+    check(card["stored"] == cpu["stored"], "[10a] card and CPU stored pod values differ")
+    for key in ("admitted", "rejected", "states", "counters", "overcommitted_nodes",
+                "max_pods_over"):
+        check(card[key] == cpu[key], f"[10a] card and CPU {key} differ")
+    check(SHEDDING in card["states"] and card["states"][-1] == HEALTHY,
+          "[10a] the controller did not walk through SHEDDING back to HEALTHY")
+    walk = [STATE_NAMES[s] for i, s in enumerate(card["states"])
+            if i == 0 or s != card["states"][i - 1]]
+    log(f"[10a] composed parity at {COMPOSED_NODES:,} nodes: card ({card['seconds']:.1f}s) and "
+        f"CPU ({cpu['seconds']:.1f}s) byte-identical over {len(card['stored'])} pods; admitted "
+        f"{card['admitted']} rejected {card['rejected']}; states {' -> '.join(walk)}; nodes "
+        f"over their pod allocatable {card['overcommitted_nodes']} (at most "
+        f"{card['max_pods_over']} pods over); card launches {card['launches']}")
+    return {dev: {k: v for k, v in r.items() if k != "stored"} for dev, r in runs.items()}
+
+
+def phase_breaker(device: str = "cuda") -> dict:
+    """10b: at ``BREAKER_NODES`` nodes on the card (or ``device``), a ``stall`` plan on
+    ``coordinator.cycle``/``dispatch`` fails two launches and opens a
+    ``CircuitBreaker`` (threshold 2, cooldown 2, fallback batch
+    ``BREAKER_FALLBACK``); the open-state wave binds through the host
+    oracle, the half-open probe is a device wave and closes it.  Every
+    fallback bind must be the argmax of ``oracle_score`` over the
+    ``oracle_feasible`` rows of the host mirror (earlier row wins ties);
+    after ``flush`` the device request columns equal the host mirror and no
+    node exceeds its allocatable."""
+    from k8s1m_tpu_torch.config import PodSpec, TableSpec
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
+    from k8s1m_tpu_torch.control.objects import encode_pod, pod_key
+    from k8s1m_tpu_torch.faultline import FaultPlan, FaultSpec, RetryPolicy, install_plan
+    from k8s1m_tpu_torch.loadshed import CLOSED, OPEN, BreakerConfig, CircuitBreaker
+    from k8s1m_tpu_torch.obs.metrics import REGISTRY
+    from k8s1m_tpu_torch.ops import fused_topk
+    from k8s1m_tpu_torch.oracle import oracle_feasible, oracle_score
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.snapshot.pod_encoding import PodInfo
+    from k8s1m_tpu_torch.store.native import MemStore
+    from k8s1m_tpu_torch.tools.sched_bench import write_nodes
+
+    t0 = time.perf_counter()
+    br = CircuitBreaker(BreakerConfig(failure_threshold=2, cooldown_cycles=2,
+                                      fallback_batch=BREAKER_FALLBACK), component="chip_smoke")
+    trans = REGISTRY.get("breaker_transitions_total")
+
+    def walked(a, b):
+        return trans.value(component="chip_smoke", **{"from": a, "to": b})
+
+    walk0 = [walked("closed", "open"), walked("open", "half_open"), walked("half_open", "closed")]
+    store = MemStore()
+    write_nodes(store, BREAKER_NODES)
+    profile = Profile(node_affinity=0, topology_spread=0, interpod_affinity=0)
+    coord = Coordinator(
+        store, TableSpec(max_nodes=BREAKER_NODES), PodSpec(batch=512), profile, chunk=CHUNK,
+        with_constraints=False, pipeline=True, depth=2, packing="packed", breaker=br,
+        retry_policy=RetryPolicy("coordinator.bind", base_delay_s=0.0, jitter=0.0),
+        device=device,
+    )
+    fallback = []
+    try:
+        coord.bootstrap()
+
+        def wave(tag, count):
+            items = [(pod_key("default", f"{tag}-{i}"),
+                      encode_pod(PodInfo(f"{tag}-{i}", cpu_milli=100 + i % 7, mem_kib=1 << 12)))
+                     for i in range(count)]
+            store.put_batch(items)
+
+        wave("w0", 512)
+        coord.step()                               # a device wave in flight
+        install_plan(FaultPlan([FaultSpec("coordinator.cycle", "dispatch", kind="stall",
+                                          every_n=1, max_fires=2)], seed=1))
+        wave("w1", 512)
+        coord.step()
+        coord.step()                               # two stalled launches: OPEN
+        check(br.state == OPEN, f"[10b] breaker {br.state} after two stalls, want OPEN")
+        # The open-state step retires the pipeline, syncs, and hands the
+        # queue head to the oracle: record the pods it takes and the host
+        # mirror's usage as the fallback starts, then replay.
+        seen = {}
+        orig = coord._fallback_schedule
+
+        def spy(batch_pods):
+            host = coord.host
+            seen["keys"] = [p.key_str for p in batch_pods[:BREAKER_FALLBACK]]
+            seen["nodes"] = coord._fallback_nodes()
+            seen["usage"] = {row: [int(host.cpu_req[row]), int(host.mem_req[row]),
+                                   int(host.pods_req[row])] for row, _ in seen["nodes"]}
+            return orig(batch_pods)
+
+        coord._fallback_schedule = spy
+        fb0 = REGISTRY.get("breaker_fallback_binds_total").value()
+        got = coord.step()
+        del coord._fallback_schedule
+        # The step retires the first wave (512 binds), then the fallback.
+        fb = REGISTRY.get("breaker_fallback_binds_total").value() - fb0
+        check(got == 512 + BREAKER_FALLBACK and fb == BREAKER_FALLBACK,
+              f"[10b] {got} binds, {fb} through the fallback; want 512 + {BREAKER_FALLBACK}")
+        heads, nodes, usage = seen["keys"], seen["nodes"], seen["usage"]
+        weights = (profile.least_allocated, profile.balanced_allocation,
+                   profile.taint_toleration, profile.node_affinity)
+        for key in heads:
+            ns, name = key.split("/", 1)
+            i = int(name.rsplit("-", 1)[1])
+            pod = PodInfo(name, namespace=ns, cpu_milli=100 + i % 7, mem_kib=1 << 12)
+            best_row, best_score, best = -1, -1, None
+            for row, nd in nodes:
+                if not oracle_feasible(nd, pod, tuple(usage[row])):
+                    continue
+                s = oracle_score(nd, pod, tuple(usage[row]),
+                                 taint_slots=coord.table_spec.taint_slots, weights=weights)
+                if s > best_score:
+                    best_row, best_score, best = row, s, nd.name
+            usage[best_row][0] += pod.cpu_milli
+            usage[best_row][1] += pod.mem_kib
+            usage[best_row][2] += 1
+            bound = json.loads(store.get(pod_key(ns, name)).value)["spec"].get("nodeName")
+            check(bound == best, f"[10b] fallback bound {key} to {bound}, the oracle says {best}")
+            fallback.append((key, bound, best_row))
+        install_plan(None)
+        fused_topk.reset_launches()
+        while br.state != CLOSED:
+            coord.step()                           # cooldown, then the half-open probe
+        wave("w2", 512)
+        coord.run_until_idle()
+        probe_launches = dict(fused_topk.fused_topk.launches_by_stage)
+        check(device != "cuda" or probe_launches["base"] > 0,
+              "[10b] no fused-kernel launch after the breaker")
+        walk = [walked("closed", "open"), walked("open", "half_open"),
+                walked("half_open", "closed")]
+        check([b - a for a, b in zip(walk0, walk)] == [1, 1, 1],
+              f"[10b] the breaker did not walk CLOSED -> OPEN -> HALF_OPEN -> CLOSED once: "
+              f"{walk0} -> {walk}")
+        stored = _store_checks("10b", coord, store, 3 * 512)
+    finally:
+        install_plan(None)
+        coord.close()
+        store.close()
+    log(f"[10b] breaker at {BREAKER_NODES:,} nodes: CLOSED -> OPEN -> HALF_OPEN -> CLOSED; "
+        f"fallback binds {fallback} equal the oracle's argmax over the host mirror; "
+        f"{len(stored)} pods bound, device request columns equal the host mirror "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return {"fallback": fallback, "pods": len(stored), "launches_after": probe_launches,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="timed waves per layout (phase 4)")
@@ -1867,17 +2204,19 @@ def main(argv=None) -> int:
     coord["D4"] = phase_constraints()
     coord["D5"] = phase_coordinator("D5")
     probe = phase_probe()
+    megarow = phase_megarow()
+    composed = phase_composed_parity()
+    breaker = phase_breaker()
     log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
 
-    # Launches of the coordinator's paths (phase 8, counts set to 0 just
-    # before each measured window and read just after it), per fused stage.
+    # Launches of the coordinator's paths (phases 8 and 10, counts set to 0
+    # just before each measured run and read just after it), per fused stage.
+    runs = [r["detail"]["launches"] for r in coord.values()] + [megarow["launches"]]
     coord_launches = {
-        stage: sum(r["detail"]["launches"]["fused_topk_by_stage"][stage]
-                   for r in coord.values())
+        stage: sum(r["fused_topk_by_stage"][stage] for r in runs)
         for stage in ("base", "aff", "cons")
     }
-    coord_launches["delta_plane_topk"] = sum(
-        r["detail"]["launches"].get("delta_plane_topk", 0) for r in coord.values())
+    coord_launches["delta_plane_topk"] = sum(r.get("delta_plane_topk", 0) for r in runs)
 
     def entry(stage, replaces, res, err):
         prod = res["packed"]
@@ -1934,7 +2273,8 @@ def main(argv=None) -> int:
                        "main_path": main_res, "path_a": path_a, "path_b": path_b,
                        "path_c": path_c, "coordinator_parity": parity,
                        "coordinator": coord, "kernel_probe": probe,
-                       **kernels}, f, indent=1, default=str)
+                       "megarow": megarow, "composed_parity": composed,
+                       "breaker": breaker, **kernels}, f, indent=1, default=str)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

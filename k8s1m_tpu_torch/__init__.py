@@ -32,9 +32,15 @@ cached per-shape feasibility/score planes, with its candidate index:
                   and the Kubernetes object codec;
 - ``store``     — ctypes bindings of the native in-process store (the
                   port's own ``libmemstore.so``, built from ``native/``);
-- ``obs``, ``faultline`` — the coordinator's metrics registry and retry
-                  policy;
-- ``tools``     — ``sched_bench``, the coordinator's end-to-end entry point;
+- ``obs``       — the coordinator's metrics registry;
+- ``faultline`` — seeded fault plans and the retry policy;
+- ``loadshed``  — the overload health controller and the circuit breaker;
+- ``oracle``    — the host reference scheduler (the breaker's fallback);
+- ``tenancy``   — weighted-fair admission, preemption, gangs;
+- ``lint``      — the runtime lock-discipline guards;
+- ``tools``     — ``sched_bench``, the coordinator's end-to-end entry point,
+                  ``kernel_probe`` and ``megarow_drill``, the 1,048,576-node
+                  headline run;
 - ``interop``   — converters from the JAX package's state (as numpy).
 
 Entry points take ``device="cuda"`` unless the caller asks for

@@ -40,12 +40,35 @@ With ``adaptive_batch`` a wave of a partial bucket retires at once
 queue drains faster than it fills, and holding the wave for the next step
 would add a wave time to every pod's latency.
 
+**Overload control** (``loadshed/``, opt-in via ``loadshed=`` /
+``breaker=``): a HealthController ticked once per cycle turns queue and
+backoff depth, conflict rate, cycle latency and resyncs into HEALTHY /
+DEGRADED / SHEDDING.  DEGRADED shrinks the score window to
+``degraded_score_pct`` (rounded up to a whole chunk), drops constraint
+*scoring* and widens batch windows; SHEDDING also makes
+``submit_external`` reject pods (lowest priority first, or per tenant
+under ``tenancy=``).  A CircuitBreaker around the wave launch falls back
+to the host-side oracle scheduler (``oracle/``) while open: the pipeline
+is retired first, and the fallback binds reach the device table only
+through the dirty-row sync, never by a direct write.
+
+**Tenancy** (``tenancy/``, ``tenancy=``): weighted-fair per-tenant
+admission at ``submit_external``, priority preemption (evict and requeue
+lower-priority bound pods through the store CAS and the dirty-row sync)
+and all-or-none gangs that ride one wave.
+
+**Fault injection** (``faultline/``): the bind CAS
+(``coordinator.bind``/``cas``), the watch drain (``coordinator.watch``/
+``poll``) and the wave launch (``coordinator.cycle``/``dispatch``) are
+hook sites of the process's injector.  The launch hook runs before any
+device work, so a ``stall`` leaves no event, no pinned buffer and no
+table update behind.
+
 Entry points run on ``device="cuda"`` unless the caller asks for
 ``device="cpu"`` (the plain versions of the kernels).  The JAX
-coordinator's mesh, overload control (loadshed, breaker and the oracle
-fallback), tenancy (preemption, gangs), lease fencing, warm standby,
-tracing, fault injection and webhook intake are not part of the port:
-passing them raises ``NotImplementedError``.
+coordinator's mesh, lease fencing, warm standby, tracing and the webhook
+server are not part of the port: passing them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,6 +80,7 @@ import heapq
 import json
 import logging
 import random
+import threading
 import time
 import weakref
 
@@ -64,7 +88,8 @@ import numpy as np
 import torch
 
 from k8s1m_tpu_torch.config import DEFAULT_SCHEDULER, PodSpec, TableSpec
-from k8s1m_tpu_torch.control.objects import decode_node, decode_pod, pod_key
+from k8s1m_tpu_torch import faultline
+from k8s1m_tpu_torch.control.objects import decode_node, decode_pod, decode_pod_obj, pod_key
 from k8s1m_tpu_torch.device import resolve_device, to_tensor
 from k8s1m_tpu_torch.engine.cycle import (
     Wave,
@@ -84,9 +109,20 @@ from k8s1m_tpu_torch.engine.deltacache import (
     resolve_deltasched,
 )
 from k8s1m_tpu_torch.faultline import RetryPolicy, note_give_up, note_retry, policy_for
+from k8s1m_tpu_torch.lint import THREAD_OWNER, guarded_by, racy_read
+from k8s1m_tpu_torch.loadshed import CLOSED as BREAKER_CLOSED
+from k8s1m_tpu_torch.loadshed import CircuitBreaker, HealthController, Signals
+from k8s1m_tpu_torch.loadshed.breaker import FALLBACK_BINDS
 from k8s1m_tpu_torch.obs.metrics import Counter, Gauge, Histogram, LevelTimer
-from k8s1m_tpu_torch.ops.priority import JITTER_BITS, prng_key, prng_split, seed_of
-from k8s1m_tpu_torch.plugins.registry import Profile
+from k8s1m_tpu_torch.ops.priority import (
+    JITTER_BITS,
+    pod_priority_of,
+    prng_key,
+    prng_split,
+    seed_of,
+)
+from k8s1m_tpu_torch.oracle import oracle_feasible, oracle_score
+from k8s1m_tpu_torch.plugins.registry import Profile, degraded_profile
 from k8s1m_tpu_torch.snapshot.bulkload import BulkNodeLoader
 from k8s1m_tpu_torch.snapshot.constraints import ConstraintTracker, empty_constraints
 from k8s1m_tpu_torch.snapshot.hotfeed import (
@@ -116,6 +152,9 @@ from k8s1m_tpu_torch.snapshot.packing import (
     resolve_packing,
 )
 from k8s1m_tpu_torch.snapshot.pod_encoding import PodInfo
+from k8s1m_tpu_torch.tenancy.gang import note_gang
+from k8s1m_tpu_torch.tenancy.policy import gang_of_labels, tenant_of_key, tenant_of_pod
+from k8s1m_tpu_torch.tenancy.preempt import Victim, note_eviction, select_preemption
 from k8s1m_tpu_torch.store.native import (
     BIND_INVALID,
     POD_CANONICAL,
@@ -158,10 +197,16 @@ _COLD_BUILD = Gauge(
     "node relist + bulk ingest + device table build)", (),
 )
 # All live coordinators in this process; the gauges sum over them.
+# Reads of cycle-thread-owned state from a gauge go through racy_read: a
+# deliberate torn-snapshot read that the guard audit exempts.
 _LIVE: weakref.WeakSet = weakref.WeakSet()
-_NODE_COUNT.set_function(lambda: sum(len(c.host._row_of) for c in list(_LIVE)))
-_QUEUE_DEPTH.set_function(lambda: sum(len(c.queue) for c in list(_LIVE)))
-_BACKOFF_DEPTH.set_function(lambda: sum(len(c._backoff) for c in list(_LIVE)))
+_NODE_COUNT.set_function(
+    lambda: sum(len(racy_read(c.host, "_row_of")) for c in list(_LIVE))
+)
+_QUEUE_DEPTH.set_function(lambda: sum(len(racy_read(c, "queue")) for c in list(_LIVE)))
+_BACKOFF_DEPTH.set_function(
+    lambda: sum(len(racy_read(c, "_backoff")) for c in list(_LIVE))
+)
 
 _PIPE_QUIESCE = Counter(
     "pipeline_quiesce_total",
@@ -169,7 +214,9 @@ _PIPE_QUIESCE = Counter(
     "quarantine exhausted)", ("reason",),
 )
 _PIPE_DEPTH = Gauge("pipeline_inflight_depth", "Device waves currently in flight", ())
-_PIPE_DEPTH.set_function(lambda: sum(len(c._inflights) for c in list(_LIVE)))
+_PIPE_DEPTH.set_function(
+    lambda: sum(len(racy_read(c, "_inflights")) for c in list(_LIVE))
+)
 _PIPE_OVERLAP = Counter(
     "pipeline_stage_overlap_seconds_total",
     "Host-stage seconds split by whether device waves were in flight",
@@ -222,6 +269,13 @@ class PendingPod:
     key_bytes: bytes = b""
     # Earliest perf_counter() time this pod may re-enter a batch.
     not_before: float = 0.0
+    # spec.priority — admission and preemption only (never encoded); 0
+    # for fast-lane pods, whose canonical shape carries no priority.
+    priority: int = 0
+    # Gang membership (tenancy/gang.py): namespace-qualified gang id and
+    # declared size; "" / 0 = not a gang pod.
+    gang_id: str = ""
+    gang_size: int = 0
 
     def peek_pod(self) -> PodInfo:
         """The PodInfo WITHOUT caching it on the record — the host-feed
@@ -258,12 +312,97 @@ def splice_node_name(raw: bytes, node_name: str) -> bytes | None:
     )
 
 
-_NOT_PORTED = (
-    "mesh", "loadshed", "breaker", "tenancy", "fence", "tracer",
-    "flight_recorder", "profiler",
+_UNSPLICE_MARK = b'"spec":{"nodeName":"'
+
+
+def unsplice_node_name(raw: bytes) -> bytes | None:
+    """Inverse of ``splice_node_name``: remove the spliced spec.nodeName,
+    restoring the pre-bind bytes exactly (the eviction path's byte-
+    identity half).  None if the object is not in the spliced canonical
+    shape (escaped name, nodeName written elsewhere): the caller takes
+    the JSON path."""
+    idx = raw.find(_UNSPLICE_MARK)
+    if idx < 0:
+        return None
+    start = idx + 8                    # keep b'"spec":{'
+    i = idx + len(_UNSPLICE_MARK)      # first byte of the name
+    j = raw.find(b'"', i)
+    if j < 0 or raw[j + 1 : j + 2] != b"," or b"\\" in raw[i:j]:
+        return None
+    return raw[:start] + raw[j + 2:]
+
+
+class _VictimRows:
+    """Row-keyed view over the coordinator's incremental by-node victim
+    index: the ``victims_by_row`` mapping ``select_preemption`` consumes,
+    built per wave in O(nodes with victims).
+
+    Only the row -> node name resolution is materialized up front
+    (victims whose node left the snapshot drop out).  ``get`` reads the
+    live per-node dict on every call, so evictions earlier in the same
+    wave are visible to later preemptors; rows are patched into the
+    returned Victims for the replay log."""
+
+    __slots__ = ("_by_node", "_name_at", "_max_seq")
+
+    def __init__(self, by_node: dict, row_of: dict, max_seq: int) -> None:
+        self._by_node = by_node
+        self._name_at = {row_of[name]: name for name in by_node if name in row_of}
+        # Bind-sequence fence: only pods bound BEFORE this view was built
+        # are victims, so a preemptor's own bind in this wave is never
+        # evicted by a later preemptor of the same wave.
+        self._max_seq = max_seq
+
+    def get(self, row: int, default=()):
+        name = self._name_at.get(row)
+        if name is None:
+            return default
+        d = self._by_node.get(name)
+        if not d:
+            return default
+        out = [dataclasses.replace(v, row=row) for v in d.values() if v.seq <= self._max_seq]
+        return out or default
+
+    def items(self):
+        """Materialized (row, victims) pairs — the replay-log dump."""
+        return [(row, self.get(row)) for row in sorted(self._name_at)]
+
+    def values(self):
+        return [vs for _row, vs in self.items()]
+
+    def __eq__(self, other):
+        # Dict-shaped for consumers that compare with the materialized
+        # per-row index.
+        if isinstance(other, (dict, _VictimRows)):
+            return dict(self.items()) == (
+                other if isinstance(other, dict) else dict(other.items())
+            )
+        return NotImplemented
+
+    __hash__ = None
+
+
+_NOT_PORTED = ("mesh", "fence", "tracer", "flight_recorder", "profiler")
+
+
+@guarded_by(
+    # Webhook-style intake threads may touch only the staging list, and
+    # only under its lock; everything else belongs to the thread that
+    # drives step()/flush().
+    _external="_external_lock",
+    _inflights=THREAD_OWNER,
+    _backoff=THREAD_OWNER,
+    queue=THREAD_OWNER,
+    _queued_keys=THREAD_OWNER,
+    _dirty_rows=THREAD_OWNER,
+    _dirty_caps=THREAD_OWNER,
+    _midflight_rows=THREAD_OWNER,
+    _gang_staging=THREAD_OWNER,
+    _gang_parked=THREAD_OWNER,
+    _bind_meta=THREAD_OWNER,
+    _victims_by_node=THREAD_OWNER,
+    _node_infos=THREAD_OWNER,
 )
-
-
 class Coordinator:
     """Single-process scheduling coordinator over an in-process store."""
 
@@ -307,6 +446,16 @@ class Coordinator:
         # Power-of-two batch buckets from min_batch up to pod_spec.batch
         # instead of one fixed size (the paced lane's latency mode).
         adaptive_batch: bool = False,
+        # Overload control (loadshed/): the HealthController sheds at
+        # submit_external and degrades the waves while pressure lasts;
+        # the CircuitBreaker guards the wave launch and falls back to the
+        # host oracle while open.  None = none of that runs.
+        loadshed: HealthController | None = None,
+        breaker: CircuitBreaker | None = None,
+        # Tenancy (tenancy.TenancyController): weighted-fair admission,
+        # preemption and gangs.  Without an explicit ``loadshed`` its
+        # HealthController is adopted as the loadshed controller too.
+        tenancy=None,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -350,6 +499,44 @@ class Coordinator:
         self._window_nodes = table_spec.max_nodes
         self._sample_rows = sample_rows_for(self._window_nodes, score_pct, chunk)
         self._window_i = 0
+        # Overload control: the degraded knobs are precomputed, so the
+        # mode switch is a swap of arguments.
+        self.tenancy = tenancy
+        if tenancy is not None:
+            if loadshed is None:
+                loadshed = tenancy.controller
+            elif loadshed is not tenancy.controller:
+                # A second controller would never be ticked: its admission
+                # count would grow until every admission hit the cap.
+                raise ValueError(
+                    "tenancy and loadshed must share one HealthController: pass "
+                    "loadshed=tenancy.controller or omit loadshed"
+                )
+        self.loadshed = loadshed
+        self.breaker = breaker
+        if loadshed is not None:
+            # sample_rows_for rounds the window up to a whole chunk: a 1%
+            # window of 1,048,576 rows at chunk 4096 scores 12,288 rows.
+            self._sample_rows_degraded = sample_rows_for(
+                self._window_nodes, min(score_pct, loadshed.config.degraded_score_pct), chunk,
+            )
+            self._profile_degraded = degraded_profile(profile)
+        else:
+            self._sample_rows_degraded = self._sample_rows
+            self._profile_degraded = profile
+        self._last_cycle_s = 0.0
+        # Signal baselines for the per-cycle controller tick (the
+        # counters are process-global: several live coordinators only
+        # ever over-report pressure).
+        self._sig_conflicts = _PODS_SCHEDULED.value(outcome="conflict")
+        self._sig_resyncs = _RESYNCS.value()
+        # Breaker-open oracle fallback: decoded (row, NodeInfo) list keyed
+        # on the count of applied node events, over an incremental
+        # NodeInfo index kept at the watch-drain decode sites (rows from
+        # the bulk ingest are seeded lazily from one store decode).
+        self._fallback_cache: tuple[int, list] | None = None
+        self._node_gen = 0
+        self._node_infos: dict[str, object] = {}
 
         # The PackingSpec is built at first table upload, so the label-
         # fusion decision sees the bootstrap vocab.
@@ -415,6 +602,30 @@ class Coordinator:
         # min-heap.  Their keys stay in _queued_keys.
         self._backoff: list[tuple[float, int, PendingPod]] = []
         self._backoff_seq = 0
+        # Gang staging: gid -> (declared size, members by key).  Members
+        # enter the queue together once all are present.
+        self._gang_staging: dict[str, tuple[int, dict[str, PendingPod]]] = {}
+        # Gangs waiting out a whole-group backoff: (not_before, seq,
+        # members) min-heap, released contiguously.
+        self._gang_parked: list[tuple[float, int, list[PendingPod]]] = []
+        self._gang_oversize: set[str] = set()
+        # Per-bound-pod preemption metadata, parallel to _bound:
+        # key -> (priority, bind seq, tenant, gang id).  A nonempty gang
+        # id makes the pod unpreemptable.
+        self._bind_meta: dict[str, tuple[int, int, str, str]] = {}
+        self._bind_seq = 0
+        # Incremental preemption-victims index: node name -> {pod key ->
+        # Victim}, kept at the same sites as _bound, only when preemption
+        # can run; rows resolve at wave time (_VictimRows).
+        self._track_victims = bool(tenancy is not None and tenancy.policy.preempt_enabled)
+        self._victims_by_node: dict[str, dict[str, Victim]] = {}
+        # Replayable preemption evidence (tenancy.policy.log_preemptions;
+        # bounded).
+        self.preempt_log: list[dict] = []
+        # External intake staging (submit_external): appended from any
+        # thread under the lock, drained into the queue each cycle.
+        self._external: list[dict] = []
+        self._external_lock = threading.Lock()
         # Seeded jitter stream: a replayed run replays the same backoff.
         self._retry_rng = random.Random(seed ^ 0xFA017)
         self._sched_bytes = scheduler_name.encode()
@@ -460,6 +671,8 @@ class Coordinator:
     def set_row_mask(self, mask: np.ndarray | None) -> None:
         """Install (or clear) the owned-node mask for sharded scheduling:
         bool[max_nodes], candidate selection only."""
+        # The fallback node list bakes the mask in.
+        self._fallback_cache = None
         if mask is None:
             self._row_mask_np = None
             self._row_mask_dev = None
@@ -511,11 +724,36 @@ class Coordinator:
             or any(r.required and r.anti for r in pod.affinity_refs)
         )
 
+    def _victims_note(self, key: str, node_name: str, cpu: int, mem: int,
+                      priority: int, seq: int, tenant: str, gang: str) -> None:
+        """Insert one bound pod into the incremental victims index (both
+        _bound insert sites call this).  Gang members are never victims;
+        ``row`` is -1 until _VictimRows resolves it."""
+        if not self._track_victims or gang:
+            return
+        self._victims_by_node.setdefault(node_name, {})[key] = Victim(
+            key, node_name, -1, cpu, mem, priority, seq, tenant,
+        )
+
+    def _victims_drop(self, key: str, node_name: str) -> None:
+        if not self._track_victims:
+            return
+        d = self._victims_by_node.get(node_name)
+        if d is not None and d.pop(key, None) is not None and not d:
+            del self._victims_by_node[node_name]
+
     def _note_bound(self, pod: PodInfo, node_name: str, *, external: bool) -> None:
         row = self.host.row_of(node_name)
         zone, region = int(self.host.zone[row]), int(self.host.region[row])
         keep = pod if self._constraintful(pod) else None
         self._bound[pod.key] = (node_name, pod.cpu_milli, pod.mem_kib, zone, region, keep)
+        self._bind_seq += 1
+        gang = gang_of_labels(pod.labels, pod.namespace)
+        gang_id = gang[0] if gang is not None else ""
+        tenant = tenant_of_pod(pod)
+        self._bind_meta[pod.key] = (pod.priority, self._bind_seq, tenant, gang_id)
+        self._victims_note(pod.key, node_name, pod.cpu_milli, pod.mem_kib,
+                           pod.priority, self._bind_seq, tenant, gang_id)
         if external and keep is not None and self.constraints is not None:
             # An externally bound pod contributes to domain counts.
             self._pending_adjusts.append((keep, node_name, zone, region, 1))
@@ -554,20 +792,31 @@ class Coordinator:
         if pod.key in self._queued_keys or pod.key in self._bound:
             return
         self._queued_keys.add(pod.key)
-        self.queue.append(PendingPod(
+        self._stage_or_queue(PendingPod(
             pod, mod_revision, time.perf_counter(),
             cpu_milli=pod.cpu_milli, mem_kib=pod.mem_kib,
             key_str=pod.key, raw=data,
             key_bytes=key or pod_key(pod.namespace, pod.name),
-        ))
+            priority=pod.priority,
+        ), pod)
 
     def _on_pod_delete(self, key: bytes) -> None:
         pod_key_str = key[len(PODS_PREFIX):].decode()
         self._queued_keys.discard(pod_key_str)
         self._orphan_bound.pop(pod_key_str, None)
+        self._bind_meta.pop(pod_key_str, None)
+        if self._gang_staging:
+            # A deleted member leaves gang staging too: a leaked record
+            # would count as load forever and ride a wave as a dead pod.
+            for gid, (_size, members) in list(self._gang_staging.items()):
+                if members.pop(pod_key_str, None) is not None:
+                    if not members:
+                        del self._gang_staging[gid]
+                    break
         bound = self._bound.pop(pod_key_str, None)
         if bound is not None:
             node_name, cpu, mem, zone, region, keep = bound
+            self._victims_drop(pod_key_str, node_name)
             if node_name in self.host._row_of:
                 self.host.remove_pod(node_name, cpu, mem)
                 self._dirty_rows.add(self.host.row_of(node_name))
@@ -585,7 +834,10 @@ class Coordinator:
     def drain_watches(self, max_events: int = 10000) -> int:
         """Apply pending node/pod deltas; returns the number of events.
         A watcher that overflowed its queue or was canceled server-side
-        has lost deltas: relist (``resync``), as a kube reflector does."""
+        has lost deltas: relist (``resync``), as a kube reflector does;
+        so does an injected watch fault."""
+        if self._watch_fault():
+            return self.resync()
         if self._nodes_watch.dropped or self._pods_watch.dropped:
             log.warning(
                 "watch overflow (nodes dropped=%d pods dropped=%d); resyncing",
@@ -598,6 +850,20 @@ class Coordinator:
         n = self._drain_node_events(max_events)
         n += self._drain_pod_events(max_events)
         return n
+
+    @staticmethod
+    def _watch_fault() -> bool:
+        """Faultline hook on the watch drain (``coordinator.watch``/
+        ``poll``): ``delay`` sleeps; any failure kind means the watch is
+        gone, and True tells the caller to resync."""
+        d = faultline.decide("coordinator.watch", "poll")
+        if d is None:
+            return False
+        if d.kind == "delay":
+            time.sleep(d.delay_s)
+            return False
+        log.warning("injected %s on watch drain; resyncing", d.kind)
+        return True
 
     @contextlib.contextmanager
     def _stage(self, stage: str):
@@ -661,10 +927,13 @@ class Coordinator:
                     else:
                         self._dirty_rows.add(self._upsert_node(node))
                         self._adopt_orphans(node.name)
+                    self._node_infos[node.name] = node
                 else:
                     name = key[len(NODES_PREFIX):].decode()
+                    self._node_infos.pop(name, None)
                     if name in row_of:
                         self._dirty_rows.add(self.host.remove(name))
+        self._node_gen += n
         return n
 
     def _drain_pod_events(self, max_events: int = 10000) -> int:
@@ -817,6 +1086,10 @@ class Coordinator:
         """Full relist after a lost watch: reconcile host state against
         the store and restart both watches from the list revisions."""
         _RESYNCS.inc()
+        self._node_gen += 1
+        # The bulk relist refreshes rows without decoding them: drop the
+        # fallback's NodeInfo index; the next fallback call re-seeds it.
+        self._node_infos.clear()
         if self._inflights:
             # The relist rebuilds the row mapping, which no wave may
             # straddle.
@@ -1048,27 +1321,400 @@ class Coordinator:
                     sign=sign,
                 )
 
+    # ---- external intake -------------------------------------------------
+
+    def submit_external(self, obj: dict, *, admitted: bool = False) -> None:
+        """Thread-safe intake sink for pods not yet in the store (the JAX
+        package's webhook feeds it): the pod is staged and enters the
+        queue at the next cycle; the store watch stays the fallback
+        intake, deduplicated by key.
+
+        With a loadshed controller this is an admission point: past the
+        overload watermarks it raises ``loadshed.Overloaded`` (lowest
+        ``spec.priority`` first, hard ``queue_cap``); with a tenancy
+        controller the weighted-fair per-tenant form replaces the
+        priority floor.  ``admitted=True`` marks a pod whose admission
+        already ran, so no pod draws two decisions."""
+        if not admitted:
+            if self.tenancy is not None:
+                self.tenancy.admission.check_admit_obj(obj, point="coordinator")
+            elif self.loadshed is not None:
+                self.loadshed.check_admit(pod_priority_of(obj), point="coordinator")
+        with self._external_lock:
+            self._external.append(obj)
+
+    def _external_pending(self) -> int:
+        """Staged external pods (a locked read)."""
+        with self._external_lock:
+            return len(self._external)
+
+    def _drain_external(self) -> None:
+        with self._external_lock:
+            if not self._external:
+                return
+            staged, self._external = self._external, []
+        for obj in staged:
+            try:
+                pod = decode_pod_obj(obj, self.tracker)
+            except Exception:
+                _DECODE_ERRORS.inc(kind="pod")
+                log.exception("undecodable external pod; skipping")
+                continue
+            if pod.node_name or pod.scheduler_name != self.scheduler_name:
+                continue
+            if self.intake_filter is not None and not self.intake_filter(pod.key):
+                continue
+            if pod.key in self._queued_keys or pod.key in self._bound:
+                continue
+            self._queued_keys.add(pod.key)
+            self._stage_or_queue(PendingPod(
+                pod, None, time.perf_counter(),
+                cpu_milli=pod.cpu_milli, mem_kib=pod.mem_kib,
+                key_str=pod.key, key_bytes=pod_key(pod.namespace, pod.name),
+                priority=pod.priority,
+            ), pod)
+
+    # ---- tenancy: gang staging, eviction, preemption ----------------------
+
+    def _stage_or_queue(self, rec: PendingPod, pod: PodInfo | None) -> None:
+        """Queue a decoded intake pod, through gang staging when it carries
+        gang labels and tenancy is on: a gang's members enter the queue
+        together once all are present, and hold no capacity before.
+        Gangs bigger than one wave are scheduled as plain pods, counted
+        once per gang."""
+        tn = self.tenancy
+        if tn is not None and tn.policy.gang_enabled and pod is not None:
+            g = gang_of_labels(pod.labels, pod.namespace)
+            if g is not None:
+                gid, size = g
+                if size > self.pod_spec.batch:
+                    if gid not in self._gang_oversize:
+                        if len(self._gang_oversize) >= 1024:
+                            self._gang_oversize.clear()
+                        self._gang_oversize.add(gid)
+                        note_gang("oversize")
+                        log.warning(
+                            "gang %s size %d exceeds wave batch %d; scheduling its "
+                            "pods as plain", gid, size, self.pod_spec.batch,
+                        )
+                else:
+                    rec.gang_id, rec.gang_size = gid, size
+                    st = self._gang_staging.get(gid)
+                    if st is None:
+                        st = self._gang_staging[gid] = (size, {})
+                    st[1][rec.key_str] = rec
+                    if len(st[1]) >= st[0]:
+                        del self._gang_staging[gid]
+                        self.queue.extend(st[1].values())
+                    return
+        self.queue.append(rec)
+
+    def _gang_staged(self) -> int:
+        """Pods parked in gang staging (accepted demand: part of the load
+        signal)."""
+        return sum(len(st[1]) for st in self._gang_staging.values())
+
+    def _evict_bound(self, key_str: str, *, into: PendingPod | None = None,
+                     adjust: bool = True, count_eviction: bool = True):
+        """CAS a bound pod's stored object back to pending and undo its
+        host-mirror accounting: the eviction half of preemption and of
+        the gang all-or-none release.  A spliced object is un-spliced
+        (the stored bytes return exactly to their pre-bind encoding);
+        anything else takes the JSON path.  The freed row is marked
+        dirty, so the device table learns it at the next sync — never by
+        a direct write.
+
+        Returns ``(evicted, rec)``: whether the bind was reverted, and the
+        requeue-ready PendingPod at the post-eviction revision (``into``
+        refreshed in place when given), or None when nothing is left to
+        requeue.  ``adjust=False`` is for a wave-local gang release,
+        whose caller rolls the count tables back through the wave's own
+        failed mask."""
+        rec = self._bound.get(key_str)
+        if rec is None:
+            return False, None
+        node_name, cpu, mem, zone, region, keep = rec
+        ns, name = key_str.split("/", 1)
+        kb = pod_key(ns, name)
+        ok = False
+        for _attempt in range(3):
+            cur = self.store.get(kb)
+            if cur is None:
+                return False, None
+            value = unsplice_node_name(cur.value)
+            if value is None:
+                try:
+                    obj = json.loads(cur.value)
+                except Exception:
+                    _DECODE_ERRORS.inc(kind="pod")
+                    log.exception("undecodable bound pod at eviction; skipping")
+                    return False, None
+                obj.get("spec", {}).pop("nodeName", None)
+                value = json.dumps(obj, separators=(",", ":")).encode()
+            ok, _, _ = self.store.cas(kb, value, required_mod=cur.mod_revision)
+            if ok:
+                break
+        if not ok:
+            return False, None
+        self._bound.pop(key_str, None)
+        self._bind_meta.pop(key_str, None)
+        self._victims_drop(key_str, node_name)
+        if node_name in self.host._row_of:
+            self.host.remove_pod(node_name, cpu, mem)
+            self._dirty_rows.add(self.host.row_of(node_name))
+        if adjust and keep is not None and self.constraints is not None:
+            self._pending_adjusts.append((keep, node_name, zone, region, -1))
+        if count_eviction:
+            note_eviction()
+        fresh = self.store.get(kb)
+        if fresh is None:
+            # Deleted after the CAS: the bind was reverted, nothing to
+            # requeue.
+            return True, None
+        p = into
+        if p is None:
+            pod = decode_pod(fresh.value, self.tracker)
+            p = PendingPod(
+                pod, fresh.mod_revision, time.perf_counter(),
+                cpu_milli=pod.cpu_milli, mem_kib=pod.mem_kib,
+                key_str=key_str, raw=fresh.value, key_bytes=kb,
+                priority=pod.priority,
+            )
+        else:
+            p.mod_revision = fresh.mod_revision
+            p.raw = fresh.value
+        self._queued_keys.add(key_str)
+        return True, p
+
+    def _preempt_eligible(self, p: PendingPod) -> bool:
+        tn = self.tenancy
+        return (
+            tn is not None
+            and tn.policy.preempt_enabled
+            and p.priority >= tn.policy.preempt_min_priority
+            and p.attempts + 1 >= tn.policy.preempt_after_attempts
+        )
+
+    def _victims_index(self) -> _VictimRows:
+        """Per-wave view of every preemptable bound pod by row, from the
+        incremental by-node index; fenced at the current bind sequence."""
+        return _VictimRows(self._victims_by_node, self.host._row_of, self._bind_seq)
+
+    def _victims_index_full(self) -> dict[int, list[Victim]]:
+        """The full ``_bound`` scan the incremental index must equal (the
+        differential reference of the tests; never on the wave path)."""
+        victims_by_row: dict[int, list[Victim]] = {}
+        row_of = self.host._row_of
+        for key, rec in self._bound.items():
+            meta = self._bind_meta.get(key)
+            if meta is None:
+                prio, seq, tenant, gang = 0, 0, tenant_of_key(key), ""
+            else:
+                prio, seq, tenant, gang = meta
+            if gang:
+                continue
+            node_name = rec[0]
+            row = row_of.get(node_name)
+            if row is None:
+                continue
+            victims_by_row.setdefault(row, []).append(Victim(
+                key, node_name, row, rec[1], rec[2], prio, seq, tenant,
+            ))
+        return victims_by_row
+
+    def _try_preempt(self, p: PendingPod, victims_by_row: _VictimRows) -> bool:
+        """Preemption for a pod the wave found no feasible row for: select
+        victims (``tenancy/preempt.py``), evict them through the store CAS
+        and the dirty-row sync, bind the preemptor host-side on the
+        cleared node (a pure function of the host mirror, so the choice
+        replays) and requeue every victim.  True when the preemptor
+        bound."""
+        tn = self.tenancy
+        pod = p.ensure_pod()
+        tenant = tenant_of_pod(pod)
+        nodes = self._fallback_nodes()
+        if not nodes:
+            return False
+        host = self.host
+        usage = {
+            row: (int(host.cpu_req[row]), int(host.mem_req[row]), int(host.pods_req[row]))
+            for row, _ in nodes
+        }
+        choice = select_preemption(pod, tenant, p.priority, nodes, usage, victims_by_row)
+        if choice is None:
+            return False
+        if tn.policy.log_preemptions and len(self.preempt_log) < 1024:
+            self.preempt_log.append({
+                "pod": p.key_str,
+                "priority": p.priority,
+                "tenant": tenant,
+                "node": choice.node,
+                "row": choice.row,
+                "victims": [v.key for v in choice.victims],
+                "usage": {str(r): list(u) for r, u in usage.items()},
+                "candidates": {
+                    str(r): [dataclasses.astuple(v) for v in vs]
+                    for r, vs in victims_by_row.items()
+                },
+            })
+        for v in choice.victims:
+            evicted, rec = self._evict_bound(v.key)
+            if not evicted:
+                # A concurrent writer beat the eviction CAS: abort (the
+                # capacity already freed stays freed); the preemptor
+                # retries through the normal path.
+                return False
+            if rec is not None:
+                self.queue.append(rec)
+        if not self._bind(p, choice.node):
+            return False
+        _BIND_LATENCY.observe(time.perf_counter() - p.enqueued_at)
+        # The device never committed this bind: dirty the row and queue
+        # the count correction a device commit would have applied.
+        self._dirty_rows.add(choice.row)
+        if self.constraints is not None:
+            rec = self._bound.get(p.key_str)
+            if rec is not None and rec[5] is not None:
+                self._pending_adjusts.append((rec[5], rec[0], rec[3], rec[4], 1))
+        return True
+
+    def _wave_fail(self, p: PendingPod) -> None:
+        """Per-pod wave failure: gang members wait for the gang's
+        all-or-none settlement (_resolve_gangs); others retry."""
+        if self.tenancy is not None and p.gang_id:
+            return
+        self._retry(p)
+
+    def _resolve_gangs(self, batch_pods, bound_ok, rows, failed) -> int:
+        """All-or-none gang settlement at wave retire: a gang with every
+        member bound is admitted; any failure releases every provisional
+        bind (store CAS back to pending, host accounting undone, rows
+        dirty) and requeues the gang as a unit.  Returns the number of
+        reverted binds.
+
+        ``rows`` tells device-committed binds (row >= 0: the wave's count
+        commit rolls back through ``failed``) from host-side preemption
+        or fallback binds (row < 0: rolled back through the queued
+        adjusts)."""
+        if self.tenancy is None or not self.tenancy.policy.gang_enabled:
+            return 0
+        gangs: dict[str, list[int]] = {}
+        for i, p in enumerate(batch_pods):
+            if p.gang_id:
+                gangs.setdefault(p.gang_id, []).append(i)
+        reverted = 0
+        for idxs in gangs.values():
+            if all(bound_ok[i] for i in idxs):
+                note_gang("bound")
+                continue
+            members = []
+            for i in idxs:
+                p = batch_pods[i]
+                if bound_ok[i]:
+                    device_committed = bool(rows[i] >= 0)
+                    evicted, _rec = self._evict_bound(
+                        p.key_str, into=p, adjust=not device_committed,
+                        count_eviction=False,
+                    )
+                    if evicted:
+                        reverted += 1
+                        bound_ok[i] = False
+                        if device_committed:
+                            failed[i] = True
+                    elif p.key_str in self._bound:
+                        # The eviction CAS kept losing: the member stays
+                        # bound and out of the requeue.
+                        log.warning(
+                            "gang member %s could not be released (eviction CAS "
+                            "lost); leaving it bound", p.key_str,
+                        )
+                        continue
+                members.append(p)
+            self._requeue_gang(members)
+        return reverted
+
+    def _requeue_gang(self, members: list[PendingPod]) -> None:
+        """Requeue a failed gang as a unit: refresh every member from the
+        store (as _retry does), then park the whole gang unschedulable
+        (retry budget spent) or heap it for one shared backoff."""
+        alive: list[PendingPod] = []
+        for p in members:
+            p.attempts += 1
+            cur = self.store.get(p.key_bytes)
+            if cur is None:
+                self._queued_keys.discard(p.key_str)
+                continue
+            fresh = decode_pod(cur.value, self.tracker)
+            if fresh.node_name:
+                self._queued_keys.discard(p.key_str)
+                continue
+            p.pod = fresh
+            p.cpu_milli = fresh.cpu_milli
+            p.mem_kib = fresh.mem_kib
+            p.mod_revision = cur.mod_revision
+            p.raw = cur.value
+            p.priority = fresh.priority
+            alive.append(p)
+        if not alive:
+            return
+        pol = self.retry_policy
+        worst = max(p.attempts for p in alive)
+        if worst >= pol.max_attempts:
+            for p in alive:
+                _PODS_SCHEDULED.inc(outcome="unschedulable")
+                note_give_up("coordinator.bind")
+                self.unschedulable[p.key_str] = p.ensure_pod()
+                # Keys stay held: the eviction echo must not resurrect a
+                # parked member as a plain pod.
+                self._queued_keys.add(p.key_str)
+            note_gang("parked")
+            return
+        for p in alive:
+            _PODS_SCHEDULED.inc(outcome="retry")
+            note_retry("coordinator.bind")
+            self._queued_keys.add(p.key_str)
+        self._backoff_seq += 1
+        heapq.heappush(self._gang_parked, (
+            time.perf_counter() + pol.delay_for(worst, self._retry_rng),
+            self._backoff_seq, alive,
+        ))
+        note_gang("requeued")
+
     def _release_backoff(self) -> None:
-        """Move retrying pods whose backoff has expired into the queue."""
-        if not self._backoff:
+        """Move retrying pods (and whole parked gangs) whose backoff has
+        expired into the queue; gang members re-enter together."""
+        if not self._backoff and not self._gang_parked:
             return
         now = time.perf_counter()
         while self._backoff and self._backoff[0][0] <= now:
             _, _, p = heapq.heappop(self._backoff)
             self.queue.append(p)
+        while self._gang_parked and self._gang_parked[0][0] <= now:
+            _, _, members = heapq.heappop(self._gang_parked)
+            self.queue.extend(members)
 
     def backoff_wait_s(self) -> float | None:
-        """Seconds until the earliest parked retry is due (None when
-        nothing is backing off)."""
-        if not self._backoff:
+        """Seconds until the earliest parked retry (pod or gang) is due
+        (None when nothing is backing off)."""
+        heads = []
+        if self._backoff:
+            heads.append(self._backoff[0][0])
+        if self._gang_parked:
+            heads.append(self._gang_parked[0][0])
+        if not heads:
             return None
-        return max(0.0, self._backoff[0][0] - time.perf_counter())
+        return max(0.0, min(heads) - time.perf_counter())
 
     def _encoder_for(self, n: int) -> HotPodBatchHost:
         """Smallest power-of-two batch bucket from ``min_batch`` holding n
         pods (clamped to pod_spec.batch, which need not be a power of
         two); every bucket's encoder shares the one encode cache."""
         if not self.adaptive_batch:
+            return self.encoder
+        if self.loadshed is not None and self.loadshed.degraded:
+            # Overload widens the batch window: small buckets trade waves
+            # per pod for latency, the wrong trade while the queue is the
+            # problem.
             return self.encoder
         b = self.min_batch
         while b < n:
@@ -1092,8 +1738,22 @@ class Coordinator:
         self._release_backoff()
         if not self.queue:
             return None, None
-        n = min(len(self.queue), self.pod_spec.batch)
-        batch_pods = [self.queue.popleft() for _ in range(n)]
+        batch_pods: list[PendingPod] = []
+        cur_gang = ""
+        while self.queue and len(batch_pods) < self.pod_spec.batch:
+            head = self.queue[0]
+            if (
+                head.gang_id
+                and head.gang_id != cur_gang
+                and head.gang_size > self.pod_spec.batch - len(batch_pods)
+            ):
+                # A gang never splits across a batch: close this one and
+                # let the gang open the next wave whole.
+                break
+            cur_gang = head.gang_id
+            batch_pods.append(self.queue.popleft())
+        if not batch_pods:
+            return None, None
         for p in batch_pods:
             self._queued_keys.discard(p.key_str)
         with self._stage("encode"):
@@ -1108,6 +1768,15 @@ class Coordinator:
         i = self._window_i
         self._window_i += 1
         return sample_offset_for(i, self._window_nodes, rows)
+
+    def _active_knobs(self):
+        """(profile, sample_rows) of the next wave: the configured pair
+        when HEALTHY, the degraded pair while the controller reports
+        pressure."""
+        if self.loadshed is not None and self.loadshed.degraded:
+            self.loadshed.note_degraded_cycle()
+            return self._profile_degraded, self._sample_rows_degraded
+        return self.profile, self._sample_rows
 
     # ---- deltasched: plane-cached waves (engine/deltacache.py) ---------
 
@@ -1211,20 +1880,36 @@ class Coordinator:
 
     def _launch(self, batch_pods, batch) -> Wave:
         """Issue one wave for an encoded batch and start the copy of its
-        bind decision to the host (no wait for either)."""
+        bind decision to the host (no wait for either).
+
+        The faultline hook ``coordinator.cycle``/``dispatch`` fires first:
+        ``delay`` / ``slow_cycle`` lengthen the cycle, every failure kind
+        (``stall``) raises before any device work — no wave seed drawn,
+        no plane fill, no launch, no pinned copy, no event — so the
+        caller's breaker sees a clean dispatch failure with nothing to
+        roll back."""
         t_start = time.perf_counter()
+        if faultline.active_injector().plan.faults:
+            d = faultline.decide("coordinator.cycle", "dispatch")
+            if d is not None:
+                if d.kind in ("delay", "slow_cycle"):
+                    time.sleep(d.delay_s)
+                else:
+                    raise faultline.InjectedFault(d)
+        profile, sample_rows = self._active_knobs()
         self.key, subkey = prng_split(self.key)
         seed = seed_of(subkey)
-        sample_rows = self._sample_rows
         delta_plan = None
         if (
             self._delta is not None
             and sample_rows is None
             and self._row_mask_dev is None
+            and profile is self.profile
             and self.table is not None
         ):
-            # Only the full-scan shape reuses planes: sampled windows and
-            # masked views compute different planes than the cache holds.
+            # Only the full-scan shape reuses planes: sampled windows,
+            # degraded profiles and masked views compute different planes
+            # than the cache holds.
             delta_plan = self._plan_delta(batch_pods, batch)
         probe = None
         if self._donation_inplace is None:
@@ -1240,7 +1925,7 @@ class Coordinator:
             else:
                 _table, asg, rows_dev = schedule_batch_packed(
                     self.table, batch, seed,
-                    profile=self.profile, constraints=self.constraints,
+                    profile=profile, constraints=self.constraints,
                     chunk=self.chunk, k=self.k, backend=self.backend,
                     sample_rows=sample_rows,
                     sample_offset=self._next_window(sample_rows) if sample_rows else 0,
@@ -1274,6 +1959,174 @@ class Coordinator:
             copied=copied,
         )
 
+    def _loadshed_tick(self) -> None:
+        """Feed the health controller one cycle's signals (no-op without
+        one): after the intake drains, so the queue depth is current, and
+        before the batch is taken, so this wave runs in the state the
+        signals imply."""
+        ls = self.loadshed
+        if ls is None:
+            return
+        conflicts = _PODS_SCHEDULED.value(outcome="conflict")
+        resyncs = _RESYNCS.value()
+        ls.tick(Signals(
+            # Staged gang members are accepted demand too.
+            queue_depth=len(self.queue) + self._external_pending() + self._gang_staged(),
+            backoff_depth=len(self._backoff) + sum(len(m) for _, _, m in self._gang_parked),
+            conflicts=int(conflicts - self._sig_conflicts),
+            resyncs=int(resyncs - self._sig_resyncs),
+            cycle_s=self._last_cycle_s,
+        ))
+        self._sig_conflicts = conflicts
+        self._sig_resyncs = resyncs
+        if self.tenancy is not None:
+            # This cycle's admit budget is one wave of pods, split by
+            # weight over the tenants that offered load.
+            self.tenancy.admission.tick(capacity=self.pod_spec.batch)
+
+    def _requeue_front(self, batch_pods) -> None:
+        """Put an unlaunched batch back at the head of the queue (no
+        accounting exists to undo)."""
+        for p in reversed(batch_pods):
+            self._queued_keys.add(p.key_str)
+            self.queue.appendleft(p)
+
+    def _take_pods(self, n: int) -> list[PendingPod]:
+        """Pop up to ``n`` pending pods without encoding them: the
+        breaker-open fallback never touches the device."""
+        self._release_backoff()
+        pods: list[PendingPod] = []
+        cur_gang = ""
+        rotated: set[str] = set()
+        while self.queue and len(pods) < n:
+            head = self.queue[0]
+            if head.gang_id and head.gang_id != cur_gang and head.gang_size > n - len(pods):
+                if pods or head.gang_id in rotated:
+                    break
+                # A gang that can never fit this cap must not wedge the
+                # queue while the breaker is open: rotate it to the back
+                # intact (once per gang per call) and keep draining.
+                rotated.add(head.gang_id)
+                moved: list[PendingPod] = []
+                while self.queue and self.queue[0].gang_id == head.gang_id:
+                    moved.append(self.queue.popleft())
+                self.queue.extend(moved)
+                continue
+            cur_gang = head.gang_id
+            p = self.queue.popleft()
+            self._queued_keys.discard(p.key_str)
+            pods.append(p)
+        return pods
+
+    def _fallback_nodes(self) -> list:
+        """Decoded ``(row, NodeInfo)`` candidates of the oracle fallback
+        and of preemption, ascending row (earlier row wins ties, as on
+        the device).  Built from the incremental ``_node_infos`` index;
+        rows it has never seen (the bulk-ingest remainder) are seeded
+        from one store decode."""
+        if self._fallback_cache is not None and self._fallback_cache[0] == self._node_gen:
+            return self._fallback_cache[1]
+        row_of = self.host._row_of
+        infos = self._node_infos
+        missing = {name for name in row_of if name not in infos}
+        if missing:
+            kvs, _ = list_prefix(self.store, NODES_PREFIX)
+            for kv in kvs:
+                name = kv.key[len(NODES_PREFIX):].decode()
+                if name not in missing:
+                    continue
+                try:
+                    infos[name] = decode_node(kv.value)
+                except Exception:
+                    _DECODE_ERRORS.inc(kind="node")
+                    log.exception("undecodable node in fallback seed; skipping")
+        out = []
+        mask = self._row_mask_np
+        for name, row in row_of.items():
+            nd = infos.get(name)
+            if nd is None:
+                continue
+            if mask is not None and not mask[row]:
+                continue
+            out.append((row, nd))
+        out.sort(key=lambda t: t[0])
+        self._fallback_cache = (self._node_gen, out)
+        return out
+
+    def _fallback_nodes_full(self) -> list:
+        """The full store decode, uncached: the reference the incremental
+        ``_fallback_nodes`` index must equal (the tests' differential)."""
+        out = []
+        kvs, _ = list_prefix(self.store, NODES_PREFIX)
+        mask = self._row_mask_np
+        for kv in kvs:
+            try:
+                nd = decode_node(kv.value)
+            except Exception:
+                _DECODE_ERRORS.inc(kind="node")
+                log.exception("undecodable node in fallback list; skipping")
+                continue
+            row = self.host._row_of.get(nd.name)
+            if row is None:
+                continue
+            if mask is not None and not mask[row]:
+                continue
+            out.append((row, nd))
+        out.sort(key=lambda t: t[0])
+        return out
+
+    def _fallback_schedule(self, batch_pods) -> int:
+        """Breaker-open path: bind a small batch through the host oracle
+        (``oracle/``), so scheduling never fully stops.  Greedy and
+        sequential against the live host usage (argmax ``oracle_score``,
+        earlier row wins ties), a pure function of the pod order.  Pods
+        past ``fallback_batch`` go back to the queue head.  The device
+        never saw these binds: each bound row is marked dirty, so the
+        next sync uploads the host truth before any later wave reads the
+        table (the caller retired the pipeline first)."""
+        cap = self.breaker.config.fallback_batch if self.breaker is not None else len(batch_pods)
+        take = batch_pods[:cap]
+        self._requeue_front(batch_pods[len(take):])
+        nodes = self._fallback_nodes()
+        host = self.host
+        weights = (
+            self.profile.least_allocated, self.profile.balanced_allocation,
+            self.profile.taint_toleration, self.profile.node_affinity,
+        )
+        nbound = 0
+        bound_ok = np.zeros(len(take), bool)
+        with _CYCLE_TIME.time(stage="fallback"):
+            for pi, p in enumerate(take):
+                pod = p.ensure_pod()
+                best_row, best_score, best_name = -1, -1, None
+                for row, nd in nodes:
+                    req = (int(host.cpu_req[row]), int(host.mem_req[row]),
+                           int(host.pods_req[row]))
+                    if not oracle_feasible(nd, pod, req):
+                        continue
+                    sc = oracle_score(nd, pod, req, taint_slots=self.table_spec.taint_slots,
+                                      weights=weights)
+                    if sc > best_score:
+                        best_row, best_score, best_name = row, sc, nd.name
+                if best_name is None or not self._bind(p, best_name):
+                    self._wave_fail(p)
+                    continue
+                nbound += 1
+                bound_ok[pi] = True
+                FALLBACK_BINDS.inc()
+                _BIND_LATENCY.observe(time.perf_counter() - p.enqueued_at)
+                self._dirty_rows.add(best_row)
+                if self.constraints is not None:
+                    rec = self._bound.get(p.key_str)
+                    if rec is not None and rec[5] is not None:
+                        self._pending_adjusts.append((rec[5], rec[0], rec[3], rec[4], 1))
+            # Fallback binds are host-side: a gang releases through the
+            # queued adjusts.
+            nbound -= self._resolve_gangs(
+                take, bound_ok, np.full(len(take), -1, np.int64), np.zeros(len(take), bool),
+            )
+        return nbound
+
     def _complete(self, inflight: Wave) -> int:
         """Bind half: bring the bind decision to the host, CAS the binds
         back, roll back conflicts (CAS losses, rows tombstoned while the
@@ -1295,6 +2148,9 @@ class Coordinator:
 
         nbound = 0
         failed = np.zeros(batch.batch, bool)
+        # Per-pod settled outcome (True = the bind stuck), for the gang
+        # all-or-none settlement after the bind stage.
+        bound_ok = np.zeros(batch.batch, bool)
         host = self.host
         with self._stage("bind"):
             # One native call binds the whole wave (splice + CAS inside
@@ -1307,7 +2163,8 @@ class Coordinator:
                 # This wave's assumes are host-visible now: journal its
                 # bound rows so later delta waves recompute them.
                 self._delta.note_rows(rows[bound_idx])
-            # No-feasible-row pods retry AFTER this wave's binds land.
+            # No-feasible-row pods settle AFTER this wave's binds land in
+            # the host mirror: preemption's usage must include them.
             nofit = np.nonzero(rows < 0)[0].tolist()
             brows = rows[bound_idx]
             # Rows tombstoned while this wave was in flight: the node is
@@ -1319,7 +2176,7 @@ class Coordinator:
                 if not alive.all():
                     for i in bound_idx[~alive].tolist():
                         failed[i] = True
-                        self._retry(batch_pods[i])
+                        self._wave_fail(batch_pods[i])
                     bound_idx = bound_idx[alive]
                     brows = brows[alive]
             nbytes = self._node_name_bytes()
@@ -1331,15 +2188,26 @@ class Coordinator:
 
             wave_j: list[int] = []
             entries: list[tuple[bytes, int, bytes]] = []
+            # The hot path stays injection-free unless a plan is installed.
+            inj_active = bool(faultline.active_injector().plan.faults)
             for j, i in enumerate(bound_l):
                 p = batch_pods[i]
                 if p.mod_revision is not None:
+                    # One fault decision per CAS attempt: the native wave's
+                    # records are checked here, slow-path pods in _bind.
+                    if inj_active and self._bind_fault():
+                        # A forced conflict, accounted like a real one.
+                        self._dirty_rows.add(host.row_of(nbytes[ids_l[j]].decode()))
+                        failed[i] = True
+                        self._wave_fail(p)
+                        continue
                     wave_j.append(j)
                     entries.append((p.key_bytes, p.mod_revision, nbytes[ids_l[j]]))
                     continue
                 name = nbytes[ids_l[j]].decode()
                 if self._bind(p, name):
                     nbound += 1
+                    bound_ok[i] = True
                     _BIND_LATENCY.observe(time.perf_counter() - p.enqueued_at)
                     if brows_l[j] in self._midflight_rows:
                         self._dirty_rows.add(brows_l[j])
@@ -1349,7 +2217,7 @@ class Coordinator:
                 # truth; the count tables roll back below.
                 self._dirty_rows.add(host.row_of(name))
                 failed[i] = True
-                self._retry(p)
+                self._wave_fail(p)
             if entries:
                 results = (
                     self.store.bind_batch(entries, self._pods_watch.id)
@@ -1366,6 +2234,7 @@ class Coordinator:
                     i = bound_l[j]
                     p = batch_pods[i]
                     if rev > 0:
+                        bound_ok[i] = True
                         ok_rows.append(brows_l[j])
                         ok_cpu.append(p.cpu_milli)
                         ok_mem.append(p.mem_kib)
@@ -1375,14 +2244,31 @@ class Coordinator:
                             if p.pod is not None and self._constraintful(p.pod)
                             else None
                         )
+                        node_name = nv[ids_l[j]]
                         bound_dict[p.key_str] = (
-                            nv[ids_l[j]], p.cpu_milli, p.mem_kib,
+                            node_name, p.cpu_milli, p.mem_kib,
                             zones[j], regions[j], keep,
+                        )
+                        self._bind_seq += 1
+                        # A decoded PodInfo gives the label-aware tenant;
+                        # a fast-lane pod is label-less, so its namespace
+                        # is the tenant.
+                        tenant = (
+                            tenant_of_pod(p.pod) if p.pod is not None
+                            else tenant_of_key(p.key_str)
+                        )
+                        self._bind_meta[p.key_str] = (
+                            p.priority, self._bind_seq, tenant, p.gang_id,
+                        )
+                        self._victims_note(
+                            p.key_str, node_name, p.cpu_milli, p.mem_kib,
+                            p.priority, self._bind_seq, tenant, p.gang_id,
                         )
                         continue
                     name = nbytes[ids_l[j]].decode()
                     if rev == BIND_INVALID and self._bind(p, name):
                         nbound += 1
+                        bound_ok[i] = True
                         _BIND_LATENCY.observe(now - p.enqueued_at)
                         if brows_l[j] in self._midflight_rows:
                             self._dirty_rows.add(brows_l[j])
@@ -1391,7 +2277,7 @@ class Coordinator:
                         _PODS_SCHEDULED.inc(outcome="conflict")
                     self._dirty_rows.add(host.row_of(name))
                     failed[i] = True
-                    self._retry(p)
+                    self._wave_fail(p)
                 if ok_rows:
                     # Two pods on one node accumulate under np.add.at.
                     r = np.asarray(ok_rows, np.int32)
@@ -1407,8 +2293,23 @@ class Coordinator:
                         self._dirty_rows.update(
                             rr for rr in ok_rows if rr in self._midflight_rows
                         )
+            # Preemption pass, after every CAS bind above (the host mirror
+            # holds this wave's placements); the victims index is built at
+            # most once per wave.
+            vindex = None
             for i in nofit:
-                self._retry(batch_pods[i])
+                p = batch_pods[i]
+                if self._preempt_eligible(p):
+                    if vindex is None:
+                        vindex = self._victims_index()
+                    if self._try_preempt(p, vindex):
+                        bound_ok[i] = True
+                        nbound += 1
+                        continue
+                self._wave_fail(p)
+            # Gang all-or-none settlement before this retire returns; a
+            # released device-committed bind rides the rollback below.
+            nbound -= self._resolve_gangs(batch_pods, bound_ok, rows, failed)
         if failed.any() and self.constraints is not None:
             # Roll back the wave's optimistic count-table commit for the
             # pods whose bind did not stick.
@@ -1417,6 +2318,7 @@ class Coordinator:
                 self.constraints, commit_fields_np(batch.fields, self.device),
                 asg.node_row, asg.zone, asg.region, m, m, sign=-1,
             )
+        self._last_cycle_s = time.perf_counter() - inflight.t_start
         # This wave retired: rows removed at or before the oldest
         # still-in-flight wave's launch are past their aliasing hazard.
         if self._inflights:
@@ -1425,6 +2327,10 @@ class Coordinator:
             self.host.release_rows(None)
             self._midflight_rows.clear()
         self.depth_timer.set_level(len(self._inflights))
+        if self.breaker is not None:
+            # Success is a RETIRED wave (the card returned data), not an
+            # accepted launch.
+            self.breaker.record_success()
         return nbound
 
     def step(self) -> int:
@@ -1436,13 +2342,32 @@ class Coordinator:
         the host mirror ahead of the dirty-row upload the next launch
         reads.  Call ``flush()`` (or ``run_until_idle``) for the tail."""
         if not self.pipeline:
+            self._drain_external()
             self.drain_watches()
             self._sync_table()
             self._process_adjusts()
+            self._loadshed_tick()
+            if self.breaker is not None and self.breaker.state != BREAKER_CLOSED:
+                self._release_backoff()
+                if not self.queue:
+                    return 0
+                if not self.breaker.allow():
+                    # Open: bind a small slice through the oracle.
+                    return self._fallback_schedule(
+                        self._take_pods(self.breaker.config.fallback_batch))
+                # Half-open probe: a normal device wave.
             batch_pods, batch = self._take_batch()
             if batch_pods is None:
                 return 0
-            inflight = self._launch(batch_pods, batch)
+            try:
+                inflight = self._launch(batch_pods, batch)
+            except Exception:
+                if self.breaker is None:
+                    raise
+                log.exception("cycle dispatch failed; breaker accounting")
+                self.breaker.record_failure()
+                self._requeue_front(batch_pods)
+                return 0
             if self._feed is not None:
                 # Encode the NEXT batch while the retire below waits.
                 self._feed.stage(self.queue, self.pod_spec.batch)
@@ -1456,8 +2381,31 @@ class Coordinator:
                 self._nodes_watch.dropped, self._pods_watch.dropped,
             )
             self.resync()
+        elif self._watch_fault():
+            # Injected watch loss: retire the pipeline and relist.
+            done += self._quiesce("resync")
+            self.resync()
+        self._drain_external()
         self._drain_pod_events()
         self._drain_node_events()
+        self._loadshed_tick()
+        if self.breaker is not None and self.breaker.state != BREAKER_CLOSED:
+            # A tripped breaker retires the pipeline: no wave still in
+            # flight may land placements computed against the usage the
+            # oracle binds below change, and the half-open probe then
+            # launches at once.  The sync uploads what the retired waves
+            # and earlier fallback binds left dirty.
+            done += self._quiesce("breaker")
+            self._sync_table()
+            self._process_adjusts()
+            self._release_backoff()
+            if not self.queue:
+                return done
+            if not self.breaker.allow():
+                done += self._fallback_schedule(
+                    self._take_pods(self.breaker.config.fallback_batch))
+                return done
+            # Half-open probe: launched below through the normal path.
         batch_pods, batch = self._take_batch()
         if len(self._inflights) >= (self.depth if batch_pods else 1):
             done += self._complete(self._inflights.pop(0))
@@ -1466,7 +2414,16 @@ class Coordinator:
         self._sync_table()
         self._process_adjusts()
         if batch_pods is not None:
-            self._inflights.append(self._launch(batch_pods, batch))
+            try:
+                inflight = self._launch(batch_pods, batch)
+            except Exception:
+                if self.breaker is None:
+                    raise
+                log.exception("cycle dispatch failed; breaker accounting")
+                self.breaker.record_failure()
+                self._requeue_front(batch_pods)
+                return done
+            self._inflights.append(inflight)
             self.depth_timer.set_level(len(self._inflights))
             if self._feed is not None:
                 # Peek (never pop) the next full batch for the worker.
@@ -1496,6 +2453,8 @@ class Coordinator:
 
     def _bind(self, p: PendingPod, node_name: str) -> bool:
         """CAS spec.nodeName into the pod object; False on conflict."""
+        if self._bind_fault():
+            return False
         key = p.key_bytes
         if p.mod_revision is not None and p.raw is not None:
             # Splice nodeName into the intake-revision bytes; the CAS
@@ -1554,6 +2513,21 @@ class Coordinator:
         _PODS_SCHEDULED.inc(outcome="bound")
         return True
 
+    @staticmethod
+    def _bind_fault() -> bool:
+        """Faultline hook on the bind CAS (``coordinator.bind``/``cas``):
+        ``delay`` sleeps; every failure kind is a forced CAS conflict,
+        driving the pod through the conflict/requeue path.  True when the
+        bind must report a conflict."""
+        d = faultline.decide("coordinator.bind", "cas")
+        if d is None:
+            return False
+        if d.kind == "delay":
+            time.sleep(d.delay_s)
+            return False
+        _PODS_SCHEDULED.inc(outcome="conflict")
+        return True
+
     def _retry(self, p: PendingPod) -> None:
         p.attempts += 1
         pol = self.retry_policy
@@ -1577,6 +2551,7 @@ class Coordinator:
         p.cpu_milli = fresh.cpu_milli
         p.mem_kib = fresh.mem_kib
         p.key_str = fresh.key
+        p.priority = fresh.priority
         p.mod_revision = cur.mod_revision
         # Refresh the splice source too: stale bytes at the new revision
         # would CAS the old body back in.
@@ -1602,13 +2577,13 @@ class Coordinator:
         for _ in range(max_cycles):
             total += self.step()
             if not self.queue and not self._inflights:
-                if self._backoff:
+                if self._backoff or self._gang_parked:
                     # Retrying pods are on a timer: wait out the earliest.
                     time.sleep(min(self.backoff_wait_s() or 0.0, 0.05))
                     idle = 0
                     continue
                 idle += 1
-                if idle > 1 and self.drain_watches() == 0:
+                if idle > 1 and self.drain_watches() == 0 and not self._external_pending():
                     break
             else:
                 idle = 0

@@ -1,9 +1,10 @@
 """Plugin profile and the plain filter+score pass.
 
 Port of ``k8s1m_tpu/plugins/registry.py``: ``Profile`` (upstream default
-weights; 0 disables a plugin), ``default_profile`` and ``score_and_filter``,
-the JAX package's XLA-path filter+score over one node chunk — what the
-deltasched planes hold (``engine/deltacache.py``).
+weights; 0 disables a plugin), ``default_profile``, ``degraded_profile``
+(the overload mode's plugin set) and ``score_and_filter``, the JAX
+package's XLA-path filter+score over one node chunk — what the deltasched
+planes hold (``engine/deltacache.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +40,14 @@ class Profile:
 
 def default_profile() -> Profile:
     return Profile()
+
+
+def degraded_profile(profile: Profile) -> Profile:
+    """``profile`` with the constraint *scoring* dropped: PodTopologySpread
+    and InterPodAffinity become filter-only (their hard constraints still
+    mask).  The overload degraded mode's plugin set (``loadshed/``):
+    placement quality is traded for cycle time, feasibility never is."""
+    return dataclasses.replace(profile, topology_spread=0, interpod_affinity=0)
 
 
 def score_and_filter(table, batch, profile: Profile, constraints=None, stats=None,

@@ -26,13 +26,15 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
+import weakref
 
 import numpy as np
 import torch
 
 from k8s1m_tpu_torch.config import EFFECT_NO_SCHEDULE, NONE_ID, TableSpec
 from k8s1m_tpu_torch.device import resolve_device, to_tensor
-from k8s1m_tpu_torch.obs.metrics import Counter
+from k8s1m_tpu_torch.obs.metrics import Counter, Gauge
 from k8s1m_tpu_torch.snapshot.interning import Vocab, numeric_of
 
 _BULK_ROWS = Counter(
@@ -40,6 +42,24 @@ _BULK_ROWS = Counter(
     "Node rows ingested through the vectorized bulk lane "
     "(NodeTableHost.bulk_upsert / snapshot.bulkload)", (),
 )
+_MIRROR_BYTES = Gauge(
+    "megarow_host_mirror_bytes",
+    "Host-mirror column bytes across live NodeTableHost instances "
+    "(the int16/int8 mirror-width rule's budget gauge)", (),
+)
+_LIVE_HOSTS: weakref.WeakSet = weakref.WeakSet()
+# A read of the gauge may run while another thread constructs a
+# NodeTableHost; iterating a WeakSet concurrently with add() raises, so
+# both sides hold this lock.
+_HOSTS_LOCK = threading.Lock()
+
+
+def _mirror_bytes_total() -> int:
+    with _HOSTS_LOCK:
+        return sum(h.mirror_nbytes() for h in _LIVE_HOSTS)
+
+
+_MIRROR_BYTES.set_function(_mirror_bytes_total)
 
 
 def mirror_dtype(bound: int) -> np.dtype:
@@ -197,10 +217,13 @@ class NodeTableHost:
         # consumer owns draining it (enable_row_journal returns the list;
         # clear after consuming).
         self._row_journal: list[tuple[str, int, bool]] | None = None
+        with _HOSTS_LOCK:
+            _LIVE_HOSTS.add(self)
 
     def mirror_nbytes(self) -> int:
-        """Total bytes held by the mirror's column arrays (excludes the
-        row mapping and vocab, which are Python dicts)."""
+        """Total bytes held by the mirror's column arrays (the
+        ``megarow_host_mirror_bytes`` gauge; excludes the row mapping and
+        vocab, which are Python dicts)."""
         return sum(getattr(self, c).nbytes for c in COLUMNS)
 
     def enable_row_journal(self) -> list[tuple[str, int, bool]]:

@@ -40,9 +40,10 @@ tool's keys for the lanes the port has, plus the port's own: the device,
 ``stage_means_ms`` of ``coordinator_cycle_seconds{stage}``, waves by path
 (full / delta), and the kernel launches in the window (0 on the CPU,
 where the wrappers run their plain versions), the fused kernel's also by
-stage.  The JAX tool's remote store, stress watchers, mesh, tracing,
-profiler and fault plans are not part of the port; their flags are
-unknown here.  With nothing to compile, ``--churn`` skips the JAX tool's
+stage.  ``--fault-plan`` installs a faultline plan (inline JSON, ``@path``
+or a named plan) for the run; the injected-fault and retry counts land in
+the report.  The JAX tool's remote store, stress watchers, mesh, tracing
+and profiler are not part of the port; their flags are unknown here.  With nothing to compile, ``--churn`` skips the JAX tool's
 warm-up wave of 4096 throwaway pods.
 """
 
@@ -58,6 +59,7 @@ import time
 
 import numpy as np
 
+from k8s1m_tpu_torch import faultline
 from k8s1m_tpu_torch.config import PodSpec, TableSpec
 from k8s1m_tpu_torch.control.coordinator import OVERLAP_STAGES, Coordinator
 from k8s1m_tpu_torch.control.objects import encode_node, encode_pod, node_key, pod_key
@@ -152,6 +154,11 @@ def parse_args(argv=None):
     ap.add_argument("--kernel-profile", action="store_true",
                     help="after the window, time the plugin-knockout variants of "
                     "the candidate step over the live table (tools/kernel_probe.py)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="faultline plan: inline JSON, @path or a named plan "
+                    "(deterministic drop/delay/disconnect/conflict injection at the "
+                    "coordinator's bind, watch and dispatch hooks); the injected-fault "
+                    "and retry counts land in the report")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--out", default=None, metavar="PATH",
                     help="also write the report JSON to PATH")
@@ -618,6 +625,19 @@ def _closed_window(args, coord, store, values, keys, key_strs):
     return bound, deleted, seconds, win
 
 
+def _resilience_detail() -> dict:
+    """Injected-fault and retry evidence (empty when no plan fired)."""
+    fired = faultline.active_injector().fire_counts()
+    if not fired:
+        return {}
+    return {
+        "faults_injected": fired,
+        "retry_attempts": faultline.retry_counts(),
+        "give_ups": faultline.give_up_counts(),
+        "recovery": faultline.recovery_stats(),
+    }
+
+
 def run(args, **coord_kw):
     """Drive the bench; returns (report, coordinator, store).  The store
     and the coordinator stay open for the caller's checks
@@ -627,6 +647,8 @@ def run(args, **coord_kw):
     args.backend = resolve_backend(args.backend, device)
     if args.chunk is None:
         args.chunk = (1 << 12) if args.backend == "pallas" else (1 << 14)
+    if args.fault_plan:
+        faultline.install_plan(faultline.FaultPlan.from_arg(args.fault_plan))
 
     store = MemStore()
     t0 = time.perf_counter()
@@ -701,6 +723,7 @@ def run(args, **coord_kw):
         **win.delta_profile(args.delta_profile, coord),
         **_device_state_detail(coord),
         **_kernel_profile_detail(args, coord),
+        **_resilience_detail(),
     }
     if args.rate:
         q = quantile_report_ms(lat)
@@ -742,7 +765,11 @@ def run(args, **coord_kw):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    report, coord, store = run(args)
+    try:
+        report, coord, store = run(args)
+    finally:
+        if args.fault_plan:
+            faultline.install_plan(None)
     coord.close()
     store.close()
     print(json.dumps(report), flush=True)

@@ -305,7 +305,7 @@ def test_row_mask_half(pair_factory, pipeline):
 
 def test_unported_options_raise():
     with tnative.MemStore() as store:
-        for kw in (dict(mesh="2x4"), dict(tracer=object()), dict(loadshed=object())):
+        for kw in (dict(mesh="2x4"), dict(tracer=object()), dict(fence=object())):
             with pytest.raises(NotImplementedError):
                 Coordinator(store, TableSpec(max_nodes=N), PodSpec(batch=64),
                             Profile(**BASE), chunk=512, device="cpu", **kw)

@@ -705,3 +705,77 @@ def test_coordinator_on_card_equals_cpu(cuda, slow_card, path):
         assert launches["fused_topk_by_stage"]["aff"] > 0
     else:
         assert launches["delta_plane_topk" if path == "delta" else "fused_topk"] > 0
+
+
+def _breaker_stored(device):
+    """A pipelined coordinator (depth 3, packed, zero-delay retries) over
+    4,096 KWOK nodes with a ``CircuitBreaker``; a ``stall`` plan fails two
+    launches, the open-state wave binds 16 pods through the host oracle,
+    the half-open probe closes it.  Returns (stored pod values, host and
+    device request columns, fallback binds, fused launches by stage)."""
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
+    from k8s1m_tpu_torch.control.objects import encode_node, encode_pod, node_key, pod_key
+    from k8s1m_tpu_torch.faultline import FaultPlan, FaultSpec, RetryPolicy, install_plan
+    from k8s1m_tpu_torch.loadshed import CLOSED, BreakerConfig, CircuitBreaker
+    from k8s1m_tpu_torch.obs.metrics import REGISTRY
+    from k8s1m_tpu_torch.ops import fused_topk as ft
+    from k8s1m_tpu_torch.store.native import MemStore, list_prefix
+    from k8s1m_tpu_torch.tools.make_nodes import build_node
+
+    store = MemStore()
+    store.put_batch([(node_key(f"kwok-node-{i}"), encode_node(build_node(i)))
+                     for i in range(4096)])
+    br = CircuitBreaker(BreakerConfig(failure_threshold=2, cooldown_cycles=2,
+                                      fallback_batch=16), component=f"gpu-test-{device}")
+    coord = Coordinator(store, TableSpec(max_nodes=4096), PodSpec(batch=256), BASE,
+                        chunk=1024, with_constraints=False, pipeline=True, depth=3,
+                        packing="packed", breaker=br, device=device,
+                        retry_policy=RetryPolicy("coordinator.bind", base_delay_s=0.0,
+                                                 jitter=0.0))
+    fb = REGISTRY.get("breaker_fallback_binds_total")
+    try:
+        coord.bootstrap()
+        ft.reset_launches()
+        fb0 = fb.value()
+        for w in range(6):
+            store.put_batch([(pod_key("default", f"b{w}-{i}"),
+                              encode_pod(PodInfo(f"b{w}-{i}", cpu_milli=50 + i % 5,
+                                                 mem_kib=1 << 12)))
+                             for i in range(256)])
+            if w == 1:
+                install_plan(FaultPlan([FaultSpec("coordinator.cycle", "dispatch",
+                                                  kind="stall", every_n=1, max_fires=2)]))
+            coord.step()
+        install_plan(None)
+        while br.state != CLOSED:
+            coord.step()
+        coord.run_until_idle()
+        coord.flush()
+        kvs, _rev = list_prefix(store, b"/registry/pods/")
+        req = {c: getattr(coord.host, c).copy() for c in ("cpu_req", "mem_req", "pods_req")}
+        dev = {c: getattr(coord.table, c).cpu().numpy() for c in req}
+        return ({kv.key: kv.value for kv in kvs}, req, dev, fb.value() - fb0,
+                dict(ft.fused_topk.launches_by_stage))
+    finally:
+        install_plan(None)
+        coord.close()
+        store.close()
+
+
+@pytest.mark.gpu
+def test_breaker_fallback_on_card_equals_cpu(cuda, slow_card):
+    """The breaker-open oracle fallback between device waves: the pipeline
+    is retired before the oracle binds and the fallback rows reach the
+    card only through the dirty-row sync, so the card run leaves the same
+    stored pods as the CPU run, and its device request columns equal the
+    host mirror (a wave still in flight, or a fallback bind that skipped
+    the sync, would double-book a row on the card only)."""
+    got, req, dev, fallback, stages = _breaker_stored("cuda")
+    want, want_req, _dev, want_fallback, _stages = _breaker_stored("cpu")
+    assert fallback == want_fallback == 16
+    assert got == want and len(got) == 6 * 256
+    assert all(b'"nodeName"' in v for v in got.values())
+    for c in req:
+        np.testing.assert_array_equal(req[c], want_req[c])
+        np.testing.assert_array_equal(dev[c], req[c])
+    assert stages["base"] > 0

@@ -186,11 +186,12 @@ def test_offered_pods_at_steps_the_rate():
         100, 200, 600, 700]
     with pytest.raises(SystemExit):
         sched_bench.parse_args(["--overload-at", "2"])
-    # The JAX tool's remote, mesh, tracing and fault-plan flags are unknown.
-    for flag in ("--target", "--mesh", "--trace", "--profile", "--fault-plan",
-                 "--stress-watchers"):
+    # The JAX tool's remote, mesh and tracing flags are unknown; its
+    # fault-plan flag is the port's too.
+    for flag in ("--target", "--mesh", "--trace", "--profile", "--stress-watchers"):
         with pytest.raises(SystemExit):
             sched_bench.parse_args([flag, "1"])
+    assert sched_bench.parse_args(["--fault-plan", "watchstorm"]).fault_plan == "watchstorm"
 
 
 def test_write_nodes_writes_encode_node_bytes():
