@@ -14,8 +14,11 @@ per-shape planes covering the whole table (path C: ``bench.py
 then the host coordinator (store -> watch -> wave -> CAS bind) through its
 entry point ``tools/sched_bench.py`` (phase 8: the closed loop, template
 pods under node churn, constraints, a paced offered load),
-``tools/kernel_probe.py`` (phase 9) and ``tools/megarow_drill.py``, the
-headline run with overload control, fault injection and tenancy (phase 10).
+``tools/kernel_probe.py`` (phase 9), ``tools/megarow_drill.py``, the
+headline run with overload control, fault injection and tenancy (phase
+10), per-pod tracing with the flight recorder and the profiler (11), the
+admission webhook (12), the overload and tenantfair drills (13),
+``tools/hostpath_bench.py`` (14) and ``tools/latency_curve.py`` (15).
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device  — the card's name, and its name and power limit as
@@ -93,19 +96,19 @@ Phases (each raises on failure; the script then exits non-zero):
                0.9 --seed 3``) on the card and the CPU; and D4's constraint
                construction on the card and the CPU;
   8. coordinator — at 1,048,576 nodes, packed: D1 (``sched_bench --batch
-               4096 --depth 2 --score-pct 5``, 65,536 pods, the fused kernel
+               4096 --depth 2 --score-pct 5``, 32,768 pods, the fused kernel
                on every wave, with ``--encode-profile --delta-profile
                --stats --kernel-profile`` and the knock-out variants over the
-               live table on both backends), D2 (the megarow shape:
+               live table on both backends), D2 (16,384 pods at the megarow shape:
                ``--batch 512 --depth 3 --score-pct 100 --deltacache on
                --delta-index-k 64 --stratum-bits 15``, the delta kernel on
                the delta waves), D3 (D1 with ``--shape-pool 8 --shape-share
-               0.9 --seed 3 --node-churn 4000``: the ``aff`` stage, the sync
+               0.9 --seed 3 --node-churn 4000``, 16,384 pods: the ``aff`` stage, the sync
                stage, no structural or resync quiesce), D4 (path B through a
-               ``Coordinator(with_constraints=True)``: 8 waves of 2048 spread
+               ``Coordinator(with_constraints=True)``: 4 waves of 2048 spread
                + 2048 anti pods, the ``cons`` stage, no node holding anti
                pods of two waves, the count tables equal to a host recount
-               from the stored binds) and D5 (D1 at ``--rate 2000``, 32,768 pods:
+               from the stored binds) and D5 (D1 at ``--rate 2000``, 16,384 pods:
                p50/p95/p99 schedule-to-bind, adaptive quiesces).  Each pod
                is bound exactly once in the store, the device request
                columns (D3: and allocatable columns) equal the host mirror
@@ -137,16 +140,52 @@ Phases (each raises on failure; the script then exits non-zero):
                a ``CircuitBreaker``; the fallback binds equal the oracle's
                argmax over the host mirror, the breaker walks CLOSED -> OPEN
                -> HALF_OPEN -> CLOSED, and after ``flush`` the device request
-               columns equal the host mirror, no node over its allocatable.
+               columns equal the host mirror, no node over its allocatable;
+  11. tracing — ``sched_bench`` at D1's shape with 16,384 pods, ``--trace
+               16 --trace-out chiprun_out/trace_d1.json --profile
+               chiprun_out/profile_d1.json`` and a ``FlightRecorder`` below
+               one cycle: the Perfetto export validates, attribution covers
+               >= 95% of schedule-to-bind, the stages include queue_wait,
+               encode, dispatch_wait, device and bind, every pod bound once,
+               8 flight dumps (``max_dumps``) written and the rest
+               suppressed, 1-8 slow-cycle profile dumps; prints per-stage
+               p50/p99 and shares and the profiler's top 10 host frames (not
+               gated);
+  11a. tracing does not move placement — 8a's uniform card run again with
+               ``--trace 1``: stored pod values byte-identical;
+  12. webhook intake — a ``Coordinator`` at D1's shape behind
+               ``WebhookServer(coord.submit_external)``: one client thread
+               POSTs 16,384 AdmissionReviews in waves of 4,096, storing each
+               wave after its admission; every answer 200 and allowed, every
+               pod bound exactly once, no second bind from the watch intake.
+               Prints POSTs/s, binds/s, schedule-to-bind p50/p99;
+  12a. webhook parity — at 65,536 nodes a ``HealthController`` as the
+               server's controller and the coordinator's loadshed, a burst
+               that drives it to SHEDDING, on the card and the CPU: the same
+               status sequence, the same Retry-After values, byte-identical
+               stored pods, no shed pod bound;
+  13. drills — ``overload_drill`` and ``tenantfair_drill`` at their default
+               shapes on the card and with ``--device cpu``: both pass, and
+               the evidence is equal without the ``device`` key (no key of
+               either drill holds a host timing);
+  14. hostpath — ``hostpath_bench --nodes 1048576 --no-cycle``: the
+               encode gate (>= 3x) and byte-identical encodes; the fused
+               kernel's refusal of the tool's query table (past its 16
+               keys) is checked at ``--smoke``;
+  15. latency curve — ``latency_curve --nodes 1048576 --rates
+               2000,4000,8000 --seconds 4 --min-pods 8192``: a row per point,
+               the 2,000/s point (below D1's knee) within 5% of its offered
+               rate.
 Phases 5 and 6 print the same group and bound figures as phase 4.  The
 next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
 stage configuration and one for the delta kernel: times, bound, launches;
 the fused entries add ``bound_per_pair_ms``, ``groups`` and
 ``all_distinct_ms``; ``launches`` includes the coordinator's of phases 8
-and 10, which ``coordinator_launches`` also gives alone, per fused stage);
+and 10-15, which ``coordinator_launches`` also gives alone, per fused
+stage);
 the last is ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py [--steps 4] [--path-steps 3] [--delta-steps 2] [--warmup 2]
+    python3 chip_smoke.py [--steps 4] [--path-steps 3] [--delta-steps 2] [--warmup 1]
                           [--out results.json] [--worst-case-only]
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
@@ -1455,10 +1494,12 @@ def _delta_wave_checks(tag, layout, i, pre, table, asg, rows, planes, packed, se
 
 # ---- phase 8: the coordinator (store -> watch -> wave -> CAS bind) -----------
 
-COORD_PODS = 65536
+# Cut to make room for phases 11-15: D1 from 65,536 pods to 32,768, D2
+# and D3 to 16,384, D4 from 8 waves to 4, D5 from 32,768 pods to 16,384.
+COORD_PODS = {"D1": 32768, "D2": 16384, "D3": 16384}
 PARITY_NODES, PARITY_PODS = 65536, 16384
-D4_WAVES, D4_PER = 8, 2048          # 8 waves of 2048 spread + 2048 anti pods
-D5_RATE, D5_PODS = 2000, 32768
+D4_WAVES, D4_PER = 4, 2048          # 4 waves of 2048 spread + 2048 anti pods
+D5_RATE, D5_PODS = 2000, 16384
 SHAPE_POOL = dict(shape_pool=8, shape_share=0.9, seed=3)
 # Zero-delay, zero-jitter retries: a retried pod's next wave does not
 # depend on the clock, so a card run and a CPU run see the same waves.
@@ -1652,13 +1693,15 @@ def _constraint_run(device: str, *, nodes: int, waves: int, per: int, **coord_kw
     return report, coord, store
 
 
-def phase_coordinator_parity() -> dict:
+def phase_coordinator_parity() -> tuple[dict, dict]:
     """8a: three groups of the same run, each at 65,536 nodes x 16,384
     pods, 5% window, packed, chunk 4096, zero-delay retries — uniform pods
     on the card's kernels, on the card's scan path (``backend="xla"``) and
     on the CPU; template pods (``--shape-pool 8 --shape-share 0.9 --seed
     3``) on the card and the CPU; D4's constraint construction on the card
-    and the CPU.  Each group must leave byte-identical pod values."""
+    and the CPU.  Each group must leave byte-identical pod values.  Returns
+    the reports and the uniform card run's stored pod values (11a's
+    untraced run)."""
     from k8s1m_tpu_torch.faultline import RetryPolicy
     from k8s1m_tpu_torch.tools import sched_bench
 
@@ -1698,7 +1741,9 @@ def phase_coordinator_parity() -> dict:
         log(f"[8a] {group}: " + ", ".join(f"{t} ({s:.1f}s)" for t, _st, _r, s in runs)
             + f" left byte-identical pod values ({len(runs[0][1])} pods)")
         out[group] = {tag: rep for tag, _st, rep, _s in runs}
-    return out
+        if group == "uniform":
+            untraced = runs[0][1]
+    return out, untraced
 
 
 def _log_report(config: str, report: dict, t0: float) -> None:
@@ -1728,7 +1773,7 @@ def phase_coordinator(config: str) -> dict:
     from k8s1m_tpu_torch.tools import sched_bench
     from k8s1m_tpu_torch.tools.kernel_probe import profile_stages
 
-    over = dict(nodes=NODES, pods=COORD_PODS, packing="packed")
+    over = dict(nodes=NODES, pods=COORD_PODS.get(config), packing="packed")
     d1 = dict(batch=BATCH, depth=2, score_pct=SCORE_PCT)
     if config == "D1":
         over.update(d1, encode_profile=True, delta_profile=True, stats=True,
@@ -2157,6 +2202,533 @@ def phase_breaker(device: str = "cuda") -> dict:
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
+# ---- phases 11-15: tracing, the webhook, the drills, hostpath, the curve ------
+
+OUT_DIR = "chiprun_out"
+TRACE_PODS, TRACE_SAMPLE = 16384, 16
+# Below one D1 cycle (hundreds of ms): every cycle dumps until the budget
+# is spent.
+FLIGHT_THRESHOLD_S, FLIGHT_MAX_DUMPS = 0.001, 8
+TRACE_STAGES = {"queue_wait", "encode", "dispatch_wait", "device", "bind"}
+WEBHOOK_PODS, WEBHOOK_WAVE = 16384, 4096
+# 12a: 256-pod waves; 3 rounds of 768 POSTs drive the controller to
+# SHEDDING (from the second round), then 2 rounds of 64.
+HOOK_PARITY_BATCH = 256
+HOOK_PARITY_ROUNDS = (768,) * 3 + (64,) * 2
+# D1 saturated near 5,700 binds/s on the H100 (PERF.md): 2,000 sits below
+# the knee (the gated point), 4,000 near it, 8,000 above it.
+CURVE_RATES, CURVE_SECONDS, CURVE_MIN_PODS = (2000, 4000, 8000), 4.0, 8192
+CURVE_BELOW_KNEE = (2000,)
+# Keys of the drills' evidence that differ between the card and the CPU by
+# design; no key of either drill holds a host timing (both run on a
+# virtual clock of scheduling ticks).
+DRILL_DEVICE_KEYS = ("device",)
+
+
+def _launch_counts() -> dict:
+    from k8s1m_tpu_torch.ops import delta_topk, fused_topk
+
+    return {"fused_topk": fused_topk.fused_topk.launches,
+            "delta_plane_topk": delta_topk.delta_plane_topk.launches,
+            "fused_topk_by_stage": dict(fused_topk.fused_topk.launches_by_stage)}
+
+
+def _reset_launches() -> None:
+    from k8s1m_tpu_torch.ops import delta_topk, fused_topk
+
+    fused_topk.reset_launches()
+    delta_topk.reset_launches()
+
+
+def _d1_over(**extra) -> dict:
+    return dict(nodes=NODES, packing="packed", batch=BATCH, depth=2, score_pct=SCORE_PCT,
+                **extra)
+
+
+def phase_trace() -> dict:
+    """11: ``sched_bench.run`` at D1's shape with 16,384 pods, ``--trace 16
+    --trace-out --profile`` and a ``FlightRecorder`` whose threshold is
+    below one cycle: the Perfetto export validates, attribution covers >=
+    95% of schedule-to-bind, the stages include queue_wait, encode,
+    dispatch_wait, device and bind, every pod is bound once; the flight
+    dumps (slow cycles and slow traced pods) and the slow-cycle profile
+    dumps stop at ``max_dumps``, the rest counted as suppressed; the
+    profiler's top host functions are printed (not gated)."""
+    from k8s1m_tpu_torch.obs.metrics import REGISTRY
+    from k8s1m_tpu_torch.obs.podtrace import validate_trace
+    from k8s1m_tpu_torch.obs.trace import FlightRecorder
+    from k8s1m_tpu_torch.tools import sched_bench
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    trace_out = os.path.join(OUT_DIR, "trace_d1.json")
+    prof_out = os.path.join(OUT_DIR, "profile_d1.json")
+    flight_dir = os.path.join(OUT_DIR, "flight_d1")
+    os.makedirs(flight_dir, exist_ok=True)
+    for name in os.listdir(flight_dir):
+        os.remove(os.path.join(flight_dir, name))
+    dumps = REGISTRY.get("flight_dumps_total")
+    base = {o: dumps.value(outcome=o) for o in ("written", "suppressed", "error")}
+    flight = FlightRecorder(threshold_s=FLIGHT_THRESHOLD_S, dump_dir=flight_dir,
+                            max_dumps=FLIGHT_MAX_DUMPS)
+    t0 = time.perf_counter()
+    report, coord, store = sched_bench.run(_bench_args(**_d1_over(
+        pods=TRACE_PODS, trace=TRACE_SAMPLE, trace_out=trace_out, profile=prof_out)),
+        flight_recorder=flight)
+    d = report["detail"]
+    _coordinator_checks("11", report, coord, store, TRACE_PODS)
+    coord.close()
+    store.close()
+    check(d["launches"]["fused_topk_by_stage"]["base"] > 0, "[11] no fused base-stage launch")
+    att = d["latency_attribution"]
+    with open(trace_out) as f:
+        errs = validate_trace(json.load(f))
+    check(errs == [], f"[11] the Perfetto export does not validate: {errs[:5]}")
+    check(att["coverage"] >= 0.95, f"[11] attribution covers {att['coverage']} < 0.95")
+    check(TRACE_STAGES <= set(att["stages"]), f"[11] stages {sorted(att['stages'])}")
+    _log_report("11", report, t0)
+    log(f"[11] traced {att['pods']} pods (1 in {att['sample_n']}), coverage "
+        f"{att['coverage']}, end to end p50 {att['end_to_end']['p50_ms']} ms p99 "
+        f"{att['end_to_end']['p99_ms']} ms; per stage p50 / p99 ms, share: " + "; ".join(
+            f"{s} {v['p50_ms']} / {v['p99_ms']}, {v['share']}"
+            for s, v in att["stages"].items()))
+    with open(prof_out) as f:
+        prof = json.load(f)
+    log(f"[11] profiler: {prof['thread_samples']} thread samples over {prof['wall_s']} s; "
+        f"top 10 self-time frames (% of thread samples): " + "; ".join(
+            f"{r['frame']} {r['pct']}" for r in prof["top_self"][:10]))
+    files = os.listdir(flight_dir)
+    flights = [f for f in files if f.startswith("flight-")]
+    profiles = [f for f in files if f.startswith("profile-slowcycle-")]
+    out = {o: dumps.value(outcome=o) - base[o] for o in base}
+    check(len(flights) == out["written"] == FLIGHT_MAX_DUMPS,
+          f"[11] {len(flights)} flight dumps, {out['written']} written, budget "
+          f"{FLIGHT_MAX_DUMPS}")
+    check(out["suppressed"] > 0 and out["error"] == 0, f"[11] flight dump outcomes {out}")
+    check(1 <= len(profiles) <= FLIGHT_MAX_DUMPS,
+          f"[11] {len(profiles)} slow-cycle profile dumps, budget {FLIGHT_MAX_DUMPS}")
+    slow_pods = 0
+    for name in flights:
+        with open(os.path.join(flight_dir, name)) as f:
+            doc = json.load(f)
+        if "pod" in doc:
+            slow_pods += 1
+            check("device" in [s["stage"] for s in doc["pod_spans"]],
+                  f"[11] slow-pod dump {name} has no device span")
+    log(f"[11] flight recorder below one cycle ({FLIGHT_THRESHOLD_S * 1e3} ms): "
+        f"{len(flights)} dumps written ({slow_pods} slow-pod dumps with span chains), "
+        f"{int(out['suppressed'])} suppressed past max_dumps={FLIGHT_MAX_DUMPS}, "
+        f"{len(profiles)} slow-cycle profile dumps ({time.perf_counter() - t0:.1f}s)")
+    return {"report": report, "flight": {"written": len(flights), "slow_pod_dumps": slow_pods,
+                                         "suppressed": out["suppressed"],
+                                         "profile_dumps": len(profiles)},
+            "profile_top": prof["top_self"][:10], "launches": d["launches"],
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def _sum_launches(*runs) -> dict:
+    return {
+        "fused_topk": sum(r["fused_topk"] for r in runs),
+        "delta_plane_topk": sum(r.get("delta_plane_topk", 0) for r in runs),
+        "fused_topk_by_stage": {
+            s: sum(r["fused_topk_by_stage"][s] for r in runs)
+            for s in runs[0]["fused_topk_by_stage"]},
+    }
+
+
+def phase_trace_parity(untraced: dict) -> dict:
+    """11a: 8a's uniform card run (65,536 nodes x 16,384 pods, chunk 4096,
+    zero-delay retries, no tracer) again with ``--trace 1``: the stored pod
+    values must equal the untraced run's byte for byte."""
+    from k8s1m_tpu_torch.faultline import RetryPolicy
+    from k8s1m_tpu_torch.tools import sched_bench
+
+    t0 = time.perf_counter()
+    report, coord, store = sched_bench.run(_bench_args(
+        nodes=PARITY_NODES, pods=PARITY_PODS, score_pct=SCORE_PCT, packing="packed",
+        chunk=CHUNK, trace=1), retry_policy=RetryPolicy(**_ZERO_DELAY))
+    stored = _coordinator_checks("11a", report, coord, store, PARITY_PODS)
+    coord.close()
+    store.close()
+    d = report["detail"]
+    check(stored == untraced, "[11a] tracing moved placement: stored pod values differ from "
+          "8a's untraced card run")
+    att = d["latency_attribution"]
+    check(att["coverage"] >= 0.95, f"[11a] coverage {att['coverage']}")
+    log(f"[11a] {PARITY_NODES:,} nodes x {PARITY_PODS:,} pods with --trace 1 on the card: "
+        f"stored pods byte-identical to 8a's untraced card run; {att['pods']} traced, "
+        f"coverage {att['coverage']}, binds/s {report['value']} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return {"report": report, "launches": d["launches"],
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def _post_review(port: int, obj: dict, uid: str):
+    """(status, Retry-After or None, body) of one AdmissionReview POST."""
+    import http.client
+
+    body = json.dumps({"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+                       "request": {"uid": uid, "object": obj}}).encode()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("POST", "/validate", body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Retry-After"), resp.read()
+    finally:
+        conn.close()
+
+
+def _hook_pod(name: str, cpu_milli: int = 10):
+    from k8s1m_tpu_torch.snapshot.pod_encoding import PodInfo
+
+    return PodInfo(name, cpu_milli=cpu_milli, mem_kib=1024)
+
+
+def phase_webhook() -> dict:
+    """12: a ``Coordinator`` at D1's shape (1,048,576 nodes, batch 4096, 5%,
+    depth 2, packed) behind ``WebhookServer(coord.submit_external)`` on
+    localhost.  One client thread POSTs 16,384 AdmissionReviews in waves of
+    4,096 and stores each wave after its admission (the apiserver's write);
+    the main thread steps the coordinator once per stored wave.  Every
+    response is 200 and allowed, every pod is bound exactly once, and the
+    store-watch intake binds no pod a second time."""
+    import queue
+    import threading
+
+    from k8s1m_tpu_torch.config import PodSpec, TableSpec
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
+    from k8s1m_tpu_torch.control.objects import encode_pod, pod_key
+    from k8s1m_tpu_torch.control.webhook import WebhookServer
+    from k8s1m_tpu_torch.obs.metrics import REGISTRY, quantile_report_ms
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.store.native import MemStore
+    from k8s1m_tpu_torch.tools.sched_bench import _stage_means_ms, write_nodes
+
+    t0 = time.perf_counter()
+    store = MemStore()
+    write_nodes(store, NODES)
+    coord = Coordinator(
+        store, TableSpec(max_nodes=NODES), PodSpec(batch=BATCH),
+        Profile(node_affinity=0, topology_spread=0, interpod_affinity=0), chunk=CHUNK,
+        with_constraints=False, pipeline=True, depth=2, score_pct=SCORE_PCT,
+        packing="packed", device="cuda")
+    coord.bootstrap()
+    srv = WebhookServer(coord.submit_external).start()
+    scheduled = REGISTRY.get("coordinator_pods_scheduled_total")
+    try:
+        # One warm-up pod through the whole path, outside the window.
+        warm = _hook_pod("hook-warm")
+        status, _ra, _b = _post_review(srv.port, json.loads(encode_pod(warm)), "warm")
+        check(status == 200, f"[12] warm-up POST answered {status}")
+        store.put(pod_key("default", warm.name), encode_pod(warm))
+        while coord.run_until_idle() == 0:
+            pass
+        for name in ("coordinator_schedule_to_bind_seconds", "coordinator_cycle_seconds"):
+            REGISTRY.get(name).reset()
+        _reset_launches()
+        bound0 = scheduled.value(outcome="bound")
+        waves: queue.Queue = queue.Queue()
+        answers: list = []
+        post_s = [0.0]
+
+        def client():
+            try:
+                for w in range(WEBHOOK_PODS // WEBHOOK_WAVE):
+                    items = []
+                    t = time.perf_counter()
+                    for i in range(WEBHOOK_WAVE):
+                        pod = _hook_pod(f"hook-{w}-{i}")
+                        raw = encode_pod(pod)
+                        status, _ra, body = _post_review(srv.port, json.loads(raw), f"{w}-{i}")
+                        answers.append((status, body))
+                        items.append((pod_key("default", pod.name), raw))
+                    post_s[0] += time.perf_counter() - t
+                    store.put_batch(items)
+                    waves.put(w)
+            finally:
+                waves.put(None)
+
+        th = threading.Thread(target=client, name="webhook-client")
+        bound = 0
+        t1 = time.perf_counter()
+        th.start()
+        while waves.get(timeout=600) is not None:
+            bound += coord.step()
+        th.join(timeout=600)
+        check(not th.is_alive(), "[12] the client thread did not finish")
+        bound += coord.run_until_idle()
+        window_s = time.perf_counter() - t1
+        launches = _launch_counts()
+        check(len(answers) == WEBHOOK_PODS, f"[12] {len(answers)} answers")
+        check(all(s == 200 and json.loads(b)["response"]["allowed"] for s, b in answers),
+              "[12] a POST was not answered 200 and allowed")
+        check(bound == WEBHOOK_PODS, f"[12] {bound} binds in the window, want {WEBHOOK_PODS}")
+        check(scheduled.value(outcome="bound") - bound0 == WEBHOOK_PODS,
+              "[12] the store-watch intake bound a pod a second time")
+        _store_checks("12", coord, store, WEBHOOK_PODS + 1)
+        check(launches["fused_topk_by_stage"]["base"] > 0, "[12] no fused base-stage launch")
+        q = quantile_report_ms(REGISTRY.get("coordinator_schedule_to_bind_seconds"),
+                               (0.5, 0.99))
+        res = {"posts_per_sec": round(WEBHOOK_PODS / post_s[0], 1),
+               "binds_per_sec": round(bound / window_s, 1), **q,
+               "window_s": round(window_s, 3), "post_s": round(post_s[0], 3),
+               "stage_means_ms": _stage_means_ms(), "waves": dict(coord.waves),
+               "launches": launches}
+    finally:
+        srv.stop()
+        coord.close()
+        store.close()
+    log(f"[12] webhook intake at {NODES:,} nodes: {WEBHOOK_PODS} POSTs from one client "
+        f"thread at {res['posts_per_sec']} POSTs/s, {res['binds_per_sec']} binds/s over "
+        f"{res['window_s']} s, schedule-to-bind p50 {res['p50_ms']} ms p99 {res['p99_ms']} "
+        f"ms, every pod bound once; stage means ms {res['stage_means_ms']}, waves "
+        f"{res['waves']}, launches {launches} ({time.perf_counter() - t0:.1f}s)")
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    return res
+
+
+def _webhook_parity_run(device: str) -> dict:
+    """12a's construction: 65,536 nodes, 256-pod waves, 5%, chunk 4096,
+    zero-delay retries, a ``HealthController`` as the server's
+    ``controller=`` and the coordinator's ``loadshed=``; rounds of POSTs
+    (priorities 3..0) from this thread, each admitted pod stored once its
+    sink call ran, one step per round, then the drain."""
+    import threading
+
+    from k8s1m_tpu_torch.config import PodSpec, TableSpec
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
+    from k8s1m_tpu_torch.control.objects import encode_pod, pod_key
+    from k8s1m_tpu_torch.control.webhook import WebhookServer
+    from k8s1m_tpu_torch.faultline import RetryPolicy
+    from k8s1m_tpu_torch.loadshed import STATE_NAMES, HealthController, LoadshedConfig
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.store.native import MemStore
+    from k8s1m_tpu_torch.tools.sched_bench import write_nodes
+
+    b = HOOK_PARITY_BATCH
+    t0 = time.perf_counter()
+    store = MemStore()
+    write_nodes(store, PARITY_NODES)
+    ls = HealthController(LoadshedConfig(
+        queue_degraded=2 * b, queue_shed=4 * b, queue_cap=8 * b, queue_recover=b // 2,
+        recover_cycles=2), name=f"12a-{device}")
+    coord = Coordinator(
+        store, TableSpec(max_nodes=PARITY_NODES), PodSpec(batch=b),
+        Profile(node_affinity=0, topology_spread=0, interpod_affinity=0), chunk=CHUNK,
+        with_constraints=False, pipeline=True, depth=2, score_pct=SCORE_PCT,
+        packing="packed", device=device, loadshed=ls,
+        retry_policy=RetryPolicy(**_ZERO_DELAY))
+    sunk = threading.Semaphore(0)
+
+    def sink(obj, admitted=False):
+        coord.submit_external(obj, admitted=admitted)
+        sunk.release()
+
+    coord.bootstrap()
+    _reset_launches()
+    srv = WebhookServer(sink, controller=ls).start()
+    answers, shed, states = [], [], []
+    try:
+        seq = 0
+        for n in HOOK_PARITY_ROUNDS:
+            items = []
+            for _ in range(n):
+                pod = _hook_pod(f"p{seq:06d}", cpu_milli=10 + seq % 7)
+                obj = json.loads(encode_pod(pod))
+                obj["spec"]["priority"] = 3 - seq % 4
+                status, retry_after, _body = _post_review(srv.port, obj, f"u{seq}")
+                answers.append((status, retry_after))
+                if status == 200:
+                    check(sunk.acquire(timeout=30), "[12a] the sink never ran")
+                    items.append((pod_key("default", pod.name), encode_pod(pod)))
+                else:
+                    shed.append(pod.name)
+                seq += 1
+            store.put_batch(items)
+            coord.step()
+            states.append(STATE_NAMES[ls.state])
+        coord.run_until_idle()
+        admitted = sum(1 for s, _ in answers if s == 200)
+        stored = _store_checks(f"12a {device}", coord, store, admitted)
+        launches = _launch_counts()
+    finally:
+        srv.stop()
+        coord.close()
+        store.close()
+    names = {k.rsplit(b"/", 1)[1].decode() for k in stored}
+    check(not names & set(shed), f"[12a {device}] a shed pod was stored and bound")
+    return {"answers": answers, "stored": stored, "states": states, "shed": len(shed),
+            "launches": launches, "seconds": time.perf_counter() - t0}
+
+
+def phase_webhook_parity() -> dict:
+    """12a: ``_webhook_parity_run`` on the card and the CPU: the same status
+    sequence (200 or 429), the same ``Retry-After`` values, byte-identical
+    stored pods; the controller reached SHEDDING; no shed pod bound."""
+    runs = {dev: _webhook_parity_run(dev) for dev in ("cuda", "cpu")}
+    card, cpu = runs["cuda"], runs["cpu"]
+    check(card["answers"] == cpu["answers"],
+          "[12a] card and CPU answered the POST sequence differently")
+    check(card["stored"] == cpu["stored"], "[12a] card and CPU stored pod values differ")
+    check(card["states"] == cpu["states"], "[12a] card and CPU controller states differ")
+    check("shedding" in card["states"] and card["shed"] > 0,
+          f"[12a] the burst never drove the controller to SHEDDING: {card['states']}")
+    retry = sorted({ra for s, ra in card["answers"] if s == 429})
+    log(f"[12a] webhook parity at {PARITY_NODES:,} nodes: card ({card['seconds']:.1f}s) and "
+        f"CPU ({cpu['seconds']:.1f}s) gave the same {len(card['answers'])} answers "
+        f"({card['shed']} x 429, Retry-After {retry}) and byte-identical stored pods "
+        f"({len(card['stored'])}); states {card['states']}; card launches "
+        f"{card['launches']}")
+    return {dev: {"shed": r["shed"], "stored": len(r["stored"]), "states": r["states"],
+                  "launches": r["launches"], "seconds": round(r["seconds"], 3)}
+            for dev, r in runs.items()}
+
+
+def phase_drills() -> dict:
+    """13: ``overload_drill`` and ``tenantfair_drill`` at their default
+    shapes on the card (in this process, launches counted) and with
+    ``--device cpu`` (in parallel subprocesses, one torch thread each):
+    every run ``passed``, and each drill's two evidence documents are equal
+    once ``DRILL_DEVICE_KEYS`` are removed."""
+    import contextlib
+    import io
+
+    from k8s1m_tpu_torch.tools import overload_drill, tenantfair_drill
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    procs = {}
+    for mod in ("overload_drill", "tenantfair_drill"):
+        with open(os.path.join(OUT_DIR, f"{mod}_cpu.log"), "w") as err:
+            procs[mod] = subprocess.Popen(
+                [sys.executable, "-m", f"k8s1m_tpu_torch.tools.{mod}", "--device", "cpu",
+                 "--out", os.path.join(OUT_DIR, f"{mod}_cpu.json")],
+                stdout=subprocess.PIPE, stderr=err, text=True, env=env, cwd=root)
+    out = {}
+    try:
+        for mod, tool in (("overload_drill", overload_drill),
+                          ("tenantfair_drill", tenantfair_drill)):
+            _reset_launches()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                card = tool.main(["--out", os.path.join(OUT_DIR, f"{mod}_cuda.json")])
+            card_s = time.perf_counter() - t1
+            launches = _launch_counts()
+            stdout, _ = procs[mod].communicate(timeout=600)
+            check(procs[mod].returncode == 0, f"[13] {mod} --device cpu exited "
+                  f"{procs[mod].returncode}")
+            cpu = json.loads(stdout.strip().splitlines()[-1])
+            check(card["passed"] and cpu["passed"],
+                  f"[13] {mod} did not pass (card {card['passed']}, cpu {cpu['passed']})")
+            check(card["device"] == "cuda" and cpu["device"] == "cpu", f"[13] {mod} devices")
+            a = {k: v for k, v in card.items() if k not in DRILL_DEVICE_KEYS}
+            b = {k: v for k, v in cpu.items() if k not in DRILL_DEVICE_KEYS}
+            check(a == b, f"[13] {mod}: card and CPU evidence differ")
+            check(launches["fused_topk"] > 0, f"[13] {mod}: no fused-kernel launch")
+            log(f"[13] {mod} at its default shape {json.dumps(card['shape'])}: passed on the "
+                f"card ({card_s:.1f}s) and the CPU, evidence equal without "
+                f"{list(DRILL_DEVICE_KEYS)}; value {card['value']} ({card['unit']}); "
+                f"launches {launches}")
+            out[mod] = {"evidence": card, "launches": launches, "card_s": round(card_s, 3)}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"[13] drills ({time.perf_counter() - t0:.1f}s)")
+    out["seconds"] = round(time.perf_counter() - t0, 3)
+    return out
+
+
+def phase_hostpath() -> dict:
+    """14: ``hostpath_bench --nodes 1048576 --no-cycle`` (otherwise its
+    defaults): the encode gate (>= 3x) passes and cached and uncached
+    encodes are byte-identical (the tool exits otherwise).  The
+    encode+cycle lane is left out here: its ``PodSpec(query_keys=80)`` (the
+    tool's, for the tail pods' distinct selector keys) is past the fused
+    kernel's 16 resolved keys (``kMaxQueryKeys``; the Pallas kernel takes
+    any count; ROADMAP §C), and on the card's scan path the lane's three
+    passes over a full 1,048,576-row window took about 150 s.  The
+    kernels' refusal of the tool's query table is checked at ``--smoke``."""
+    import contextlib
+    import io
+
+    from k8s1m_tpu_torch.tools import hostpath_bench
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rep = hostpath_bench.main(["--nodes", str(NODES), "--no-cycle",
+                                   "--out", os.path.join(OUT_DIR, "hostpath_bench.json")])
+    d = rep["detail"]
+    check(d["byte_identical"] and d["gate"] == hostpath_bench.GATE_FULL, "[14] gate or bytes")
+    check(rep["value"] >= hostpath_bench.GATE_FULL, f"[14] encode speedup {rep['value']}")
+    # The kernels refuse the tool's query table (80 keys, 64 at --smoke)
+    # with a clear error.
+    refused = None
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            hostpath_bench.main(["--smoke", "--backend", "pallas"])
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "query_keys" in refused,
+          f"[14] the fused kernel did not refuse a 64-key query table: {refused}")
+    enc = d["encode"]
+    log(f"[14] hostpath_bench at {NODES:,} nodes: encode speedup {rep['value']}x (uncached "
+        f"{enc['uncached_s']} s, cached {enc['cached_s']} s; {enc['pods_per_sec_uncached']} "
+        f"vs {enc['pods_per_sec_cached']} pods/s, hit rate {enc['cache_hit_rate']}), "
+        f"byte-identical; the fused kernel refuses the tool's query table ({refused}) "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return {"report": rep, "kernel_refusal": refused,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def phase_curve() -> dict:
+    """15: ``latency_curve --nodes 1048576 --rates 2000,4000,8000 --seconds 4
+    --min-pods 8192`` (one ``sched_bench --rate R`` subprocess per point,
+    through ``tools/with_deadline.py``): every point returns a row, and
+    below the knee (``CURVE_BELOW_KNEE``) achieved binds/s is within 5% of
+    the offered rate."""
+    import contextlib
+    import io
+
+    from k8s1m_tpu_torch.tools import latency_curve
+
+    t0 = time.perf_counter()
+    out = os.path.join(OUT_DIR, "latency_curve.jsonl")
+    reports = os.path.join(OUT_DIR, "latency_curve_reports.jsonl")
+    if os.path.exists(reports):
+        os.remove(reports)
+    rates = ",".join(str(r) for r in CURVE_RATES)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = latency_curve.main([
+            "--nodes", str(NODES), "--rates", rates, "--seconds", str(CURVE_SECONDS),
+            "--min-pods", str(CURVE_MIN_PODS), "--timeout", "300", "--out", out,
+            "--reports", reports])
+    check([r["rate"] for r in rows] == list(CURVE_RATES), f"[15] rows {rows}")
+    with open(reports) as f:
+        docs = [json.loads(line) for line in f]
+    launches = _sum_launches(*(doc["detail"]["launches"] for doc in docs))
+    check(launches["fused_topk"] > 0, "[15] no fused-kernel launch in the points")
+    for r in rows:
+        check(r["bound"] == r["pods"] - 1, f"[15] rate {r['rate']}: {r['bound']} bound")
+    for r in rows:
+        if r["rate"] not in CURVE_BELOW_KNEE:
+            continue
+        check(abs(r["binds_per_sec"] - r["rate"]) <= 0.05 * r["rate"],
+              f"[15] below the knee: rate {r['rate']} achieved {r['binds_per_sec']} binds/s")
+    log(f"[15] latency curve at {NODES:,} nodes: " + "; ".join(
+        f"offered {r['rate']}/s -> {r['binds_per_sec']} binds/s, p50 {r['p50_ms']} ms p95 "
+        f"{r['p95_ms']} ms p99 {r['p99_ms']} ms ({r['point_wall_s']} s)" for r in rows)
+        + f"; launches {launches}")
+    # with_deadline's watchdog polls its parent every 5 s and leaves on its
+    # own once the point exited: wait it out, so no process outlives the run.
+    time.sleep(6)
+    log(f"[15] ({time.perf_counter() - t0:.1f}s)")
+    return {"rows": rows, "launches": launches, "seconds": round(time.perf_counter() - t0, 3)}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2165,7 +2737,7 @@ def main(argv=None) -> int:
                     help="timed waves per layout of paths A and B (phases 5, 6)")
     ap.add_argument("--delta-steps", type=int, default=2,
                     help="timed delta waves per layout of path C (phase 7)")
-    ap.add_argument("--warmup", type=int, default=2, help="warm-up waves per layout")
+    ap.add_argument("--warmup", type=int, default=1, help="warm-up waves per layout")
     ap.add_argument("--out", default=None, help="also write the full results as JSON here")
     ap.add_argument("--worst-case-only", action="store_true",
                     help="run only the device, build and all-distinct phases (3e) and print "
@@ -2199,7 +2771,7 @@ def main(argv=None) -> int:
     path_b = phase_path(device, "B", steps=args.path_steps, warmup=args.warmup)
     path_c = {c: phase_delta_path(device, c, steps=args.delta_steps, warmup=args.warmup)
               for c in ("C1", "C2")}
-    parity = phase_coordinator_parity()
+    parity, untraced = phase_coordinator_parity()
     coord = {c: phase_coordinator(c) for c in ("D1", "D2", "D3")}
     coord["D4"] = phase_constraints()
     coord["D5"] = phase_coordinator("D5")
@@ -2207,11 +2779,24 @@ def main(argv=None) -> int:
     megarow = phase_megarow()
     composed = phase_composed_parity()
     breaker = phase_breaker()
+    trace = phase_trace()
+    trace_parity = phase_trace_parity(untraced)
+    del untraced
+    webhook = phase_webhook()
+    webhook_parity = phase_webhook_parity()
+    drills = phase_drills()
+    hostpath = phase_hostpath()
+    curve = phase_curve()
     log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
 
-    # Launches of the coordinator's paths (phases 8 and 10, counts set to 0
-    # just before each measured run and read just after it), per fused stage.
-    runs = [r["detail"]["launches"] for r in coord.values()] + [megarow["launches"]]
+    # Launches of the coordinator's paths (phases 8 and 10-15, counts set to
+    # 0 just before each measured run and read just after it), per fused
+    # stage.
+    runs = ([r["detail"]["launches"] for r in coord.values()]
+            + [megarow["launches"], trace["launches"], trace_parity["launches"],
+               webhook["launches"], webhook_parity["cuda"]["launches"],
+               drills["overload_drill"]["launches"], drills["tenantfair_drill"]["launches"],
+               curve["launches"]])
     coord_launches = {
         stage: sum(r["fused_topk_by_stage"][stage] for r in runs)
         for stage in ("base", "aff", "cons")
@@ -2274,7 +2859,10 @@ def main(argv=None) -> int:
                        "path_c": path_c, "coordinator_parity": parity,
                        "coordinator": coord, "kernel_probe": probe,
                        "megarow": megarow, "composed_parity": composed,
-                       "breaker": breaker, **kernels}, f, indent=1, default=str)
+                       "breaker": breaker, "trace": trace, "trace_parity": trace_parity,
+                       "webhook": webhook, "webhook_parity": webhook_parity,
+                       "drills": drills, "hostpath": hostpath, "latency_curve": curve,
+                       **kernels}, f, indent=1, default=str)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -64,11 +64,20 @@ hook sites of the process's injector.  The launch hook runs before any
 device work, so a ``stall`` leaves no event, no pinned buffer and no
 table update behind.
 
+**Observability** (``obs/``): a ``PodTracer`` (``tracer=``) records a
+head-sampled pod's journey as a contiguous span chain (admit, gang
+staging, queue wait, encode, dispatch wait, device, bind, requeue); the
+``device`` span ends at ``t_sync``, taken right after the retire's wait on
+the pinned copy's event, so the card's time is never attributed to
+``bind``.  A ``FlightRecorder`` (``flight_recorder=``) records every
+retired wave and dumps its ring on a slow cycle or a slow traced pod; a
+``SamplingProfiler`` (``profiler=``) is dumped beside a slow cycle.  With
+none of them every hook is one ``enabled`` read (the null tracer).
+
 Entry points run on ``device="cuda"`` unless the caller asks for
 ``device="cpu"`` (the plain versions of the kernels).  The JAX
-coordinator's mesh, lease fencing, warm standby, tracing and the webhook
-server are not part of the port: passing them raises
-``NotImplementedError``.
+coordinator's mesh, lease fencing and warm standby are not part of the
+port: passing them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -79,6 +88,7 @@ import dataclasses
 import heapq
 import json
 import logging
+import os
 import random
 import threading
 import time
@@ -89,7 +99,13 @@ import torch
 
 from k8s1m_tpu_torch.config import DEFAULT_SCHEDULER, PodSpec, TableSpec
 from k8s1m_tpu_torch import faultline
-from k8s1m_tpu_torch.control.objects import decode_node, decode_pod, decode_pod_obj, pod_key
+from k8s1m_tpu_torch.control.objects import (
+    decode_node,
+    decode_pod,
+    decode_pod_obj,
+    pod_key,
+    pod_key_str_of_obj,
+)
 from k8s1m_tpu_torch.device import resolve_device, to_tensor
 from k8s1m_tpu_torch.engine.cycle import (
     Wave,
@@ -114,6 +130,8 @@ from k8s1m_tpu_torch.loadshed import CLOSED as BREAKER_CLOSED
 from k8s1m_tpu_torch.loadshed import CircuitBreaker, HealthController, Signals
 from k8s1m_tpu_torch.loadshed.breaker import FALLBACK_BINDS
 from k8s1m_tpu_torch.obs.metrics import Counter, Gauge, Histogram, LevelTimer
+from k8s1m_tpu_torch.obs.podtrace import NULL_TRACER
+from k8s1m_tpu_torch.obs.trace import FlightRecorder
 from k8s1m_tpu_torch.ops.priority import (
     JITTER_BITS,
     pod_priority_of,
@@ -130,6 +148,7 @@ from k8s1m_tpu_torch.snapshot.hotfeed import (
     EncodeCache,
     HostFeed,
     HotPodBatchHost,
+    cache_counts,
     encode_batch,
     shape_key,
 )
@@ -153,7 +172,12 @@ from k8s1m_tpu_torch.snapshot.packing import (
 )
 from k8s1m_tpu_torch.snapshot.pod_encoding import PodInfo
 from k8s1m_tpu_torch.tenancy.gang import note_gang
-from k8s1m_tpu_torch.tenancy.policy import gang_of_labels, tenant_of_key, tenant_of_pod
+from k8s1m_tpu_torch.tenancy.policy import (
+    gang_of_labels,
+    tenant_of_key,
+    tenant_of_obj,
+    tenant_of_pod,
+)
 from k8s1m_tpu_torch.tenancy.preempt import Victim, note_eviction, select_preemption
 from k8s1m_tpu_torch.store.native import (
     BIND_INVALID,
@@ -382,7 +406,7 @@ class _VictimRows:
     __hash__ = None
 
 
-_NOT_PORTED = ("mesh", "fence", "tracer", "flight_recorder", "profiler")
+_NOT_PORTED = ("mesh", "fence")
 
 
 @guarded_by(
@@ -421,6 +445,17 @@ class Coordinator:
         retry_policy: RetryPolicy | None = None,
         scheduler_name: str = DEFAULT_SCHEDULER,
         seed: int = 0,
+        flight_recorder: FlightRecorder | None = None,
+        # Sampling profiler (obs/profiler.py) dumped beside a slow-cycle
+        # flight dump.
+        profiler=None,
+        # Per-pod lifecycle tracing (obs/podtrace.py): a PodTracer head-
+        # samples 1-in-N pods by pod-key hash and records each one's
+        # journey as a contiguous span chain.  None installs the null
+        # tracer: every emit site is behind one ``enabled`` read.  A traced
+        # pod whose schedule-to-bind exceeds the flight recorder's
+        # threshold dumps the ring with its span chain attached.
+        tracer=None,
         pipeline: bool = False,
         depth: int = 2,
         watch_queue_cap: int = DEEP_WATCH_QUEUE,
@@ -481,6 +516,14 @@ class Coordinator:
         )
         self.max_attempts = max_attempts
         self.scheduler_name = scheduler_name
+        self.flight = flight_recorder
+        self.profiler = profiler
+        self._tracer = tracer if tracer is not None else NULL_TRACER
+        # Pods that spent their retry budget in this wave (kept only while
+        # tracing): the retire pass closes their chains after the device
+        # and bind spans land.
+        self._trace_gaveup: set[str] = set()
+        self._profile_dumps = 0
         if not 0 <= stratum_bits <= JITTER_BITS:
             raise ValueError(
                 f"stratum_bits must be in [0, {JITTER_BITS}], got {stratum_bits}"
@@ -802,6 +845,11 @@ class Coordinator:
 
     def _on_pod_delete(self, key: bytes) -> None:
         pod_key_str = key[len(PODS_PREFIX):].decode()
+        tracer = self._tracer
+        if tracer.enabled:
+            # A pod deleted while pending closes its chain here (a bound
+            # pod's trace closed at bind; this no-ops).
+            tracer.finish(pod_key_str, "requeue", outcome="deleted")
         self._queued_keys.discard(pod_key_str)
         self._orphan_bound.pop(pod_key_str, None)
         self._bind_meta.pop(pod_key_str, None)
@@ -963,6 +1011,8 @@ class Coordinator:
         fast = POD_CANONICAL | POD_SCHED_MATCH
         fastmask = (etype == 0) & ((flags & (fast | POD_HAS_NODE)) == fast)
         now = time.perf_counter()
+        tracer = self._tracer
+        tr_on = tracer.enabled
         tr = self.tracker
         has_constraints = bool(tr._spread or tr._affinity)
         if fastmask.all() and not has_constraints:
@@ -987,6 +1037,8 @@ class Coordinator:
                     cpu_milli=cpu_l[i], mem_kib=mem_l[i],
                     key_str=ks, key_bytes=key,
                 ))
+                if tr_on:
+                    tracer.begin(ks, now, source="intake")
             return
         aoff = evb.aoff.tolist()
         ab = evb.aux_blob
@@ -1057,6 +1109,8 @@ class Coordinator:
                 cpu_milli=cpu_l[i], mem_kib=mem_l[i],
                 key_str=ks, key_bytes=key,
             ))
+            if tr_on:
+                tracer.begin(ks, now, source="intake")
 
     def _node_name_bytes(self) -> list:
         """Encoded node names, index-parallel with vocab.node_names."""
@@ -1334,12 +1388,29 @@ class Coordinator:
         ``spec.priority`` first, hard ``queue_cap``); with a tenancy
         controller the weighted-fair per-tenant form replaces the
         priority floor.  ``admitted=True`` marks a pod whose admission
-        already ran, so no pod draws two decisions."""
+        already ran, so no pod draws two decisions.
+
+        This is the webhook's sink: it runs on HTTP threads, touches only
+        ``_external`` under its lock and never a tensor."""
+        tracer = self._tracer
+        t_in = time.perf_counter() if tracer.enabled else 0.0
         if not admitted:
             if self.tenancy is not None:
                 self.tenancy.admission.check_admit_obj(obj, point="coordinator")
             elif self.loadshed is not None:
                 self.loadshed.check_admit(pod_priority_of(obj), point="coordinator")
+        if tracer.enabled:
+            # The admit span covers the admission decision; begin() no-ops
+            # when the webhook already opened this trace at receipt, and
+            # the span closes against whichever anchor is live.
+            key = pod_key_str_of_obj(obj)
+            tracer.begin(key, t_in, source="external")
+            attrs = {"point": "webhook" if admitted else "coordinator"}
+            if self.tenancy is not None:
+                tenant = tenant_of_obj(obj)
+                attrs["tenant"] = tenant
+                attrs["bucket"] = self.tenancy.admission.bucket_level(tenant)
+            tracer.emit(key, "admit", **attrs)
         with self._external_lock:
             self._external.append(obj)
 
@@ -1382,6 +1453,10 @@ class Coordinator:
         together once all are present, and hold no capacity before.
         Gangs bigger than one wave are scheduled as plain pods, counted
         once per gang."""
+        tracer = self._tracer
+        if tracer.enabled:
+            # No-op for a webhook pod (its trace opened at admission).
+            tracer.begin(rec.key_str, rec.enqueued_at, source="intake")
         tn = self.tenancy
         if tn is not None and tn.policy.gang_enabled and pod is not None:
             g = gang_of_labels(pod.labels, pod.namespace)
@@ -1405,6 +1480,11 @@ class Coordinator:
                     st[1][rec.key_str] = rec
                     if len(st[1]) >= st[0]:
                         del self._gang_staging[gid]
+                        if tracer.enabled:
+                            # Staging ends for every member when the last
+                            # one completes the gang.
+                            for m in st[1].values():
+                                tracer.emit(m.key_str, "gang_stage", gang=gid, size=st[0])
                         self.queue.extend(st[1].values())
                     return
         self.queue.append(rec)
@@ -1557,6 +1637,7 @@ class Coordinator:
                     for r, vs in victims_by_row.items()
                 },
             })
+        tracer = self._tracer
         for v in choice.victims:
             evicted, rec = self._evict_bound(v.key)
             if not evicted:
@@ -1565,10 +1646,18 @@ class Coordinator:
                 # retries through the normal path.
                 return False
             if rec is not None:
+                if tracer.enabled:
+                    # The evicted victim re-enters the lifecycle: a fresh
+                    # chain anchored at its requeue time.
+                    tracer.begin(rec.key_str, rec.enqueued_at, source="evict")
                 self.queue.append(rec)
         if not self._bind(p, choice.node):
             return False
         _BIND_LATENCY.observe(time.perf_counter() - p.enqueued_at)
+        if tracer.enabled:
+            # A host-side bind: the chain closes here (the retire pass
+            # finds no live trace and skips it).
+            tracer.finish(p.key_str, "bind", outcome="preempt", victims=len(choice.victims))
         # The device never committed this bind: dirty the row and queue
         # the count correction a device commit would have applied.
         self._dirty_rows.add(choice.row)
@@ -1661,6 +1750,8 @@ class Coordinator:
         worst = max(p.attempts for p in alive)
         if worst >= pol.max_attempts:
             for p in alive:
+                if self._tracer.enabled:
+                    self._trace_gaveup.add(p.key_str)
                 _PODS_SCHEDULED.inc(outcome="unschedulable")
                 note_give_up("coordinator.bind")
                 self.unschedulable[p.key_str] = p.ensure_pod()
@@ -1756,12 +1847,28 @@ class Coordinator:
             return None, None
         for p in batch_pods:
             self._queued_keys.discard(p.key_str)
+        tracer = self._tracer
+        tr_on = tracer.enabled
+        if tr_on:
+            t_pop = time.perf_counter()
+            hits0, miss0 = cache_counts()
+        claimed = False
         with self._stage("encode"):
             batch = None
             if self._feed is not None:
                 batch = self._feed.claim(batch_pods, self.host.vocab.feed_generation())
+                claimed = batch is not None
             if batch is None:
                 batch = encode_batch(self._encoder_for(len(batch_pods)), batch_pods)
+        if tr_on:
+            t_enc = time.perf_counter()
+            hits1, miss1 = cache_counts()
+            path = "feed" if claimed else "inline"
+            dh, dm = hits1 - hits0, miss1 - miss0
+            for p in batch_pods:
+                tracer.emit(p.key_str, "queue_wait", t=t_pop, attempts=p.attempts)
+                tracer.emit(p.key_str, "encode", t=t_enc, path=path,
+                            cache_hits=dh, cache_misses=dm)
         return batch_pods, batch
 
     def _next_window(self, rows: int) -> int:
@@ -1945,6 +2052,12 @@ class Coordinator:
             copied.record()
         path = "delta" if delta_plan is not None else "full"
         self.waves[path] += 1
+        tracer = self._tracer
+        if tracer.enabled:
+            # Encode end -> launch: the pipeline-slot wait (in the
+            # pipelined cycle it includes retiring the oldest wave).
+            for p in batch_pods:
+                tracer.emit(p.key_str, "dispatch_wait", t=t_start)
         # begin_wave stamps the epoch AFTER the launch: rows removed from
         # here on quarantine until this wave retires.
         return Wave(
@@ -2115,6 +2228,10 @@ class Coordinator:
                 bound_ok[pi] = True
                 FALLBACK_BINDS.inc()
                 _BIND_LATENCY.observe(time.perf_counter() - p.enqueued_at)
+                if self._tracer.enabled:
+                    # No wave launched: the whole journey settles in one
+                    # bind span.
+                    self._tracer.finish(p.key_str, "bind", outcome="fallback")
                 self._dirty_rows.add(best_row)
                 if self.constraints is not None:
                     rec = self._bound.get(p.key_str)
@@ -2125,6 +2242,15 @@ class Coordinator:
             nbound -= self._resolve_gangs(
                 take, bound_ok, np.full(len(take), -1, np.int64), np.zeros(len(take), bool),
             )
+            tracer = self._tracer
+            if tracer.enabled:
+                # No retire pass runs on the breaker path: close the chains
+                # of pods that spent their retry budget here.
+                for p in take:
+                    if p.key_str in self._trace_gaveup:
+                        self._trace_gaveup.discard(p.key_str)
+                        tracer.finish(p.key_str, "requeue", outcome="unschedulable",
+                                      attempts=p.attempts)
         return nbound
 
     def _complete(self, inflight: Wave) -> int:
@@ -2140,6 +2266,10 @@ class Coordinator:
                 node_row = inflight.rows_host.numpy()
             else:
                 node_row = inflight.rows_dev.numpy()
+        # The card has written the bound rows: the device span ends here,
+        # after the copy's event wait (an earlier stamp would move the
+        # card's time into the bind span).
+        t_sync = time.perf_counter()
         if inflight.index_flag_dev is not None:
             note_index_wave(
                 int(inflight.index_flag_dev), inflight.index_attempted,
@@ -2318,7 +2448,10 @@ class Coordinator:
                 self.constraints, commit_fields_np(batch.fields, self.device),
                 asg.node_row, asg.zone, asg.region, m, m, sign=-1,
             )
-        self._last_cycle_s = time.perf_counter() - inflight.t_start
+        if self._tracer.enabled:
+            self._trace_retire(inflight, rows, bound_ok, t_sync)
+        cycle_s = time.perf_counter() - inflight.t_start
+        self._last_cycle_s = cycle_s
         # This wave retired: rows removed at or before the oldest
         # still-in-flight wave's launch are past their aliasing hazard.
         if self._inflights:
@@ -2331,7 +2464,60 @@ class Coordinator:
             # Success is a RETIRED wave (the card returned data), not an
             # accepted launch.
             self.breaker.record_success()
+        if self.flight is not None:
+            self.flight.record(
+                "cycle", cycle_s, pods=len(batch_pods), bound=nbound, queue=len(self.queue),
+            )
+            if (
+                self.profiler is not None
+                and cycle_s > self.flight.threshold_s
+                # The flight recorder's cap: sustained slow cycles must
+                # not fill the disk, and a dump lengthens the cycle.
+                and self._profile_dumps < self.flight.max_dumps
+            ):
+                self._profile_dumps += 1
+                # The flight dump says what was slow; the profile dump
+                # where the window's time went.
+                self.profiler.dump(os.path.join(
+                    self.flight.dump_dir,
+                    # graftlint: disable=no-wall-clock (epoch-ms dump name, correlates with flight dumps)
+                    f"profile-slowcycle-{int(time.time() * 1e3)}-{self._profile_dumps}.json",
+                ))
         return nbound
+
+    def _trace_retire(self, inflight: Wave, rows, bound_ok, t_sync: float) -> None:
+        """Wave-retire pass while tracing: close every sampled pod's
+        device span at ``t_sync`` (with the wave's epoch, depth and path)
+        and its bind span with the settled outcome, and give a traced pod
+        whose schedule-to-bind exceeded the flight threshold a flight dump
+        with its span chain attached.  Traced pods only: the dump budget
+        is shared with the slow-cycle dumps."""
+        tracer = self._tracer
+        flight = self.flight
+        now = time.perf_counter()
+        for i, p in enumerate(inflight.batch_pods):
+            done = None
+            tracer.emit(p.key_str, "device", t=t_sync, wave_epoch=inflight.epoch,
+                        depth=inflight.depth, path=inflight.path)
+            if bound_ok[i]:
+                done = tracer.finish(p.key_str, "bind", t=now, outcome="bound")
+            else:
+                tracer.emit(p.key_str, "bind", t=now,
+                            outcome="nofit" if rows[i] < 0 else "conflict",
+                            attempts=p.attempts)
+                if p.key_str in self._trace_gaveup:
+                    # Retry budget spent in this wave's settlement: close
+                    # the chain after its device and bind spans.
+                    self._trace_gaveup.discard(p.key_str)
+                    tracer.finish(p.key_str, "requeue", outcome="unschedulable",
+                                  attempts=p.attempts)
+            if done is not None and flight is not None:
+                lat = now - p.enqueued_at
+                if lat > flight.threshold_s:
+                    flight.dump(
+                        reason=f"pod {p.key_str} schedule-to-bind {lat * 1e3:.1f}ms",
+                        extra={"pod": p.key_str, "pod_spans": done.doc()["spans"]},
+                    )
 
     def step(self) -> int:
         """One scheduling cycle; returns the number of pods bound.
@@ -2533,6 +2719,10 @@ class Coordinator:
         pol = self.retry_policy
         if p.attempts >= pol.max_attempts:
             # Give-up parks the pod as unschedulable, never tight-loops.
+            if self._tracer.enabled:
+                # The chain closes in the retire pass, after the device and
+                # bind spans.
+                self._trace_gaveup.add(p.key_str)
             _PODS_SCHEDULED.inc(outcome="unschedulable")
             note_give_up("coordinator.bind")
             self.unschedulable[p.key_str] = p.ensure_pod()

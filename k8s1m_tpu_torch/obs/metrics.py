@@ -1,10 +1,13 @@
 """Prometheus-style metrics, self-contained (no client library).
 
 The port's own copy of ``k8s1m_tpu/obs/metrics.py``, trimmed to what the
-coordinator and ``tools/sched_bench.py`` read (no text exposition: the
-port serves no metrics endpoint): counters, gauges and
-histograms with labels in a registry of their own (``REGISTRY``), the
-``LevelTimer`` of the pipeline depth and ``quantile_report_ms``.  The
+coordinator and its tools read (no text exposition of the whole registry:
+the port serves no metrics endpoint): counters, gauges, histograms with
+labels, ``CallbackMetric`` (a sample set computed at read time) and
+``AlertingHistogram`` (logs any observation over its alert threshold, the
+reference's ``AlertingHistogramTimer``) in a registry of their own
+(``REGISTRY``), the ``LevelTimer`` of the pipeline depth and
+``quantile_report_ms``.  The
 metric names are the JAX package's; a process that imports both packages
 holds two registries, so no name is registered twice in one.
 """
@@ -12,12 +15,22 @@ holds two registries, so no name is registered twice in one.
 from __future__ import annotations
 
 import bisect
+import logging
 import threading
 import time
 from contextlib import contextmanager
 
+log = logging.getLogger("k8s1m.metrics")
+
 # Exponential latency buckets: 10us .. ~160s.
 DEFAULT_BUCKETS = tuple(1e-5 * (2**i) for i in range(24))
+
+
+def _label_str(labels: dict[str, str]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    return "{" + inner + "}"
 
 
 class Metric:
@@ -80,6 +93,32 @@ class Gauge(Metric):
         if key in self._callbacks:
             return float(self._callbacks[key]())
         return self._values.get(key, 0.0)
+
+class CallbackMetric(Metric):
+    """Metric whose whole sample set is computed at read time.
+
+    ``fn`` returns ``[(labels_dict, value), ...]``; label sets may vary
+    from one read to the next.  A failing callback yields no samples: a
+    read must never die with its source."""
+
+    def __init__(self, name: str, help: str, fn, kind: str = "gauge",
+                 registry: "Registry | None" = None):
+        super().__init__(name, help, (), registry)
+        self._fn = fn
+        self.kind = kind
+
+    def render(self) -> list[str]:
+        out = [f"# HELP {self.name} {self.help}",
+               f"# TYPE {self.name} {self.kind}"]
+        try:
+            samples = self._fn()
+        # A failing callback yields no samples (class contract above).
+        except Exception:  # graftlint: disable=broad-except
+            return out
+        for labels, v in samples:
+            out.append(f"{self.name}{_label_str(dict(labels))} {v}")
+        return out
+
 
 class Histogram(Metric):
     kind = "histogram"
@@ -181,6 +220,20 @@ class Histogram(Metric):
                 return lo + (hi - lo) * frac
             seen += c
         return float("inf")
+
+class AlertingHistogram(Histogram):
+    """Histogram that logs any observation above ``alert_s`` immediately
+    (reference AlertingHistogramTimer, mem_etcd/src/store.rs:883-907)."""
+
+    def __init__(self, *args, alert_s: float = 0.1, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.alert_s = alert_s
+
+    def observe(self, v: float, **labels) -> None:
+        super().observe(v, **labels)
+        if v > self.alert_s:
+            log.warning("%s%s took %.1fms", self.name, labels or "", v * 1e3)
+
 
 class LevelTimer:
     """Time-weighted occupancy of small integer levels.

@@ -42,14 +42,19 @@ tool's keys for the lanes the port has, plus the port's own: the device,
 where the wrappers run their plain versions), the fused kernel's also by
 stage.  ``--fault-plan`` installs a faultline plan (inline JSON, ``@path``
 or a named plan) for the run; the injected-fault and retry counts land in
-the report.  The JAX tool's remote store, stress watchers, mesh, tracing
-and profiler are not part of the port; their flags are unknown here.  With nothing to compile, ``--churn`` skips the JAX tool's
+the report.  ``--trace N`` traces 1-in-N pods through their lifecycle
+(``obs/podtrace.py``; the waterfall lands in ``latency_attribution``,
+``--trace-out`` writes the Perfetto export) and ``--profile PATH`` samples
+the measured window (``obs/profiler.py``).  The JAX tool's remote store,
+stress watchers and mesh are not part of the port; their flags are
+unknown here.  With nothing to compile, ``--churn`` skips the JAX tool's
 warm-up wave of 4096 throwaway pods.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -159,12 +164,26 @@ def parse_args(argv=None):
                     "(deterministic drop/delay/disconnect/conflict injection at the "
                     "coordinator's bind, watch and dispatch hooks); the injected-fault "
                     "and retry counts land in the report")
+    ap.add_argument("--trace", type=int, default=0, metavar="N",
+                    help="podtrace (obs/podtrace.py): trace 1-in-N pods through the "
+                    "whole lifecycle (head-sampled by pod-key hash); the stage-"
+                    "attribution waterfall lands in the report's latency_attribution "
+                    "detail.  0 = off (the null tracer)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="with --trace: write the Chrome/Perfetto trace-event JSON "
+                    "export to PATH (stages as tracks, pods as flow events)")
+    ap.add_argument("--profile", default=None, metavar="PATH",
+                    help="sample the measured window with obs/profiler.py, write the "
+                    "collapsed-stack artifact to PATH and print the self-time top "
+                    "table to stderr")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--out", default=None, metavar="PATH",
                     help="also write the report JSON to PATH")
     args = ap.parse_args(argv)
     if args.overload_at and not args.rate:
         ap.error("--overload-at requires --rate (the paced producer)")
+    if args.trace_out and not args.trace:
+        ap.error("--trace-out requires --trace (the pod tracer)")
     return args
 
 
@@ -427,6 +446,35 @@ class _Window:
         return {"delta_profile": detail}
 
 
+def _trace_detail(args, tracer) -> dict:
+    """Stage-attribution waterfall for the report (empty without
+    --trace): per-stage p50/p99 and share of the end-to-end total,
+    coverage, and the optional Perfetto export."""
+    from k8s1m_tpu_torch.obs.podtrace import trace_report_detail
+
+    return trace_report_detail(tracer, args.trace_out)
+
+
+@contextlib.contextmanager
+def _profiled(args, coord):
+    """The sampling profiler around the measured window (``--profile``):
+    dumped to the path and its top table printed to stderr even when the
+    window raises."""
+    prof = None
+    if args.profile:
+        from k8s1m_tpu_torch.obs.profiler import SamplingProfiler
+
+        prof = SamplingProfiler().start()
+        coord.profiler = prof
+    try:
+        yield
+    finally:
+        if prof is not None:
+            prof.stop()
+            prof.dump(args.profile)
+            print(prof.format_top(), file=sys.stderr)
+
+
 def _tenant_detail(args) -> dict:
     """Tenant-load shape for the report (empty without --tenants)."""
     if not args.tenants:
@@ -664,6 +712,11 @@ def run(args, **coord_kw):
         Profile(topology_spread=0, interpod_affinity=0) if args.shape_pool
         else Profile(node_affinity=0, topology_spread=0, interpod_affinity=0)
     )
+    tracer = None
+    if args.trace:
+        from k8s1m_tpu_torch.obs.podtrace import PodTracer
+
+        tracer = PodTracer(sample_n=args.trace)
     coord = Coordinator(
         store, TableSpec(max_nodes=cap), PodSpec(batch=args.batch), profile,
         chunk=args.chunk, with_constraints=False, backend=args.backend,
@@ -671,7 +724,7 @@ def run(args, **coord_kw):
         score_pct=args.score_pct, adaptive_batch=bool(args.rate),
         packing=args.packing, deltacache=args.deltacache,
         delta_index_k=args.delta_index_k, stratum_bits=args.stratum_bits,
-        device=device, **coord_kw,
+        device=device, tracer=tracer, **coord_kw,
     )
     t0 = time.perf_counter()
     coord.bootstrap()
@@ -688,7 +741,8 @@ def run(args, **coord_kw):
         _warm_buckets(coord, store)
     _reset_window_metrics(coord)
     window = _paced_window if args.rate else _closed_window
-    bound, deleted, sched_s, win = window(args, coord, store, values, keys, key_strs)
+    with _profiled(args, coord):
+        bound, deleted, sched_s, win = window(args, coord, store, values, keys, key_strs)
     launches = _launches()
     if args.stats:
         _print_stage_stats(sched_s)
@@ -719,6 +773,7 @@ def run(args, **coord_kw):
         "delta_enabled": coord.delta_enabled,
         **win.pipeline_detail(coord),
         **_tenant_detail(args),
+        **_trace_detail(args, tracer),
         **win.encode_profile(args.encode_profile),
         **win.delta_profile(args.delta_profile, coord),
         **_device_state_detail(coord),
@@ -764,6 +819,12 @@ def run(args, **coord_kw):
 
 
 def main(argv=None) -> dict:
+    from k8s1m_tpu_torch.obs.profiler import install_signal_dump
+
+    # On-demand stack dump (SIGUSR2 -> stacks-<pid>-<t>.txt in the
+    # temporary directory): a run that stops progressing can be asked
+    # where it is without being killed.
+    install_signal_dump()
     args = parse_args(argv)
     try:
         report, coord, store = run(args)

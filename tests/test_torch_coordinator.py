@@ -303,15 +303,36 @@ def test_row_mask_half(pair_factory, pipeline):
     assert _all_bound(kvs) and max(rows) < N // 2
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """The mesh and lease fencing stay refused; tracing, the flight
+    recorder and the profiler are ported and run."""
+    from k8s1m_tpu_torch.obs.podtrace import PodTracer
+    from k8s1m_tpu_torch.obs.profiler import SamplingProfiler
+    from k8s1m_tpu_torch.obs.trace import FlightRecorder
+
     with tnative.MemStore() as store:
-        for kw in (dict(mesh="2x4"), dict(tracer=object()), dict(fence=object())):
+        for kw in (dict(mesh="2x4"), dict(fence=object())):
             with pytest.raises(NotImplementedError):
                 Coordinator(store, TableSpec(max_nodes=N), PodSpec(batch=64),
                             Profile(**BASE), chunk=512, device="cpu", **kw)
         with pytest.raises(ValueError):
             Coordinator(store, TableSpec(max_nodes=N), PodSpec(batch=64), Profile(**BASE),
                         chunk=512, device="cpu", delta_index_k=8)
+        tracer = PodTracer(sample_n=1)
+        coord = Coordinator(
+            store, TableSpec(max_nodes=N), PodSpec(batch=64), Profile(**BASE), chunk=512,
+            device="cpu", tracer=tracer, profiler=SamplingProfiler(),
+            flight_recorder=FlightRecorder(threshold_s=60.0, dump_dir=str(tmp_path)),
+        )
+        store.put_batch([node_item(i) for i in range(16)])
+        coord.bootstrap()
+        store.put_batch([pod_item(f"t{i}") for i in range(8)])
+        try:
+            assert coord.run_until_idle() == 8
+        finally:
+            coord.close()
+        assert sorted(t.key for t in tracer.completed()) == [f"default/t{i}" for i in range(8)]
+        assert tracer.attribution()["coverage"] == 1.0
 
 
 # ---- backends, adaptive buckets, template pods, node churn -------------------

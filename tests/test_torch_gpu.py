@@ -779,3 +779,136 @@ def test_breaker_fallback_on_card_equals_cpu(cuda, slow_card):
         np.testing.assert_array_equal(req[c], want_req[c])
         np.testing.assert_array_equal(dev[c], req[c])
     assert stages["base"] > 0
+
+
+# ---- tracing and the webhook on the card -------------------------------------
+
+
+def _chains(tracer) -> dict:
+    return {t.key: [s[0] for s in t.spans] for t in tracer.completed()}
+
+
+@pytest.mark.gpu
+def test_traced_coordinator_on_card_equals_cpu(cuda, slow_card):
+    """Tracing does not move placement on the card: ``sched_bench --trace 4``
+    leaves the same stored pods on the card as on the CPU, and traces the
+    same pods through the same stages in the same order."""
+    got, _req, _dev, report = _bench_stored("cuda", 1024, score_pct=25, trace=4)
+    want, _wreq, _wdev, want_report = _bench_stored("cpu", 1024, score_pct=25, trace=4)
+    assert got == want
+    att, want_att = (r["detail"]["latency_attribution"] for r in (report, want_report))
+    assert att["pods"] == want_att["pods"] > 0
+    assert att["stages"].keys() == want_att["stages"].keys()
+    assert att["coverage"] == 1.0
+    # The traced run binds what the untraced run binds.
+    untraced, *_ = _bench_stored("cuda", 1024, score_pct=25)
+    assert got == untraced
+
+
+@pytest.mark.gpu
+def test_traced_device_span_holds_the_card_time(cuda, slow_card):
+    """The ``device`` span ends at ``t_sync``, after the retire waited on
+    the pinned copy's event.  ``slow_card`` holds every wave on the card
+    for one ``torch.cuda._sleep`` before the copy is queued, so every
+    traced pod's device span covers at least that held time; a ``t_sync``
+    taken before the wait would leave it in the bind span.  The held time
+    is measured with CUDA events first (0.9 of it is required, for clock
+    changes between the two measurements)."""
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
+    from k8s1m_tpu_torch.control.objects import encode_node, encode_pod, node_key, pod_key
+    from k8s1m_tpu_torch.obs.podtrace import PodTracer
+    from k8s1m_tpu_torch.store.native import MemStore
+    from k8s1m_tpu_torch.tools.make_nodes import build_node
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(40_000_000)
+    end.record()
+    end.synchronize()
+    held_s = start.elapsed_time(end) / 1e3
+    tracer = PodTracer(sample_n=1)
+    store = MemStore()
+    store.put_batch([(node_key(f"kwok-node-{i}"), encode_node(build_node(i)))
+                     for i in range(4096)])
+    coord = Coordinator(store, TableSpec(max_nodes=4096), PodSpec(batch=256), BASE,
+                        chunk=1024, with_constraints=False, device="cuda", tracer=tracer)
+    try:
+        coord.bootstrap()
+        for w in range(4):
+            store.put_batch([(pod_key("default", f"d{w}-{i}"),
+                              encode_pod(PodInfo(f"d{w}-{i}", cpu_milli=10, mem_kib=1024)))
+                             for i in range(256)])
+            coord.step()
+        coord.run_until_idle()
+    finally:
+        coord.close()
+        store.close()
+    device = [t1 - t0 for t in tracer.completed() for s, t0, t1, _ in t.spans if s == "device"]
+    assert len(device) == 1024
+    assert min(device) >= 0.9 * held_s, (min(device), held_s)
+
+
+def _webhook_stored(device):
+    """A coordinator over 4,096 KWOK nodes (pipelined at depth 2, zero-delay
+    retries) fed by a ``WebhookServer``: 8 waves of 128 POSTed pods, each
+    stored after its admission (the apiserver's write) and then a step.
+    Returns the stored pod values."""
+    import json
+    import threading
+    import urllib.request
+
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
+    from k8s1m_tpu_torch.control.objects import encode_node, encode_pod, node_key, pod_key
+    from k8s1m_tpu_torch.control.webhook import WebhookServer
+    from k8s1m_tpu_torch.faultline import RetryPolicy
+    from k8s1m_tpu_torch.store.native import MemStore, list_prefix
+    from k8s1m_tpu_torch.tools.make_nodes import build_node
+
+    store = MemStore()
+    store.put_batch([(node_key(f"kwok-node-{i}"), encode_node(build_node(i)))
+                     for i in range(4096)])
+    coord = Coordinator(store, TableSpec(max_nodes=4096), PodSpec(batch=128), BASE,
+                        chunk=1024, with_constraints=False, pipeline=True, depth=2,
+                        device=device, retry_policy=RetryPolicy(
+                            "coordinator.bind", base_delay_s=0.0, jitter=0.0))
+    sunk = threading.Semaphore(0)
+
+    def sink(obj):
+        coord.submit_external(obj)
+        sunk.release()
+
+    srv = WebhookServer(sink).start()
+    try:
+        coord.bootstrap()
+        for w in range(8):
+            items = []
+            for i in range(128):
+                pod = PodInfo(f"h{w}-{i}", cpu_milli=10 + i % 7, mem_kib=1024)
+                body = json.dumps({"apiVersion": "admission.k8s.io/v1",
+                                   "kind": "AdmissionReview",
+                                   "request": {"uid": f"u{w}-{i}",
+                                               "object": json.loads(encode_pod(pod))}})
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{srv.port}/validate", data=body.encode(),
+                    headers={"Content-Type": "application/json"}, method="POST")
+                with urllib.request.urlopen(req, timeout=5) as resp:
+                    assert json.loads(resp.read())["response"]["allowed"]
+                assert sunk.acquire(timeout=5)
+                items.append((pod_key("default", pod.name), encode_pod(pod)))
+            store.put_batch(items)
+            coord.step()
+        coord.run_until_idle()
+        coord.flush()
+        kvs, _rev = list_prefix(store, b"/registry/pods/")
+        return {kv.key: kv.value for kv in kvs}
+    finally:
+        srv.stop()
+        coord.close()
+        store.close()
+
+
+@pytest.mark.gpu
+def test_webhook_fed_coordinator_on_card_equals_cpu(cuda, slow_card):
+    got, want = _webhook_stored("cuda"), _webhook_stored("cpu")
+    assert got == want and len(got) == 8 * 128
+    assert all(b'"nodeName"' in v for v in got.values())

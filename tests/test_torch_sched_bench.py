@@ -113,7 +113,8 @@ def _key_sets(report, prefix=""):
     ["--pods", "1024", "--rate", "4000", "--overload-at", "0.1", "--overload-seconds",
      "0.1", "--overload-factor", "3", "--shape-cold", "--deltacache", "on",
      "--delta-profile", "--churn"],
-], ids=["closed", "paced"])
+    ["--pods", "1024", "--trace", "4"],
+], ids=["closed", "paced", "trace"])
 def test_report_keys_match_jax(tmp_path, lane):
     """The port's report carries every key the JAX tool's report carries
     at the same arguments, except those of the JAX-only flags."""
@@ -134,6 +135,11 @@ def test_report_keys_match_jax(tmp_path, lane):
         assert d["overload"] == {"at_s": 0.1, "seconds": 0.1, "factor": 3.0}
         # Every pod its own shape: the plane cache never serves a wave.
         assert d["delta_profile"]["delta_waves"] == 0
+    elif "--trace" in lane:
+        att, jatt = d["latency_attribution"], want["detail"]["latency_attribution"]
+        assert att["pods"] == jatt["pods"] and att["sample_n"] == 4
+        assert att["stages"].keys() == jatt["stages"].keys()
+        assert att["coverage"] == 1.0
     else:
         assert d["tenant_load"]["schedule"] == "flash"
         assert d["encode_profile"]["cache_hit_rate"] > 0.9
@@ -186,12 +192,16 @@ def test_offered_pods_at_steps_the_rate():
         100, 200, 600, 700]
     with pytest.raises(SystemExit):
         sched_bench.parse_args(["--overload-at", "2"])
-    # The JAX tool's remote, mesh and tracing flags are unknown; its
-    # fault-plan flag is the port's too.
-    for flag in ("--target", "--mesh", "--trace", "--profile", "--stress-watchers"):
+    # The JAX tool's remote and mesh flags are unknown; its fault-plan,
+    # trace and profile flags are the port's too.
+    for flag in ("--target", "--mesh", "--stress-watchers"):
         with pytest.raises(SystemExit):
             sched_bench.parse_args([flag, "1"])
     assert sched_bench.parse_args(["--fault-plan", "watchstorm"]).fault_plan == "watchstorm"
+    args = sched_bench.parse_args(["--trace", "4", "--trace-out", "t.json", "--profile", "p.json"])
+    assert (args.trace, args.trace_out, args.profile) == (4, "t.json", "p.json")
+    with pytest.raises(SystemExit):
+        sched_bench.parse_args(["--trace-out", "t.json"])
 
 
 def test_write_nodes_writes_encode_node_bytes():
