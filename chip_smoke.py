@@ -18,7 +18,9 @@ pods under node churn, constraints, a paced offered load),
 headline run with overload control, fault injection and tenancy (phase
 10), per-pod tracing with the flight recorder and the profiler (11), the
 admission webhook (12), the overload and tenantfair drills (13),
-``tools/hostpath_bench.py`` (14) and ``tools/latency_curve.py`` (15).
+``tools/hostpath_bench.py`` (14), ``tools/latency_curve.py`` (15) and
+``tools/failover_drill.py``, lease election, fencing and warm-standby
+takeover (16, 16a).
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device  — the card's name, and its name and power limit as
@@ -51,6 +53,13 @@ Phases (each raises on failure; the script then exits non-zero):
                each stage configuration, packed: bit-equal to the plain
                version and timed (``--worst-case-only`` runs just this and
                times the kernel of the tree it is run from);
+  3f. wide shapes — ``cluster.testbeds.WIDE_SWEEP`` at N=65,536 x B=512:
+               query keys 1, 16, 17, 80 and 1,024, In/NotIn sets of 8, 9
+               and 32 values, 4, 5 and 16 preferred terms, 16, 17 and 32
+               taint slots, 128, 129 and 1,024 taint ids, and all at once
+               (the fused kernel's fast paths and their spills), base and
+               affinity stage, plain and (where the slots fit) packed,
+               whole table and a window: bit-equal to the plain version;
   4. main path — uniform pods, 4 timed waves per layout with seeds from
                ``numpy.random.default_rng(0)``; one launch of the base stage
                per wave (launch counts reset just before, read just after);
@@ -168,20 +177,32 @@ Phases (each raises on failure; the script then exits non-zero):
                shapes on the card and with ``--device cpu``: both pass, and
                the evidence is equal without the ``device`` key (no key of
                either drill holds a host timing);
-  14. hostpath — ``hostpath_bench --nodes 1048576 --no-cycle``: the
-               encode gate (>= 3x) and byte-identical encodes; the fused
-               kernel's refusal of the tool's query table (past its 16
-               keys) is checked at ``--smoke``;
+  14. hostpath — ``hostpath_bench --nodes 1048576``: the encode gate
+               (>= 3x), byte-identical encodes, and the encode+cycle lane on
+               the card's fused kernel with the tool's 80-key query table
+               (one launch per wave, counted);
   15. latency curve — ``latency_curve --nodes 1048576 --rates
                2000,4000,8000 --seconds 4 --min-pods 8192``: a row per point,
                the 2,000/s point (below D1's knee) within 5% of its offered
-               rate.
+               rate;
+  16. failover — ``failover_drill --nodes 1048576 --chunk 4096``: the
+               mid-wave kill with a cold and a warm standby and the paused
+               leader's split brain, every gate (0 lost, 0 double binds in
+               the full-history ledger, fencing rejects > 0 and no deposed
+               bind, takeover within depth + 2 cycles, the host mirror equal
+               to a recount from the store, warm < cold); prints warm and
+               cold recovery seconds, fencing rejects, the takeover cycle,
+               promote's repair counts and the base-stage launches;
+  16a. failover parity — the drill at its default shape (2,048 nodes,
+               chunk 256) on the card and with ``--device cpu``: both pass,
+               equal evidence without the wall-clock keys, byte-identical
+               stored pods per scenario.
 Phases 5 and 6 print the same group and bound figures as phase 4.  The
 next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
 stage configuration and one for the delta kernel: times, bound, launches;
 the fused entries add ``bound_per_pair_ms``, ``groups`` and
 ``all_distinct_ms``; ``launches`` includes the coordinator's of phases 8
-and 10-15, which ``coordinator_launches`` also gives alone, per fused
+and 10-16a, which ``coordinator_launches`` also gives alone, per fused
 stage);
 the last is ``{"ok": true, "device": {...}}``.
 
@@ -846,6 +867,64 @@ def phase_affinity_vs_plain(device, n: int = 65536, b: int = 512) -> float:
             check(err == 0, f"affinity stage disagrees with plain version ({layout}, {sb})")
             check(feasible > 0 and short > 0, "affinity batch is all-feasible or all-infeasible")
     return float(worst)
+
+
+def phase_wide_vs_plain(device, n: int = 65536, b: int = 512) -> dict:
+    """3f: every ``WIDE_SWEEP`` point (query keys 1, 16, 17, 80, 1024; In/NotIn
+    values 8, 9, 32; preferred terms 4, 5, 16; taint slots 16, 17, 32;
+    taint ids 128, 129, 1024; and all of them at once) on the base and the
+    affinity stage, plain layout and packed where the taint slots fit its
+    meta word, whole table and a window: kernel and plain version
+    bit-equal, each with feasible and infeasible slots."""
+    import torch
+
+    from k8s1m_tpu_torch.cluster.testbeds import WIDE_SWEEP, wide_fleet, wide_pods
+    from k8s1m_tpu_torch.config import PodSpec, TableSpec
+    from k8s1m_tpu_torch.ops.fused_topk import fused_topk, fused_topk_reference
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.snapshot.node_table import NodeTableHost
+    from k8s1m_tpu_torch.snapshot.packing import build_packing_spec, pack_table_host
+    from k8s1m_tpu_torch.snapshot.pod_encoding import PodBatchHost, unpack_pod_batch
+
+    base = Profile(node_affinity=0, topology_spread=0, interpod_affinity=0)
+    aff = Profile(topology_spread=0, interpod_affinity=0)
+    t0 = time.perf_counter()
+    worst = {"base": 0, "aff": 0}
+    points = []
+    for q, v, p, ts, m in WIDE_SWEEP:
+        spec = TableSpec(max_nodes=n, taint_slots=ts, max_taint_ids=m)
+        host = wide_fleet(NodeTableHost(spec), seed=ts + m)
+        pods = wide_pods(b - 5, query_keys=q, values=v, pref_terms=p, max_taint_ids=m, seed=q)
+        pb = PodBatchHost(PodSpec(batch=b, query_keys=q, aff_values=v, pref_terms=p), spec,
+                          host.vocab).encode_packed(pods)
+        batch = unpack_pod_batch(pb.ints, pb.bools, pb.spec, pb.table_spec, pb.groups, device)
+        tables = {"plain": host.to_device(device)}
+        if 1 + 2 * ts <= 31:
+            tables["packed"] = pack_table_host(host, build_packing_spec(spec, host.vocab), device)
+        errs = {}
+        for layout, table in tables.items():
+            for view in (table, table.narrow(n // 16, n // 2)):
+                for stage, profile in (("base", base), ("aff", aff)):
+                    kw = dict(k=K, stratum_bits=11, row_base=7, col_base=4096,
+                              with_affinity=stage == "aff")
+                    idx, prio = fused_topk(view, batch, -2024, profile, **kw)
+                    torch.cuda.synchronize()
+                    ridx, rprio = fused_topk_reference(view, batch, -2024, profile, **kw)
+                    err = _compare(idx, prio, ridx, rprio)
+                    worst[stage] = max(worst[stage], err)
+                    errs[f"{layout}/{stage}"] = max(errs.get(f"{layout}/{stage}", 0), err)
+                    check(err == 0, f"[3f] q={q} v={v} p={p} ts={ts} m={m} {layout} {stage}: "
+                          "kernel disagrees with the plain version")
+                    check(bool((rprio >= 0).any()) and bool((rprio < 0).any()),
+                          f"[3f] q={q} v={v} p={p} ts={ts} m={m} {layout} {stage}: "
+                          "no feasible or no infeasible slot")
+        points.append({"query_keys": q, "aff_values": v, "pref_terms": p, "taint_slots": ts,
+                       "max_taint_ids": m, "max_abs_err": errs})
+        log(f"[3f] q={q:4d} v={v:2d} p={p:2d} ts={ts:2d} m={m:4d} at {n:,} x {b}: "
+            f"max_abs_err {errs}")
+    log(f"[3f] {len(WIDE_SWEEP)} wide points bit-equal ({time.perf_counter() - t0:.1f}s)")
+    return {"points": points, "max_abs_err": worst,
+            "seconds": round(time.perf_counter() - t0, 3)}
 
 
 def phase_constraints_vs_plain(device, n: int = 65536, b: int = 512) -> float:
@@ -2644,44 +2723,43 @@ def phase_drills() -> dict:
 
 
 def phase_hostpath() -> dict:
-    """14: ``hostpath_bench --nodes 1048576 --no-cycle`` (otherwise its
-    defaults): the encode gate (>= 3x) passes and cached and uncached
-    encodes are byte-identical (the tool exits otherwise).  The
-    encode+cycle lane is left out here: its ``PodSpec(query_keys=80)`` (the
-    tool's, for the tail pods' distinct selector keys) is past the fused
-    kernel's 16 resolved keys (``kMaxQueryKeys``; the Pallas kernel takes
-    any count; ROADMAP §C), and on the card's scan path the lane's three
-    passes over a full 1,048,576-row window took about 150 s.  The
-    kernels' refusal of the tool's query table is checked at ``--smoke``."""
+    """14: ``hostpath_bench --nodes 1048576`` (otherwise its defaults): the
+    encode gate (>= 3x) passes, cached and uncached encodes are
+    byte-identical (the tool exits otherwise), and the encode+cycle lane
+    runs its three passes on the fused kernel's affinity stage with the
+    tool's 80-key query table (``PodSpec(query_keys=80)``): launches
+    counted, every wave answered."""
     import contextlib
     import io
 
     from k8s1m_tpu_torch.tools import hostpath_bench
 
     t0 = time.perf_counter()
+    _reset_launches()
     with contextlib.redirect_stdout(io.StringIO()):
-        rep = hostpath_bench.main(["--nodes", str(NODES), "--no-cycle",
+        rep = hostpath_bench.main(["--nodes", str(NODES),
                                    "--out", os.path.join(OUT_DIR, "hostpath_bench.json")])
+    launches = _launch_counts()
     d = rep["detail"]
     check(d["byte_identical"] and d["gate"] == hostpath_bench.GATE_FULL, "[14] gate or bytes")
     check(rep["value"] >= hostpath_bench.GATE_FULL, f"[14] encode speedup {rep['value']}")
-    # The kernels refuse the tool's query table (80 keys, 64 at --smoke)
-    # with a clear error.
-    refused = None
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            hostpath_bench.main(["--smoke", "--backend", "pallas"])
-    except ValueError as e:
-        refused = str(e)
-    check(refused is not None and "query_keys" in refused,
-          f"[14] the fused kernel did not refuse a 64-key query table: {refused}")
+    cyc = d["cycle"]
     enc = d["encode"]
+    waves = 3 * -(-enc["pods"] // enc["batch"])      # an untimed pass and two timed ones
+    check(cyc is not None and cyc["backend"] == "pallas" and cyc["device"].startswith("cuda"),
+          f"[14] the cycle lane did not run the kernels on the card: {cyc}")
+    check(launches["fused_topk_by_stage"]["aff"] > 0,
+          f"[14] the cycle lane launched no affinity-stage kernel: {launches}")
+    check(launches["fused_topk"] == waves,
+          f"[14] {launches['fused_topk']} fused launches for {waves} waves")
     log(f"[14] hostpath_bench at {NODES:,} nodes: encode speedup {rep['value']}x (uncached "
         f"{enc['uncached_s']} s, cached {enc['cached_s']} s; {enc['pods_per_sec_uncached']} "
         f"vs {enc['pods_per_sec_cached']} pods/s, hit rate {enc['cache_hit_rate']}), "
-        f"byte-identical; the fused kernel refuses the tool's query table ({refused}) "
+        f"byte-identical; encode+cycle on the fused aff stage (80 query keys): uncached "
+        f"{cyc['uncached_s']} s, cached {cyc['cached_s']} s ({cyc['binds_per_sec_uncached']} "
+        f"vs {cyc['binds_per_sec_cached']} pods/s, {cyc['speedup']}x); launches {launches} "
         f"({time.perf_counter() - t0:.1f}s)")
-    return {"report": rep, "kernel_refusal": refused,
+    return {"report": rep, "launches": launches,
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
@@ -2730,6 +2808,123 @@ def phase_curve() -> dict:
     return {"rows": rows, "launches": launches, "seconds": round(time.perf_counter() - t0, 3)}
 
 
+# ---- phases 16 / 16a: lease election, fencing and warm-standby failover -------
+
+# Keys of the failover drill's evidence that hold host wall-clock seconds
+# (the takeover times); everything else runs on the drill's injected clock.
+FAILOVER_CLOCK_KEYS = ("recovery_s", "recovery_warm_s", "recovery_cold_s", "warm_speedup",
+                       "value")
+FAILOVER_SCENARIOS = ("mid_wave_kill_cold", "mid_wave_kill_warm", "split_brain")
+
+
+def _failover_gates(tag: str, rep: dict) -> None:
+    ev = rep["evidence"]
+    check(rep["passed"], f"[{tag}] failover_drill did not pass")
+    for k in FAILOVER_SCENARIOS:
+        s = ev[k]
+        check(s["passed"] and s["lost"] == 0 and s["ledger"]["double_binds"] == 0
+              and s["consistency"]["byte_consistent"], f"[{tag}] {k}: a gate failed")
+    check(ev["split_brain"]["fencing_rejected"] > 0
+          and ev["split_brain"]["deposed_leader_bound"] == 0, f"[{tag}] fencing")
+    check(ev["mid_wave_kill_warm"]["mode"] == "warm"
+          and ev["mid_wave_kill_cold"]["mode"] == "cold", f"[{tag}] takeover modes")
+    check(ev["recovery_warm_s"] < ev["recovery_cold_s"], f"[{tag}] warm >= cold")
+
+
+def _scrub_clock(d):
+    if isinstance(d, dict):
+        return {k: _scrub_clock(v) for k, v in d.items()
+                if k not in FAILOVER_CLOCK_KEYS + DRILL_DEVICE_KEYS}
+    return d
+
+
+def phase_failover() -> dict:
+    """16: ``failover_drill --nodes 1048576 --chunk 4096`` on the card
+    (otherwise the drill's defaults: batch 256, depth 3, 4 tenants, 192
+    pods per tick, 12 loaded ticks before the kill or the pause): every
+    gate of all three scenarios, fused base-stage launches counted in the
+    run (counts set to 0 just before it)."""
+    import contextlib
+    import io
+
+    from k8s1m_tpu_torch.tools import failover_drill
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rep = failover_drill.main(["--nodes", str(NODES), "--chunk", str(CHUNK),
+                                   "--out", os.path.join(OUT_DIR, "failover_drill.json")])
+    launches = _launch_counts()
+    _failover_gates("16", rep)
+    check(launches["fused_topk_by_stage"]["base"] > 0,
+          f"[16] no fused base-stage launch: {launches}")
+    ev = rep["evidence"]
+    warm, cold = ev["mid_wave_kill_warm"], ev["mid_wave_kill_cold"]
+    log(f"[16] failover_drill at {NODES:,} nodes (chunk {CHUNK}): passed; recovery warm "
+        f"{ev['recovery_warm_s']:.4f} s, cold {ev['recovery_cold_s']:.4f} s, cold/warm "
+        f"{ev['warm_speedup']:.2f}x; split-brain fencing rejects "
+        f"{ev['split_brain']['fencing_rejected']}, deposed binds "
+        f"{ev['split_brain']['deposed_leader_bound']}; first bind after takeover at cycle "
+        f"{warm['cycles_to_first_bind']} (warm) / {cold['cycles_to_first_bind']} (cold); "
+        f"promote stats {json.dumps(warm['promote_stats'])}; lost 0, double binds 0, "
+        f"byte-consistent; launches {launches} ({time.perf_counter() - t0:.1f}s)")
+    return {"evidence": rep, "launches": launches,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def phase_failover_parity() -> dict:
+    """16a: ``failover_drill`` at its default shape (2,048 nodes, chunk 256)
+    on the card (in this process, launches counted) and with ``--device
+    cpu`` (a parallel subprocess): both pass every gate, the evidence is
+    equal once the wall-clock and device keys are removed, and each
+    scenario leaves the same stored pod bytes (``pods_sha256``)."""
+    import contextlib
+    import io
+
+    from k8s1m_tpu_torch.tools import failover_drill
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    with open(os.path.join(OUT_DIR, "failover_drill_cpu.log"), "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "k8s1m_tpu_torch.tools.failover_drill", "--device", "cpu",
+             "--out", os.path.join(OUT_DIR, "failover_drill_cpu.json")],
+            stdout=subprocess.PIPE, stderr=err, text=True, env=env, cwd=root)
+    try:
+        _reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            card = failover_drill.main(
+                ["--out", os.path.join(OUT_DIR, "failover_drill_cuda.json")])
+        launches = _launch_counts()
+        stdout, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"[16a] failover_drill --device cpu exited {proc.returncode}")
+    cpu = json.loads(stdout.strip().splitlines()[-1])
+    _failover_gates("16a card", card)
+    _failover_gates("16a cpu", cpu)
+    check(card["device"] == "cuda" and cpu["device"] == "cpu", "[16a] devices")
+    check(launches["fused_topk_by_stage"]["base"] > 0, f"[16a] no base launch: {launches}")
+    digests = {k: (card["evidence"][k]["pods_sha256"], cpu["evidence"][k]["pods_sha256"])
+               for k in FAILOVER_SCENARIOS}
+    check(all(a == b for a, b in digests.values()),
+          f"[16a] stored pod bytes differ between card and CPU: {digests}")
+    check(_scrub_clock(card) == _scrub_clock(cpu), "[16a] card and CPU evidence differ")
+    log(f"[16a] failover_drill at its default shape on the card and the CPU: both pass, "
+        f"evidence equal without {list(FAILOVER_CLOCK_KEYS + DRILL_DEVICE_KEYS)}, stored "
+        f"pods byte-identical per scenario; recovery warm/cold card "
+        f"{card['evidence']['recovery_warm_s']:.4f}/{card['evidence']['recovery_cold_s']:.4f} s, "
+        f"cpu {cpu['evidence']['recovery_warm_s']:.4f}/"
+        f"{cpu['evidence']['recovery_cold_s']:.4f} s; launches {launches} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return {"cuda": {"evidence": card, "launches": launches}, "cpu": cpu,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="timed waves per layout (phase 4)")
@@ -2763,6 +2958,7 @@ def main(argv=None) -> int:
         return 0
     err3 = phase_kernel_vs_plain(device)
     err3b = phase_affinity_vs_plain(device)
+    wide = phase_wide_vs_plain(device)
     err3c = phase_constraints_vs_plain(device)
     err3d = phase_delta_vs_plain(device)
     worst = phase_worst_case(device)
@@ -2787,16 +2983,19 @@ def main(argv=None) -> int:
     drills = phase_drills()
     hostpath = phase_hostpath()
     curve = phase_curve()
+    failover = phase_failover()
+    failover_parity = phase_failover_parity()
     log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
 
-    # Launches of the coordinator's paths (phases 8 and 10-15, counts set to
+    # Launches of the coordinator's paths (phases 8 and 10-16a, counts set to
     # 0 just before each measured run and read just after it), per fused
     # stage.
     runs = ([r["detail"]["launches"] for r in coord.values()]
             + [megarow["launches"], trace["launches"], trace_parity["launches"],
                webhook["launches"], webhook_parity["cuda"]["launches"],
                drills["overload_drill"]["launches"], drills["tenantfair_drill"]["launches"],
-               curve["launches"]])
+               hostpath["launches"], curve["launches"], failover["launches"],
+               failover_parity["cuda"]["launches"]])
     coord_launches = {
         stage: sum(r["fused_topk_by_stage"][stage] for r in runs)
         for stage in ("base", "aff", "cons")
@@ -2827,8 +3026,10 @@ def main(argv=None) -> int:
 
     c2 = path_c["C2"]["packed"]
     kernels = {"kernels": [
-        entry("base", "k8s1m_tpu/ops/pallas_topk.py:139", main_res, err3),
-        entry("aff", "k8s1m_tpu/ops/pallas_topk.py:285", path_a, err3b),
+        entry("base", "k8s1m_tpu/ops/pallas_topk.py:139", main_res,
+              max(err3, float(wide["max_abs_err"]["base"]))),
+        entry("aff", "k8s1m_tpu/ops/pallas_topk.py:285", path_a,
+              max(err3b, float(wide["max_abs_err"]["aff"]))),
         entry("cons", "k8s1m_tpu/ops/pallas_topk.py:448", path_b, err3c),
         {
             "name": "delta_plane_topk",
@@ -2852,7 +3053,7 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"device": dev, "build": build, "kernel_vs_plain_max_abs_err": err3,
-                       "affinity_vs_plain_max_abs_err": err3b,
+                       "affinity_vs_plain_max_abs_err": err3b, "wide_vs_plain": wide,
                        "constraints_vs_plain_max_abs_err": err3c,
                        "delta_vs_plain_max_abs_err": err3d, "worst_case": worst,
                        "main_path": main_res, "path_a": path_a, "path_b": path_b,
@@ -2862,6 +3063,7 @@ def main(argv=None) -> int:
                        "breaker": breaker, "trace": trace, "trace_parity": trace_parity,
                        "webhook": webhook, "webhook_parity": webhook_parity,
                        "drills": drills, "hostpath": hostpath, "latency_curve": curve,
+                       "failover": failover, "failover_parity": failover_parity,
                        **kernels}, f, indent=1, default=str)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,13 @@ stages against their plain versions (``chip_smoke.py`` phases 3b/3c and
 - ``constraint_pods``: zone- and region-keyed spread, required affinity
   (its first replica bootstraps), required anti-affinity, preferred terms
   — and, with ``with_selectors``, NodeAffinity terms on the same pods, so
-  one launch runs both stages.
+  one launch runs both stages;
+- ``wide_fleet`` / ``wide_pods``: the shapes past the fused kernel's
+  fast paths (query keys past its shared resolve table, In/NotIn sets
+  past its registers, preferred terms past its masks, rows with more
+  taints than it stages and taint ids past its register bits), for any
+  ``PodSpec`` query_keys/aff_values/pref_terms and ``TableSpec``
+  taint_slots/max_taint_ids.
 
 Everything is made from ``seed`` with numpy; the shapes follow
 tests/test_pallas_topk.py's labeled and constraint fleets.
@@ -24,6 +30,9 @@ import numpy as np
 
 from k8s1m_tpu_torch.cluster.workload import affinity_deployment, spread_deployment
 from k8s1m_tpu_torch.config import (
+    EFFECT_NO_EXECUTE,
+    EFFECT_NO_SCHEDULE,
+    EFFECT_PREFER_NO_SCHEDULE,
     SEL_OP_DOES_NOT_EXIST,
     SEL_OP_EXISTS,
     SEL_OP_GT,
@@ -41,11 +50,13 @@ from k8s1m_tpu_torch.snapshot.node_table import (
     NodeInfo,
     NodeTableHost,
 )
+from k8s1m_tpu_torch.snapshot.interning import numeric_of
 from k8s1m_tpu_torch.snapshot.pod_encoding import (
     NodeSelectorTerm,
     PodInfo,
     PreferredSchedulingTerm,
     SelectorRequirement,
+    Toleration,
 )
 
 TIERS = ("web", "db", "cache")
@@ -160,4 +171,142 @@ def constraint_pods(tracker: ConstraintTracker, count: int, *, seed: int = 0,
             if i % 4 == 1:
                 pod.preferred_terms = [PreferredSchedulingTerm(
                     2, NodeSelectorTerm([_req(REGION_LABEL, SEL_OP_IN, ["r0"])]))]
+    return pods
+
+
+# ---- wide shapes ---------------------------------------------------------
+
+WIDE_KEYS = 1100         # label-key pool of wide_fleet: room for 1,024 query keys
+WIDE_VALUES = 40         # distinct numeric label values per key
+
+# (query_keys, aff_values, pref_terms, taint_slots, max_taint_ids): the
+# default PodSpec/TableSpec point, each dimension alone past the fused
+# kernel's fast paths (16 resolved keys, 8 register values, 4 register
+# preferred terms, 16 staged taints, 128 register tolerated bits), and all
+# of them at once.
+WIDE_SWEEP = (
+    (1, 8, 4, 8, 128), (16, 8, 4, 8, 128), (17, 8, 4, 8, 128), (80, 8, 4, 8, 128),
+    (1024, 8, 4, 8, 128),
+    (16, 9, 4, 8, 128), (16, 32, 4, 8, 128),
+    (16, 8, 5, 8, 128), (16, 8, 16, 8, 128),
+    (16, 8, 4, 16, 128), (16, 8, 4, 17, 128), (16, 8, 4, 32, 128),
+    (16, 8, 4, 8, 129), (16, 8, 4, 8, 1024),
+    (1024, 32, 16, 32, 1024),
+)
+
+
+def _wide_taint_effect(j: int) -> int:
+    """8% of the taint triples hard (NoSchedule, NoExecute), the rest soft."""
+    hard = (EFFECT_NO_SCHEDULE, EFFECT_NO_EXECUTE)
+    return hard[j % 25] if j % 25 < len(hard) else EFFECT_PREFER_NO_SCHEDULE
+
+
+def wide_fleet(host, *, seed: int = 0, invalid_tail: int = 8):
+    """Fill an empty ``NodeTableHost`` (the port's or the JAX package's:
+    the same attributes) with every row but the last ``invalid_tail``:
+    each row carries ``label_slots - 1`` keys of a ``WIDE_KEYS`` pool with
+    numeric values, rows i % 5 == 0 repeat slot 0's key with another value
+    in the last slot (the last matching slot wins), and row i fills
+    i % (taint_slots + 1) taint slots with ids over the whole
+    ``max_taint_ids`` range (8% of the triples hard).  Columns are written
+    with numpy, as ``populate_kwok_nodes`` does.  Returns the host."""
+    spec = host.spec
+    v = host.vocab
+    n = spec.max_nodes
+    live = n - invalid_tail
+    rng = np.random.default_rng(seed)
+    rows = host.alloc_rows([f"wide-{i}" for i in range(live)])
+    host.cpu_alloc[rows] = rng.integers(2000, 16000, live)
+    host.mem_alloc[rows] = rng.integers(4 << 20, 32 << 20, live)
+    host.pods_alloc[rows] = 32
+    host.cpu_req[rows] = rng.integers(0, 1500, live)
+    host.name_id[rows] = np.fromiter((v.node_names.intern(f"wide-{i}") for i in range(live)),
+                                     np.int32, live)
+
+    key_ids = np.array([v.label_keys.intern(f"wk{j:04d}") for j in range(WIDE_KEYS)], np.int32)
+    vals = [str(100 + x) for x in range(WIDE_VALUES)]
+    val_ids = np.array([v.label_values.intern(x) for x in vals], np.int32)
+    val_nums = np.array([numeric_of(x) for x in vals], np.int32)
+    slots = spec.label_slots
+    stride = WIDE_KEYS // slots
+    i = np.arange(live)
+    for s_ in range(slots - 1):
+        kj = (i * 3 + s_ * stride) % WIDE_KEYS
+        vj = (i * 7 + s_ * 11) % WIDE_VALUES
+        host.label_key[rows, s_] = key_ids[kj]
+        host.label_val[rows, s_] = val_ids[vj]
+        host.label_num[rows, s_] = val_nums[vj]
+    dup = rows[i % 5 == 0]
+    host.label_key[dup, slots - 1] = host.label_key[dup, 0]
+    vj = (i[i % 5 == 0] + 17) % WIDE_VALUES
+    host.label_val[dup, slots - 1] = val_ids[vj]
+    host.label_num[dup, slots - 1] = val_nums[vj]
+
+    m = spec.max_taint_ids
+    ts = spec.taint_slots
+    tids = np.array([v.taints.intern((f"wt{j:05d}", "", _wide_taint_effect(j)))
+                     for j in range(m - 1)], np.int64)
+    effs = np.array([_wide_taint_effect(j) for j in range(m - 1)], np.int32)
+    if tids.max(initial=0) >= m:
+        raise ValueError("distinct taint triples overflow TableSpec.max_taint_ids")
+    count = i % (ts + 1)
+    for t in range(ts):
+        on = count > t
+        j = (i[on] * 13 + t * 7) % (m - 1)
+        host.taint_id[rows[on], t] = tids[j]
+        host.taint_effect[rows[on], t] = effs[j]
+    return host
+
+
+def wide_pods(count: int, *, query_keys: int, values: int, pref_terms: int,
+              max_taint_ids: int, seed: int = 0) -> list[PodInfo]:
+    """``count`` pods for a ``PodSpec(query_keys, aff_values=values,
+    pref_terms=pref_terms, aff_terms >= 2, aff_exprs >= 2)`` over
+    ``wide_fleet``: together they reference up to ``query_keys - 1``
+    distinct keys (so the late query indices are in use), In/NotIn sets of
+    exactly ``values`` values, up to ``pref_terms`` preferred terms, and
+    tolerations of four soft and two hard taint ids spread over
+    ``max_taint_ids`` (past id 127 when there is room).  With
+    ``query_keys == 1`` no pod has a selector."""
+    rng = np.random.default_rng(seed)
+    usable = min(query_keys - 1, WIDE_KEYS)     # query index 0 is "no key"
+
+    def key(x: int) -> str:
+        # ``usable`` distinct keys spread over the pool.
+        return f"wk{(x % usable) * (WIDE_KEYS // usable):04d}"
+
+    def vset(x: int) -> list[str]:
+        return [str(100 + (x + y) % (WIDE_VALUES + 8)) for y in range(values)]
+
+    pods = []
+    for p in range(count):
+        kw = {}
+        if usable > 0:
+            a, b = key(p), key(p * 7 + 3)
+            shape = p % 6
+            if shape == 0:
+                kw["node_selector"] = {a: str(100 + p % WIDE_VALUES)}
+            elif shape == 1:
+                kw["required_terms"] = [NodeSelectorTerm([
+                    _req(a, SEL_OP_IN, vset(p)), _req(b, SEL_OP_NOT_IN, vset(p + 5))])]
+            elif shape == 2:
+                kw["required_terms"] = [NodeSelectorTerm([_req(a, SEL_OP_EXISTS)]),
+                                        NodeSelectorTerm([_req(b, SEL_OP_GT, ["118"])])]
+            elif shape == 3:
+                kw["required_terms"] = [NodeSelectorTerm([
+                    _req(a, SEL_OP_LT, ["130"]), _req(b, SEL_OP_DOES_NOT_EXIST)])]
+            else:
+                kw["preferred_terms"] = [
+                    PreferredSchedulingTerm(1 + (p + x) % 9, NodeSelectorTerm([
+                        _req(key(p * 3 + x), SEL_OP_IN if x % 2 == 0 else SEL_OP_NOT_IN,
+                             vset(p + x))]))
+                    for x in range(pref_terms)]
+                if shape == 5:
+                    kw["required_terms"] = [NodeSelectorTerm([_req(b, SEL_OP_NOT_IN, vset(p))])]
+        room = max_taint_ids - 1
+        soft = [int(x) for x in rng.integers(0, room, 4)]
+        hard = [25 * int(rng.integers(0, max(room // 25, 1))) + y for y in (0, 1)]
+        tol = [Toleration(key=f"wt{j:05d}") for j in soft + hard if j < room]
+        pods.append(PodInfo(f"wide-{p}", cpu_milli=100 + 7 * (p % 13),
+                            mem_kib=(128 + p % 50) << 10, tolerations=tol, **kw))
     return pods

@@ -103,6 +103,7 @@ from k8s1m_tpu_torch.control.objects import (
     decode_node,
     decode_pod,
     decode_pod_obj,
+    node_key,
     pod_key,
     pod_key_str_of_obj,
 )
@@ -184,10 +185,13 @@ from k8s1m_tpu_torch.store.native import (
     POD_CANONICAL,
     POD_HAS_NODE,
     POD_SCHED_MATCH,
+    CompactedError,
+    FutureRevError,
     MemStore,
     Watcher,
     drain_events_light,
     list_prefix,
+    list_prefix_items,
     list_prefix_values,
     prefix_end,
 )
@@ -222,14 +226,23 @@ _COLD_BUILD = Gauge(
 )
 # All live coordinators in this process; the gauges sum over them.
 # Reads of cycle-thread-owned state from a gauge go through racy_read: a
-# deliberate torn-snapshot read that the guard audit exempts.
+# deliberate torn-snapshot read that the guard audit exempts.  Follower
+# mirrors (warm standby, control/leader.py) shadow the leader's whole
+# intake — summing them would double every depth, so the aggregates skip
+# them; the standby's own health is standby_mirror_lag_rows.
 _LIVE: weakref.WeakSet = weakref.WeakSet()
+
+
+def _live_primaries():
+    return (c for c in list(_LIVE) if not racy_read(c, "_follower"))
+
+
 _NODE_COUNT.set_function(
-    lambda: sum(len(racy_read(c.host, "_row_of")) for c in list(_LIVE))
+    lambda: sum(len(racy_read(c.host, "_row_of")) for c in _live_primaries())
 )
-_QUEUE_DEPTH.set_function(lambda: sum(len(racy_read(c, "queue")) for c in list(_LIVE)))
+_QUEUE_DEPTH.set_function(lambda: sum(len(racy_read(c, "queue")) for c in _live_primaries()))
 _BACKOFF_DEPTH.set_function(
-    lambda: sum(len(racy_read(c, "_backoff")) for c in list(_LIVE))
+    lambda: sum(len(racy_read(c, "_backoff")) for c in _live_primaries())
 )
 
 _PIPE_QUIESCE = Counter(
@@ -262,6 +275,28 @@ _PACKING_FALLBACK = Counter(
     "Fail-closed packed-layout rebuilds, by reason (the field that "
     "overflowed its bit budget, or 'taint_slots')", ("reason",),
 )
+# ---- failover: fencing and warm-standby evidence -------------------------
+_FENCE_REJECTED = Counter(
+    "fencing_rejected_total",
+    "Store writes refused by the lease-epoch fence, by path — a deposed "
+    "or paused reign's in-flight waves draining to requeue instead of "
+    "the store (control/leader.LeaseFence)",
+    ("path",),
+)
+_MIRROR_LAG = Gauge(
+    "standby_mirror_lag_rows",
+    "Watch events the warm-standby mirror had not yet applied at its "
+    "last follow tick (0 = the mirror tracks the store tick-for-tick; "
+    "bounds the takeover reconcile)",
+    (),
+)
+_RECONCILE_REPAIRS = Counter(
+    "failover_reconcile_repairs_total",
+    "Mirror-vs-store divergences repaired during takeover reconcile, by "
+    "kind (normally 0: the watch stream already carried every fact)",
+    ("kind",),
+)
+
 _BIND_LATENCY = Histogram(
     "coordinator_schedule_to_bind_seconds",
     "Intake-to-bind latency per pod",
@@ -406,7 +441,7 @@ class _VictimRows:
     __hash__ = None
 
 
-_NOT_PORTED = ("mesh", "fence")
+_NOT_PORTED = ("mesh",)
 
 
 @guarded_by(
@@ -491,6 +526,12 @@ class Coordinator:
         # preemption and gangs.  Without an explicit ``loadshed`` its
         # HealthController is adopted as the loadshed controller too.
         tenancy=None,
+        # Lease-epoch fencing token (control/leader.LeaseFence): when set,
+        # every bind/evict/preempt store write flows through the fenced
+        # helpers and is refused once the reign is deposed — in-flight
+        # waves drain to requeue, never to the store.  None (standalone
+        # coordinators, tests) = writes always admitted.
+        fence=None,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -709,6 +750,13 @@ class Coordinator:
         self.intake_filter = intake_filter
         self._row_mask_np: np.ndarray | None = None
         self._row_mask_dev: torch.Tensor | None = None
+        # Failover state: the reign's fencing token, the warm-standby
+        # follower flag (mirrors never schedule and are excluded from the
+        # depth gauges), and the one-shot warm-up latch the standby sets
+        # ahead of takeover (warm_compile).
+        self.fence = fence
+        self._follower = False
+        self._warmed = False
         _LIVE.add(self)
 
     def set_row_mask(self, mask: np.ndarray | None) -> None:
@@ -1187,6 +1235,335 @@ class Coordinator:
             )
         return len(listed) + len(seen)
 
+    # ---- warm standby: follow / promote / crash-consistent recovery ------
+    # (driven by control/leader.HACoordinator)
+
+    def follow(self) -> int:
+        """One standby-mirror tick: apply the world's deltas and keep every
+        cache warm — never schedule, never write to the store.
+
+        The mirror's derived state (queue, bound-pod ledger,
+        ``_bind_meta``, gang staging, host mirror, device table, encode
+        templates) is thereby a continuous reconstruction from store facts
+        + intake replay — exactly the state ``promote()`` inherits at
+        takeover, which is why takeover is a bounded reconcile instead of
+        a cold boot.  Returns events applied this tick."""
+        lag = 0
+        for w in (self._nodes_watch, self._pods_watch):
+            p = getattr(w, "pending", None)
+            if p:
+                lag += int(p)
+        _MIRROR_LAG.set(lag)
+        self._drain_external()
+        n = self.drain_watches()
+        self._sync_table()
+        self._process_adjusts()
+        # Keep the mirror's queue close to the true pending backlog:
+        # entries the leader already bound would otherwise accumulate all
+        # standby long and poison the load signal below (and promote's
+        # first waves).  Thresholded so steady follow ticks stay O(1).
+        if len(self.queue) >= 2 * max(
+            self.pod_spec.batch, len(self._queued_keys) - len(self._backoff)
+        ):
+            self._purge_settled_queue()
+        # Tick the overload/tenancy chain too: HACoordinator stages
+        # no-leader webhook pods into this mirror through admission, so the
+        # per-tenant buckets must keep refilling (and the health state must
+        # track the real backlog) while standby.
+        self._loadshed_tick()
+        self.warm_compile()
+        return n
+
+    def _purge_settled_queue(self) -> int:
+        """Drop queue records whose pods are already settled: a follower
+        learns of the leader's binds after queueing the same pods, so its
+        queue holds stale records for bound keys (``_queued_keys`` was
+        discarded; the deque entry was not).  Returns the number purged."""
+        stale = sum(
+            1 for p in self.queue
+            if p.key_str not in self._queued_keys or p.key_str in self._bound
+        )
+        if stale:
+            self.queue = collections.deque(
+                p for p in self.queue
+                if p.key_str in self._queued_keys and p.key_str not in self._bound
+            )
+        return stale
+
+    def warm_compile(self) -> bool:
+        """Warm the wave ahead of takeover: run one wave over the live table
+        shapes and discard every output — no store write, no host
+        accounting, no draw from the coordinator's wave seed stream (the
+        seed is ``prng_key(0)``'s, as the JAX standby passes ``key(0)``).
+
+        Eager PyTorch has no step to compile: on a card this loads the
+        kernel libraries, creates the CUDA context and leaves the caching
+        allocator holding the wave's buffers, so the first wave after
+        takeover pays none of that.  The wave commits its binds in place,
+        so it runs against CLONES of the table and of the constraint state
+        — the live mirror survives it.  It encodes the mirror's own queued
+        pods (peeked, never popped), so the warmed stage matches the
+        traffic the first post-takeover wave carries; it retries each
+        follow tick until such pods exist, then latches."""
+        if self._warmed or self.table is None:
+            return False
+        pods = []
+        for p in self.queue:
+            pods.append(p.peek_pod())
+            if len(pods) >= self.pod_spec.batch:
+                break
+        if not pods:
+            return False
+        batch = self.encoder.encode_packed(pods)
+        tbl = self.table.clone()
+        cons = self.constraints.clone() if self.constraints is not None else None
+        _t, _asg, rows_dev = schedule_batch_packed(
+            tbl, batch, seed_of(prng_key(0)),
+            profile=self.profile, constraints=cons,
+            chunk=self.chunk, k=self.k, backend=self.backend,
+            sample_rows=self._sample_rows, sample_offset=0,
+            row_mask=self._row_mask_dev,
+        )
+        if rows_dev.is_cuda:
+            torch.cuda.synchronize(rows_dev.device)
+        self._warmed = True
+        return True
+
+    def promote(self, *, acquire_revision: int = 0) -> dict:
+        """Warm-standby takeover: turn a following mirror into the leader
+        with a bounded reconcile.
+
+        1. Drain the watch backlog (bounded by the mirror's lag; a
+           broken/overflowed watch falls back to a full ``resync`` —
+           still warm: vocab, encode templates and the kernels survive).
+        2. Diff the mirror against the store pinned at the lease-acquire
+           revision (``_reconcile_at``): every divergence is repaired
+           through the ordinary intake paths and counted — crash
+           consistency does not depend on the watch stream having been
+           perfect.
+        3. Settle gangs the predecessor left partially bound all-or-none
+           (``recover_gangs``).
+        4. Push repairs to the device and drop follower status.
+
+        Rows whose accounting changed during the reconcile ride the normal
+        dirty-row machinery, and the mirror has no in-flight waves by
+        construction — so the wave-epoch quarantine starts the new reign
+        empty.
+
+        Returns the evidence dict the drills record (repair counts)."""
+        stats: dict = {"resync": 0, "repairs": {}, "gangs_released": 0}
+        nw, pw = self._nodes_watch, self._pods_watch
+        broken = (
+            nw is None or pw is None
+            or nw.dropped or pw.dropped
+            or getattr(nw, "canceled", False)
+            or getattr(pw, "canceled", False)
+        )
+        if broken:
+            self.resync()
+            stats["resync"] = 1
+        else:
+            for _ in range(64):
+                n = self.drain_watches()
+                if n:
+                    continue
+                # A watcher that exposes the highest revision buffered off
+                # the wire (``seen_revision``) keeps pumping until it covers
+                # the acquire revision; the in-process store's watch has
+                # none, so one empty drain ends the loop.
+                seen = getattr(self._pods_watch, "seen_revision", None)
+                if seen is None or seen >= acquire_revision:
+                    break
+            self._drain_external()
+            repairs = self._reconcile_at(acquire_revision)
+            stats["resync"] = repairs.pop("resync", 0)
+            stats["repairs"] = repairs
+        # Purge queue entries the predecessor already settled: dropping them
+        # spares the first post-takeover waves a conflict storm of
+        # already-bound pods — and keeps recover_gangs from reading a
+        # fully-bound gang as still pending.
+        stats["stale_queue_purged"] = self._purge_settled_queue()
+        stats["gangs_released"] = self.recover_gangs()
+        self._sync_table()
+        self._process_adjusts()
+        self._follower = False
+        _MIRROR_LAG.set(0)
+        return stats
+
+    def _reconcile_at(self, revision: int) -> dict:
+        """Crash-consistency audit: list both prefixes PINNED at the
+        lease-acquire revision (``store.native.list_prefix(revision=)``)
+        and diff against the mirror.
+
+        The mirror has already drained its watches past the pin, so a
+        pin-vs-mirror mismatch is ambiguous on its own: either the watch
+        stream missed the fact (repair it) or the mirror legitimately
+        advanced beyond the pin (leave it alone).  Every candidate repair
+        therefore re-reads the store's CURRENT state before mutating — the
+        pin bounds what to audit, the current read decides the repair.
+        Repairs go through the ordinary intake handlers (``_on_pod_put`` /
+        ``_on_pod_delete`` / ``_upsert_node``) so repair and live intake
+        can never disagree, and each is counted in
+        ``failover_reconcile_repairs_total``.  A pin outside the store's
+        window (``CompactedError``/``FutureRevError``) falls back to a
+        full ``resync``."""
+        rep = {"nodes_added": 0, "nodes_removed": 0, "pods_replayed": 0,
+               "binds_adopted": 0, "pods_dropped": 0}
+        try:
+            # The light parse (names for the nodes, key and value bytes for
+            # the pods) skips a KeyValue object per row: a million of them
+            # at 1M nodes.  The JAX coordinator lists whole KVs; the repairs
+            # are the same.
+            node_keys = list_prefix_items(self.store, NODES_PREFIX, revision=revision,
+                                          keys_only=True)
+            pod_items = list_prefix_items(self.store, PODS_PREFIX, revision=revision)
+        except (CompactedError, FutureRevError):
+            self.resync()
+            return {"resync": 1}
+        pod_items = [(key[len(PODS_PREFIX):].decode(), key, value) for key, value in pod_items]
+        row_of = self.host._row_of
+        listed = set()
+        for key in node_keys:
+            name = key[len(NODES_PREFIX):].decode()
+            listed.add(name)
+            if name in row_of:
+                continue
+            # In the pin but not the mirror: a missed add — unless the node
+            # was deleted after the pin (the mirror is right).
+            cur = self.store.get(key)
+            if cur is None:
+                continue
+            try:
+                node = decode_node(cur.value)
+            except Exception:
+                _DECODE_ERRORS.inc(kind="node")
+                log.exception("undecodable node in reconcile; skipping")
+                continue
+            self._dirty_rows.add(self._upsert_node(node))
+            self._node_infos[node.name] = node
+            self._adopt_orphans(name)
+            rep["nodes_added"] += 1
+        for name in list(row_of):
+            if name in listed:
+                continue
+            # In the mirror but not the pin: a missed delete — unless the
+            # node was created after the pin (the mirror is right).
+            if self.store.get(node_key(name)) is not None:
+                continue
+            self._node_infos.pop(name, None)
+            self._dirty_rows.add(self.host.remove(name))
+            rep["nodes_removed"] += 1
+        seen = set()
+        for k, key, value in pod_items:
+            seen.add(k)
+            pinned_bound = b'"nodeName"' in value
+            mirror_bound = k in self._bound
+            if pinned_bound == mirror_bound:
+                continue
+            # Pin and mirror disagree: the CURRENT store state decides
+            # whether the watch missed a fact or the mirror advanced.
+            cur = self.store.get(key)
+            if cur is None:
+                continue        # deleted meanwhile: the delete echo or the
+                                # _bound sweep below settles it
+            cur_bound = b'"nodeName"' in cur.value
+            if cur_bound and not mirror_bound:
+                # A bind the mirror never saw: adopt it as external.
+                self._on_pod_put(cur.value, cur.mod_revision, key)
+                rep["binds_adopted"] += 1
+            elif not cur_bound and mirror_bound:
+                # An eviction echo the mirror never saw: undo the accounting
+                # and replay the pending object.
+                self._on_pod_delete(key)
+                self._on_pod_put(cur.value, cur.mod_revision, key)
+                rep["pods_replayed"] += 1
+        # Intake the mirror missed entirely (pinned pending, tracked
+        # nowhere) — replay only if the pod still exists and is still
+        # pending now.
+        for k, key, value in pod_items:
+            if b'"nodeName"' in value or k in self._queued_keys or k in self._bound:
+                continue
+            cur = self.store.get(key)
+            if cur is None or b'"nodeName"' in cur.value:
+                continue
+            self._on_pod_put(cur.value, cur.mod_revision, key)
+            rep["pods_replayed"] += 1
+        for k in list(self._bound):
+            if k in seen:
+                continue
+            ns, name = k.split("/", 1)
+            kb = pod_key(ns, name)
+            # Absent from the pinned list but maybe newer than the pin
+            # (bound after acquisition): only the store's current state
+            # decides a drop.
+            if self.store.get(kb) is None:
+                self._on_pod_delete(kb)
+                rep["pods_dropped"] += 1
+        for kind, n in rep.items():
+            if n:
+                _RECONCILE_REPAIRS.inc(n, kind=kind)
+        return rep
+
+    def recover_gangs(self) -> int:
+        """Crash half of gang all-or-none (takeover): a predecessor that
+        died between a wave's bind CASes and its gang settlement leaves a
+        gang partially bound in the store.  Any gang with both bound
+        members and pending members releases the bound ones (fenced evict
+        — we hold the lease now) back through gang staging, so the whole
+        gang re-rides one wave; gangs whose every member is bound are
+        honored via the store untouched.  Returns binds released."""
+        if self.tenancy is None or not self.tenancy.policy.gang_enabled:
+            return 0
+        bound_gangs: dict[str, list[str]] = {}
+        for key, meta in self._bind_meta.items():
+            if meta[3] and key in self._bound:
+                bound_gangs.setdefault(meta[3], []).append(key)
+        if not bound_gangs:
+            return 0
+        pending_gangs = set(self._gang_staging)
+        for p in self.queue:
+            # Only genuinely-pending members count: a follower's queue can
+            # hold stale records for keys the predecessor already bound
+            # (settled gangs must read as fully bound, not split).
+            if p.gang_id and p.key_str in self._queued_keys and p.key_str not in self._bound:
+                pending_gangs.add(p.gang_id)
+        for _, _, members in self._gang_parked:
+            for p in members:
+                if p.gang_id:
+                    pending_gangs.add(p.gang_id)
+        released = 0
+        for gid, keys in bound_gangs.items():
+            if gid not in pending_gangs:
+                continue        # fully bound: store facts are honored
+            for key in keys:
+                evicted, rec = self._evict_bound(key, count_eviction=False, path="evict")
+                if not evicted:
+                    log.warning(
+                        "gang %s member %s could not be released at takeover "
+                        "(CAS lost); leaving it bound", gid, key,
+                    )
+                    continue
+                released += 1
+                if rec is not None:
+                    pod = rec.pod
+                    g = gang_of_labels(pod.labels, pod.namespace)
+                    if g is not None:
+                        rec.gang_id, rec.gang_size = g
+                    tracer = self._tracer
+                    if tracer.enabled:
+                        # Takeover requeue: the released member's chain
+                        # re-anchors under the new reign before
+                        # _stage_or_queue's generic begin can label it as
+                        # ordinary intake.
+                        tracer.begin(rec.key_str, rec.enqueued_at, source="failover")
+                    self._stage_or_queue(rec, pod)
+            note_gang("recovered")
+            log.info(
+                "takeover released partially-bound gang %s "
+                "(%d members back to staging)", gid, len(keys),
+            )
+        return released
+
     # ---- device table --------------------------------------------------
 
     @staticmethod
@@ -1495,7 +1872,7 @@ class Coordinator:
         return sum(len(st[1]) for st in self._gang_staging.values())
 
     def _evict_bound(self, key_str: str, *, into: PendingPod | None = None,
-                     adjust: bool = True, count_eviction: bool = True):
+                     adjust: bool = True, count_eviction: bool = True, path: str = "evict"):
         """CAS a bound pod's stored object back to pending and undo its
         host-mirror accounting: the eviction half of preemption and of
         the gang all-or-none release.  A spliced object is un-spliced
@@ -1531,7 +1908,7 @@ class Coordinator:
                     return False, None
                 obj.get("spec", {}).pop("nodeName", None)
                 value = json.dumps(obj, separators=(",", ":")).encode()
-            ok, _, _ = self.store.cas(kb, value, required_mod=cur.mod_revision)
+            ok, _, _ = self._fenced_cas(kb, value, required_mod=cur.mod_revision, path=path)
             if ok:
                 break
         if not ok:
@@ -1639,7 +2016,7 @@ class Coordinator:
             })
         tracer = self._tracer
         for v in choice.victims:
-            evicted, rec = self._evict_bound(v.key)
+            evicted, rec = self._evict_bound(v.key, path="preempt")
             if not evicted:
                 # A concurrent writer beat the eviction CAS: abort (the
                 # capacity already freed stays freed); the preemptor
@@ -2350,8 +2727,8 @@ class Coordinator:
                 self._wave_fail(p)
             if entries:
                 results = (
-                    self.store.bind_batch(entries, self._pods_watch.id)
-                    if self._bind_excludes else self.store.bind_batch(entries)
+                    self._fenced_bind_batch(entries, self._pods_watch.id)
+                    if self._bind_excludes else self._fenced_bind_batch(entries)
                 )
                 now = time.perf_counter()
                 ok_rows: list[int] = []
@@ -2637,8 +3014,42 @@ class Coordinator:
         _PIPE_QUIESCE.inc(reason=reason)
         return self.flush()
 
+    # ---- fenced store writes ----------------------------------------------
+    #
+    # Every store put/CAS reachable from the bind/evict/preempt paths flows
+    # through these two funnels: they consult the reign's LeaseFence before
+    # touching the store, so a deposed or paused leader's in-flight waves
+    # retire into the ordinary conflict/requeue machinery instead of
+    # landing writes behind the new leader.
+
+    def _fence_admit(self, path: str) -> bool:
+        f = self.fence
+        if f is None or f.admit():
+            return True
+        _FENCE_REJECTED.inc(path=path)
+        return False
+
+    def _fenced_cas(self, key: bytes, value: bytes, *, required_mod: int, path: str):
+        """The bind/evict/preempt CAS funnel: shaped exactly like
+        ``store.cas`` so a fence refusal reads as a CAS conflict — the one
+        failure every caller already absorbs (requeue/backoff)."""
+        if not self._fence_admit(path):
+            return False, 0, None
+        return self.store.cas(key, value, required_mod=required_mod)
+
+    def _fenced_bind_batch(self, entries, watch_id=None):
+        """The native-wave bind funnel: a fence refusal fails every entry
+        as a conflict (rev 0) without touching the store."""
+        if not self._fence_admit("bind"):
+            return [0] * len(entries)
+        if watch_id is not None:
+            return self.store.bind_batch(entries, watch_id)
+        return self.store.bind_batch(entries)
+
     def _bind(self, p: PendingPod, node_name: str) -> bool:
-        """CAS spec.nodeName into the pod object; False on conflict."""
+        """CAS spec.nodeName into the pod object; False on conflict
+        (including a fence refusal: every store write below goes through
+        ``_fenced_cas``, so the fence is consulted once per attempt)."""
         if self._bind_fault():
             return False
         key = p.key_bytes
@@ -2647,7 +3058,8 @@ class Coordinator:
             # proves the object has not changed since.
             value = splice_node_name(p.raw, node_name)
             if value is not None:
-                ok, _, _ = self.store.cas(key, value, required_mod=p.mod_revision)
+                ok, _, _ = self._fenced_cas(key, value, required_mod=p.mod_revision,
+                                            path="bind")
                 if not ok:
                     _PODS_SCHEDULED.inc(outcome="conflict")
                     return False
@@ -2676,7 +3088,8 @@ class Coordinator:
             # store's current bytes.
             value = splice_node_name(cur.value, node_name)
             if value is not None:
-                ok, _, _ = self.store.cas(key, value, required_mod=p.mod_revision)
+                ok, _, _ = self._fenced_cas(key, value, required_mod=p.mod_revision,
+                                            path="bind")
                 if not ok:
                     _PODS_SCHEDULED.inc(outcome="conflict")
                     return False
@@ -2687,8 +3100,9 @@ class Coordinator:
             obj = json.loads(cur.value)
             required = p.mod_revision
         obj["spec"]["nodeName"] = node_name
-        ok, _, _ = self.store.cas(
+        ok, _, _ = self._fenced_cas(
             key, json.dumps(obj, separators=(",", ":")).encode(), required_mod=required,
+            path="bind",
         )
         if not ok:
             _PODS_SCHEDULED.inc(outcome="conflict")

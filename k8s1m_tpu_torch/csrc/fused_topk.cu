@@ -40,7 +40,7 @@ enum Ptr {
   P_COUNT
 };
 enum Int {
-  I_PACKED, I_N, I_TS, I_B, I_M, I_SEED, I_ROW_BASE, I_COL_BASE, I_STRATUM_BITS,
+  I_PACKED, I_N, I_TS, I_TAINT_BYTES, I_B, I_M, I_SEED, I_ROW_BASE, I_COL_BASE, I_STRATUM_BITS,
   I_W_LA, I_W_BA, I_W_TT, I_K, I_SPLITS,
   I_WITH_AFF, I_L, I_FUSED, I_KEY_BITS, I_Q, I_S, I_T, I_E, I_V, I_P, I_W_NA,
   I_WITH_CONS, I_ZONE_BYTES, I_REGION_BYTES, I_LD, I_SS, I_AS, I_ZD, I_RD, I_SR, I_AR, I_AI,
@@ -76,14 +76,19 @@ extern "C" int k8s_fused_topk(const long long* ptrs, int n_ptrs, const long long
   const int n = iv(I_N), ts = iv(I_TS), b = iv(I_B), m = iv(I_M), k = iv(I_K);
   const int splits = iv(I_SPLITS), sb = iv(I_STRATUM_BITS);
   const bool with_aff = iv(I_WITH_AFF) != 0, with_cons = iv(I_WITH_CONS) != 0;
-  if (ts < 0 || ts > kMaxTaintSlots || m < 1 || m > 32 * kTolWords || k < 1 || k > kMaxK ||
-      splits < 1 || b < 1 || n < 0 || sb < 0 || sb > kJitterBits || iv(I_KW) < 1) {
+  const bool packed = iv(I_PACKED) != 0;
+  const int taint_bytes = iv(I_TAINT_BYTES);
+  // Any taint slot count and id range: slots past the staged ones and ids
+  // past the register bits are read from global memory (fused_topk.cuh).
+  // The packed meta word holds two effect bits per slot after bit 0.
+  if (ts < 1 || m < 1 || k < 1 || k > kMaxK || splits < 1 || b < 1 || n < 0 || sb < 0 ||
+      sb > kJitterBits || iv(I_KW) < 1 || (packed && 1 + 2 * ts > 32) ||
+      !(taint_bytes == 4 || (packed && taint_bytes == 2))) {
     return (int)cudaErrorInvalidValue;
   }
-  if (with_aff && (iv(I_Q) < 1 || iv(I_Q) > kMaxQueryKeys || iv(I_V) < 0 ||
-                   iv(I_V) > kMaxValues || iv(I_P) < 0 || iv(I_P) > kMaxPrefTerms ||
-                   iv(I_L) < 0 || iv(I_S) < 0 || iv(I_T) < 0 || iv(I_E) < 0 ||
-                   iv(I_KEY_BITS) < 1 || iv(I_KEY_BITS) > 30)) {
+  // Any Q, V and P (no upper bound, as the Pallas kernel's loops).
+  if (with_aff && (iv(I_Q) < 0 || iv(I_V) < 0 || iv(I_P) < 0 || iv(I_L) < 0 || iv(I_S) < 0 ||
+                   iv(I_T) < 0 || iv(I_E) < 0 || iv(I_KEY_BITS) < 1 || iv(I_KEY_BITS) > 30)) {
     return (int)cudaErrorInvalidValue;
   }
   if (with_cons && (!width_ok(ints[I_ZONE_BYTES]) || !width_ok(ints[I_REGION_BYTES]) ||
@@ -103,6 +108,7 @@ extern "C" int k8s_fused_topk(const long long* ptrs, int n_ptrs, const long long
   a.meta = (const int*)ptr(P_META);
   a.n = n;
   a.ts = ts;
+  a.taint_bytes = taint_bytes;
   a.p_cpu = (const int*)ptr(P_P_CPU);
   a.p_mem = (const int*)ptr(P_P_MEM);
   a.p_valid = (const uint8_t*)ptr(P_P_VALID);
@@ -184,7 +190,6 @@ extern "C" int k8s_fused_topk(const long long* ptrs, int n_ptrs, const long long
   a.w_ts = iv(I_W_TS);
   a.w_ipa = iv(I_W_IPA);
 
-  const bool packed = iv(I_PACKED) != 0;
   const int kmax = kmax_bucket(k);
   cudaStream_t s = (cudaStream_t)stream;
   const StageFn stage = stage_fn(with_aff, with_cons);

@@ -61,14 +61,31 @@
 //   members).
 // - Per tile, thread t computes row t's column hash bits, decodes its
 //   hard/soft taint slots into shared memory and, with
-//   affinity, resolves the batch's Q query keys against row t's label
-//   slots into shared memory (found bits, value id, numeric; last matching
-//   slot wins, as the Pallas loop does; the fused packed word decodes as
-//   key = w & (2^kb - 1), val = w >> kb).  A member then evaluates its
-//   pod's live selector expressions at its own rows only, loading each
-//   expression once per tile, into bit masks held in registers.  The Pallas
-//   one-hot matmuls over 16-bit halves become these direct integer loads:
-//   ids and numerics compare exactly over the full i32 range.
+//   affinity, resolves the batch's first kResolveKeys query keys against
+//   row t's label slots into shared memory (found bits, value id, numeric;
+//   last matching slot wins, as the Pallas loop does; the fused packed word
+//   decodes as key = w & (2^kb - 1), val = w >> kb).  A member then
+//   evaluates its pod's live selector expressions at its own rows only,
+//   loading each expression once per tile, into bit masks held in
+//   registers.  The Pallas one-hot matmuls over 16-bit halves become these
+//   direct integer loads: ids and numerics compare exactly over the full
+//   i32 range.
+// - Any shape the Pallas kernel takes (it loops over whatever Q, V, P, TS
+//   and M it is given) runs here too, with the common shapes on the fast
+//   paths above and the rest spilled to global memory, so shared memory
+//   and registers do not grow with the shape:
+//   * a query key at index >= kResolveKeys resolves per (expression, row)
+//     by scanning the row's label slots from the last one back (__ldg);
+//   * an In/NotIn set holds its first kMaxValues values in registers and
+//     reads the rest with __ldg;
+//   * the first kMaxPrefTerms preferred terms are register masks, later
+//     ones are evaluated per (group, row) with the same expression code,
+//     their weights re-read, so the f32 sum keeps the term order;
+//   * a row with more than kStagedTaints counted taints (or a taint id
+//     above 15 bits) is marked spilled and its slots are re-read from the
+//     table per (group, row); the tolerated bits of ids below 32 *
+//     kTolWords sit in registers, the rest are the pod's tolerated bytes
+//     (__ldg).
 // - Constraints: per (group, row) and live ref, the node count is a load
 //   of node_tab[slot * ld + row] through the window's column view (row
 //   stride ld, no copy), zone/region counts are tab[slot * Z + zone] from
@@ -100,13 +117,14 @@ constexpr int kPods = 128;        // pods per block, one per thread
 constexpr int kTile = kPods;      // widest tile of node rows
 constexpr int kColWords = 132;    // span_words(kTile, 4), rounded up to 4
 static_assert(span_words(kTile, 4) <= kColWords, "a staged column span must fit");
-constexpr int kMaxTaintSlots = 16;
-constexpr int kTolWords = 4;      // tolerated bits per pod: max_taint_ids <= 128
+constexpr int kStagedTaints = 16;  // counted taints of a row staged in shared memory
+constexpr uint8_t kTaintSpill = 0xFF;  // s_ntaints: re-read the row's slots from the table
+constexpr int kTolWords = 4;      // tolerated bits of ids below 128 held in registers
 constexpr uint16_t kHardBit = 0x8000;
 
-constexpr int kMaxQueryKeys = 16;      // PodSpec.query_keys
-constexpr int kMaxValues = 8;          // PodSpec.aff_values
-constexpr int kMaxPrefTerms = 4;       // PodSpec.pref_terms
+constexpr int kResolveKeys = 16;       // query keys resolved per tile in shared memory
+constexpr int kMaxValues = 8;          // In/NotIn values held in registers
+constexpr int kMaxPrefTerms = 4;       // preferred terms held as register masks
 constexpr int kResolveStride = kTile + 1;
 constexpr int kNoNumeric = (int)0x80000000;
 constexpr int kOpIn = 0, kOpNotIn = 1, kOpExists = 2, kOpDoesNotExist = 3, kOpGt = 4, kOpLt = 5;
@@ -127,11 +145,12 @@ struct Args {
   const int* mem_req;
   const int* pods_req;
   const int* name_id;
-  const void* taint_id;     // i32[N, TS] plain, i16[N, TS] packed
+  const void* taint_id;     // i32[N, TS] plain, i16 or i32[N, TS] packed
   const int* taint_eff;     // i32[N, TS] plain only
   const int* meta;          // i32[N] packed only
   int n;
   int ts;
+  int taint_bytes;          // 2 or 4 (packed); 4 plain
   const int* p_cpu;
   const int* p_mem;
   const uint8_t* p_valid;
@@ -240,12 +259,12 @@ struct ConsShared {             // the tile's zone and region ids, widened
   int region[kTile];
 };
 struct AffShared {
-  int qkey[kMaxQueryKeys];
-  // Row kMaxQueryKeys stays not-found: a query index outside [0, Q) reads
+  int qkey[kResolveKeys];
+  // Row kResolveKeys stays not-found: a query index outside [0, Q) reads
   // it, i.e. resolves to not-found, as the Pallas one-hot selection does.
-  uint32_t found[kMaxQueryKeys + 1][kTile / 32];   // bit j & 31 of word j >> 5: row j
-  int val[kMaxQueryKeys + 1][kResolveStride];
-  int num[kMaxQueryKeys + 1][kResolveStride];
+  uint32_t found[kResolveKeys + 1][kTile / 32];   // bit j & 31 of word j >> 5: row j
+  int val[kResolveKeys + 1][kResolveStride];
+  int num[kResolveKeys + 1][kResolveStride];
 };
 struct NoShared {};
 
@@ -257,26 +276,91 @@ __device__ __forceinline__ uint32_t word_of(const uint32_t (&x)[kTile / 32], int
   return v;
 }
 
+// The slot of a query index: itself in [0, Q), else -1 (not found).
+__device__ __forceinline__ int query_slot(int q, int nq) { return (q >= 0 && q < nq) ? q : -1; }
+
+// Query slot qs at tile row j (table row `row`): found, value id and
+// numeric of the row's last label slot whose key is the query key (none:
+// not found, 0, 0).  Slots below kResolveKeys (and -1) read the tile's
+// resolve in shared memory; the others scan the row's label slots from
+// the last one back.  `key` is qkey[qs] for those (the caller loads it).
+__device__ __forceinline__ void resolve_at(const AffShared& sa, const Args& a, int qs, int key,
+                                           int j, int row, bool& f, int& x, int& num) {
+  if (qs < kResolveKeys) {
+    const int r = qs < 0 ? kResolveKeys : qs;
+    f = (sa.found[r][j >> 5] >> (j & 31)) & 1u;
+    x = sa.val[r][j];
+    num = sa.num[r][j];
+    return;
+  }
+  f = false;
+  x = 0;
+  num = 0;
+  const size_t lb = (size_t)row * a.l;
+  for (int s = a.l - 1; s >= 0; --s) {
+    const int word = __ldg(a.label_key + lb + s);
+    const int lk = a.fused ? (word & ((1 << a.key_bits) - 1)) : word;
+    if (lk != 0 && lk == key) {               // NONE slots never match
+      f = true;
+      x = a.fused ? (word >> a.key_bits) : __ldg(a.label_val + lb + s);
+      num = __ldg(a.label_num + lb + s);
+      return;
+    }
+  }
+}
+
+__device__ __forceinline__ int key_of(const Args& a, int qs) {
+  return qs >= kResolveKeys ? __ldg(a.qkey + qs) : 0;
+}
+
+// One expression's result from a resolved row (match_expressions
+// semantics, ops/label_match.py); the In/NotIn set is read from `vp`.
+__device__ __forceinline__ bool expr_value(int op, int operand, bool f, int x, int num,
+                                           const int* vp, int nv) {
+  switch (op) {
+    case kOpIn:
+    case kOpNotIn: {
+      bool in = false;
+      for (int i = 0; i < nv; ++i) in |= x == __ldg(vp + i);
+      const bool hit = f & in;
+      return op == kOpIn ? hit : !hit;
+    }
+    case kOpExists: return f;
+    case kOpDoesNotExist: return !f;
+    case kOpGt:
+    case kOpLt:
+      return operand != kNoNumeric && f && num != kNoNumeric &&
+             (op == kOpGt ? num > operand : num < operand);
+    default: return false;
+  }
+}
+
 // The rows of a member: the k-th row of the member of rank p in a group of
 // m pods is p + k * m.  One selector expression at the member's rows
 // 32 w .. 32 w + 31 (those below nmine): bit b is its result for row
 // p + (32 w + b) * m (match_expressions semantics, ops/label_match.py).
-__device__ __forceinline__ uint32_t expr_bits(const AffShared& sa, int q, int op, int operand,
-                                              const int (&vals)[kMaxValues], int nv, int p,
-                                              int m, int nmine, int w) {
+// The first kMaxValues values of an In/NotIn set are `vals`, the rest
+// vp[kMaxValues, nv).
+__device__ __forceinline__ uint32_t expr_bits(const AffShared& sa, const Args& a, int base,
+                                              int qs, int op, int operand,
+                                              const int (&vals)[kMaxValues], const int* vp,
+                                              int nv, int p, int m, int nmine, int w) {
   uint32_t bits = 0u;
   const int nb = min(32, nmine - 32 * w);
-  const uint32_t* fw = sa.found[q];
+  const int key = key_of(a, qs);
+  bool f;
+  int x, num;
   switch (op) {
     case kOpIn:
     case kOpNotIn:
       for (int b = 0; b < nb; ++b) {
         const int j = p + (32 * w + b) * m;
-        const int x = sa.val[q][j];
+        resolve_at(sa, a, qs, key, j, base + j, f, x, num);
         bool in = false;
 #pragma unroll
         for (int i = 0; i < kMaxValues; ++i) in |= (i < nv) & (x == vals[i]);
-        const bool hit = ((fw[j >> 5] >> (j & 31)) & 1u) & in;
+        for (int i = kMaxValues; i < nv && !in; ++i) in = x == __ldg(vp + i);
+        const bool hit = f & in;
         bits |= (uint32_t)(op == kOpIn ? hit : !hit) << b;
       }
       break;
@@ -284,7 +368,8 @@ __device__ __forceinline__ uint32_t expr_bits(const AffShared& sa, int q, int op
     case kOpDoesNotExist:
       for (int b = 0; b < nb; ++b) {
         const int j = p + (32 * w + b) * m;
-        bits |= (uint32_t)(((fw[j >> 5] >> (j & 31)) & 1u) == (op == kOpExists)) << b;
+        resolve_at(sa, a, qs, key, j, base + j, f, x, num);
+        bits |= (uint32_t)(f == (op == kOpExists)) << b;
       }
       break;
     case kOpGt:
@@ -292,9 +377,8 @@ __device__ __forceinline__ uint32_t expr_bits(const AffShared& sa, int q, int op
       if (operand == kNoNumeric) break;
       for (int b = 0; b < nb; ++b) {
         const int j = p + (32 * w + b) * m;
-        const int x = sa.num[q][j];
-        const bool ok = ((fw[j >> 5] >> (j & 31)) & 1u) & (x != kNoNumeric) &
-                        (op == kOpGt ? x > operand : x < operand);
+        resolve_at(sa, a, qs, key, j, base + j, f, x, num);
+        const bool ok = f & (num != kNoNumeric) & (op == kOpGt ? num > operand : num < operand);
         bits |= (uint32_t)ok << b;
       }
       break;
@@ -308,10 +392,11 @@ __device__ __forceinline__ uint32_t expr_bits(const AffShared& sa, int q, int op
 // the term has no valid expression (then it matches nothing).  `at`
 // indexes the term's first expression in the [B, terms, E] arrays; the
 // expression's loads happen once per tile.
-__device__ __forceinline__ bool term_bits(const AffShared& sa, int ne, int nq, int nv,
-                                          const uint8_t* ev, const int* qidx, const int* op,
-                                          const int* num, const int* vals, size_t at, int p,
-                                          int m, int nmine, uint32_t (&tm)[kTile / 32]) {
+__device__ __forceinline__ bool term_bits(const AffShared& sa, const Args& a, int base, int ne,
+                                          int nv, const uint8_t* ev, const int* qidx,
+                                          const int* op, const int* num, const int* vals,
+                                          size_t at, int p, int m, int nmine,
+                                          uint32_t (&tm)[kTile / 32]) {
   bool he = false;
 #pragma unroll
   for (int w = 0; w < kTile / 32; ++w) tm[w] = ~0u;
@@ -319,19 +404,66 @@ __device__ __forceinline__ bool term_bits(const AffShared& sa, int ne, int nq, i
     const size_t j = at + x;
     if (!ev[j]) continue;
     he = true;
-    int q = qidx[j];
-    q = (q >= 0 && q < nq) ? q : kMaxQueryKeys;
+    const int qs = query_slot(qidx[j], a.q);
+    const int* vp = vals + j * nv;
     int vs[kMaxValues];
 #pragma unroll
-    for (int i = 0; i < kMaxValues; ++i) vs[i] = i < nv ? vals[j * nv + i] : 0;
+    for (int i = 0; i < kMaxValues; ++i) vs[i] = i < nv ? vp[i] : 0;
     const int o = op[j];
     const int operand = num[j];
 #pragma unroll
     for (int w = 0; w < kTile / 32; ++w) {
-      if (32 * w < nmine) tm[w] &= expr_bits(sa, q, o, operand, vs, nv, p, m, nmine, w);
+      if (32 * w < nmine) tm[w] &= expr_bits(sa, a, base, qs, o, operand, vs, vp, nv, p, m, nmine, w);
     }
   }
   return he;
+}
+
+// Preferred term x of a pod at one row (tile row j, table row `row`):
+// the AND of its live expressions, false if it has none — the per-row
+// form of term_bits for the terms past kMaxPrefTerms.
+__device__ __forceinline__ bool pref_term_at(const AffShared& sa, const Args& a, int pod, int x,
+                                             int j, int row) {
+  const size_t at = ((size_t)pod * a.p + x) * a.e;
+  bool he = false;
+  for (int y = 0; y < a.e; ++y) {
+    const size_t i = at + y;
+    if (!__ldg(a.pref_ev + i)) continue;
+    he = true;
+    const int qs = query_slot(__ldg(a.pref_qidx + i), a.q);
+    bool f;
+    int xv, num;
+    resolve_at(sa, a, qs, key_of(a, qs), j, row, f, xv, num);
+    if (!expr_value(__ldg(a.pref_op + i), __ldg(a.pref_num + i), f, xv, num,
+                    a.pref_vals + i * a.v, a.v)) {
+      return false;
+    }
+  }
+  return he;
+}
+
+// Weight of a pod's preferred term x: live * weight as f32 (live = set
+// and with a valid expression).
+__device__ __forceinline__ float pref_weight(const Args& a, int pod, int x) {
+  const size_t at = (size_t)pod * a.p + x;
+  bool he = false;
+  for (int y = 0; y < a.e; ++y) he |= __ldg(a.pref_ev + at * a.e + y) != 0;
+  const bool lv = __ldg(a.pref_tv + at) != 0 && he;
+  return (float)(lv ? __ldg(a.pref_w + at) : 0);
+}
+
+// Taint slot t of the table row whose slots start at `at`: id and effect.
+template <bool PACKED>
+__device__ __forceinline__ void taint_slot(const Args& a, size_t at, int t, int meta, int& id,
+                                           int& eff) {
+  if (PACKED) {
+    id = a.taint_bytes == 2 ? (int)((const int16_t*)a.taint_id)[at + t]
+                            : ((const int*)a.taint_id)[at + t];
+    eff = (meta >> (1 + 2 * t)) & 3;
+  } else {
+    id = ((const int*)a.taint_id)[at + t];
+    eff = a.taint_eff[at + t];
+  }
 }
 
 // Count and domain validity of one (slot, topo) ref at one node
@@ -360,7 +492,7 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
   __shared__ std::conditional_t<WITH_CONS, ConsRaw, NoShared> s_craw[2];
   __shared__ std::conditional_t<WITH_CONS, ConsShared, NoShared> sc;
   __shared__ uint32_t s_colword[kTile];                // stratum | (column hash & m)
-  __shared__ uint16_t s_taints[kTile][kMaxTaintSlots];  // taint id | kHardBit, per row
+  __shared__ uint16_t s_taints[kTile][kStagedTaints];   // taint id | kHardBit, per row
   __shared__ uint8_t s_ntaints[kTile];
   __shared__ int s_start[kPods + 1];
   __shared__ int s_warp[kPods / 32];
@@ -372,10 +504,10 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
   const bool here = tid < live_n;
   const int pod = here ? a.order[q0 + tid] : 0;
   if constexpr (WITH_AFF) {
-    if (tid < a.q) sa.qkey[tid] = a.qkey[tid];
-    if (tid < kTile / 32) sa.found[kMaxQueryKeys][tid] = 0u;
-    sa.val[kMaxQueryKeys][tid] = 0;
-    sa.num[kMaxQueryKeys][tid] = 0;
+    if (tid < min(a.q, kResolveKeys)) sa.qkey[tid] = a.qkey[tid];
+    if (tid < kTile / 32) sa.found[kResolveKeys][tid] = 0u;
+    sa.val[kResolveKeys][tid] = 0;
+    sa.num[kResolveKeys][tid] = 0;
   }
 
   // This pod's group: a new one unless its key row equals its sorted
@@ -412,16 +544,16 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
 
   bool live = false;
   int pcpu = 0, pmem = 0, pnn = 0;
-  uint32_t tol[kTolWords];
+  uint32_t tol[kTolWords];          // tolerated bits of taint ids below 32 * kTolWords
 #pragma unroll
   for (int w = 0; w < kTolWords; ++w) tol[w] = 0u;
+  const uint8_t* const trow = a.tolerated + (size_t)pod * a.m;   // the pod's tolerated row
   int rhm = 0;
   if (here) {
     live = a.p_valid[pod] != 0;
     pcpu = a.p_cpu[pod];
     pmem = a.p_mem[pod];
     pnn = a.p_nnid[pod];
-    const uint8_t* trow = a.tolerated + (size_t)pod * a.m;
 #pragma unroll
     for (int w = 0; w < kTolWords; ++w) {
       uint32_t word = 0u;
@@ -435,8 +567,9 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
     rhm = (int)(hash_row(a.seed, row_id) & low_mask);
   }
 
-  // Per-pod constants of the affinity stage: required terms present, and
-  // each preferred term's weight (live * weight as f32) and their total.
+  // Per-pod constants of the affinity stage: required terms present, the
+  // first kMaxPrefTerms preferred terms' weights (live * weight as f32)
+  // and the total over all P, summed in term order.
   bool has_terms = false;
   float pref_wt[kMaxPrefTerms];
   float wtot = 0.0f;
@@ -448,14 +581,11 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
 #pragma unroll
       for (int x = 0; x < kMaxPrefTerms; ++x) {
         if (x < a.p) {
-          const size_t at = (size_t)pod * a.p + x;
-          bool he = false;
-          for (int y = 0; y < a.e; ++y) he |= a.pref_ev[at * a.e + y] != 0;
-          const bool lv = a.pref_tv[at] != 0 && he;
-          pref_wt[x] = (float)(lv ? a.pref_w[at] : 0);
+          pref_wt[x] = pref_weight(a, pod, x);
           wtot = wtot + pref_wt[x];
         }
       }
+      for (int x = kMaxPrefTerms; x < a.p; ++x) wtot = wtot + pref_weight(a, pod, x);
     }
   }
   // Per-pod constants of the constraint stage.
@@ -519,29 +649,40 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
       s_colword[tid] = jitter_of(hash_stratum(col, a.stratum_bits, low), 0u,
                                  hash_col(a.seed, col), low_mask);
       const int meta = PACKED ? s_raw[buf].meta[tid] : 0;
-      // All slots' loads first, so they overlap.
-      int tids[kMaxTaintSlots], effs[kMaxTaintSlots];
+      const size_t at = (size_t)(base + tid) * a.ts;
+      // The first kStagedTaints slots' loads first, so they overlap.
+      int tids[kStagedTaints], effs[kStagedTaints];
 #pragma unroll
-      for (int t = 0; t < kMaxTaintSlots; ++t) {
-        const size_t at = (size_t)(base + tid) * a.ts + t;
-        tids[t] = t >= a.ts ? 0 : PACKED ? (int)((const int16_t*)a.taint_id)[at]
-                                         : ((const int*)a.taint_id)[at];
-        effs[t] = t >= a.ts ? 0 : PACKED ? (meta >> (1 + 2 * t)) & 3 : a.taint_eff[at];
+      for (int t = 0; t < kStagedTaints; ++t) {
+        tids[t] = 0;
+        effs[t] = 0;
+        if (t < a.ts) taint_slot<PACKED>(a, at, t, meta, tids[t], effs[t]);
       }
       int nt = 0;
-#pragma unroll
-      for (int t = 0; t < kMaxTaintSlots; ++t) {
-        const int tid_t = tids[t];
-        const int eff = effs[t];
+      bool spill = false;
+      // Slot id 0 is "no taint"; ids outside [0, M) match no toleration
+      // column, as the Pallas one-hot gather counts nothing for them.  A
+      // counted taint past the staged ones, or with an id above 15 bits,
+      // spills the row: word_at re-reads its slots.
+      auto stage = [&](int tid_t, int eff) {
         const bool hard = eff == 1 || eff == 3;   // NoSchedule, NoExecute
         const bool soft = eff == 2;               // PreferNoSchedule
-        // Slot id 0 is "no taint"; ids outside [0, M) match no toleration
-        // column, as the Pallas one-hot gather counts nothing for them.
         if (tid_t > 0 && tid_t < a.m && (hard || soft)) {
-          s_taints[tid][nt++] = (uint16_t)(tid_t | (hard ? kHardBit : 0));
+          if (nt < kStagedTaints && tid_t < kHardBit) {
+            s_taints[tid][nt++] = (uint16_t)(tid_t | (hard ? kHardBit : 0));
+          } else {
+            spill = true;
+          }
         }
+      };
+#pragma unroll
+      for (int t = 0; t < kStagedTaints; ++t) stage(tids[t], effs[t]);
+      for (int t = kStagedTaints; t < a.ts && !spill; ++t) {
+        int tid_t, eff;
+        taint_slot<PACKED>(a, at, t, meta, tid_t, eff);
+        stage(tid_t, eff);
       }
-      s_ntaints[tid] = (uint8_t)nt;
+      s_ntaints[tid] = spill ? kTaintSpill : (uint8_t)nt;
       if constexpr (WITH_CONS) {
         sc.zone[tid] = span_at(s_craw[buf].zone, span_off(a.zone, a.zone_bytes, base),
                                a.zone_bytes, tid);
@@ -552,7 +693,8 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
     if constexpr (WITH_AFF) {
       uint32_t fbits = 0u;
       if (tid < count) {
-        for (int x = 0; x < a.q; ++x) {
+        const int nq = min(a.q, kResolveKeys);
+        for (int x = 0; x < nq; ++x) {
           sa.val[x][tid] = 0;
           sa.num[x][tid] = 0;
         }
@@ -563,7 +705,7 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
           if (lk == 0) continue;                  // NONE slots never match
           const int lv = a.fused ? (word >> a.key_bits) : a.label_val[lb + x];
           const int ln = a.label_num[lb + x];
-          for (int y = 0; y < a.q; ++y) {
+          for (int y = 0; y < nq; ++y) {
             if (sa.qkey[y] == lk) {               // last matching slot wins
               fbits |= 1u << y;
               sa.val[y][tid] = lv;
@@ -573,7 +715,7 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
         }
       }
 #pragma unroll
-      for (int y = 0; y < kMaxQueryKeys; ++y) {
+      for (int y = 0; y < kResolveKeys; ++y) {
         const uint32_t bits = __ballot_sync(0xFFFFFFFFu, (fbits >> y) & 1u);
         if ((tid & 31) == 0) sa.found[y][tid >> 5] = bits;
       }
@@ -582,6 +724,15 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
 
     // Filter and score of (this pod's group, row j) -> its staged word.
     const BaseRaw& R = s_raw[buf];
+    auto tolerates = [&](int tid_t) -> bool {   // does this pod tolerate taint id tid_t?
+      if (tid_t < 32 * kTolWords) {
+        uint32_t word = 0u;
+#pragma unroll
+        for (int w = 0; w < kTolWords; ++w) word = (w == (tid_t >> 5)) ? tol[w] : word;
+        return (word >> (tid_t & 31)) & 1u;
+      }
+      return __ldg(trow + tid_t) != 0;
+    };
     auto word_at = [&](int j, int k) -> int {
       const int row = base + j;
       const int meta = PACKED ? R.meta[j] : 0;
@@ -598,15 +749,24 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
       if (pnn != 0 && pnn != R.name_id[j]) return -1;
       int soft_cnt = 0;
       const int nt = s_ntaints[j];
-      for (int t = 0; t < nt; ++t) {
-        const int e = s_taints[j][t];
-        const int tid_t = e & 0x7FFF;
-        uint32_t word = 0u;
-#pragma unroll
-        for (int w = 0; w < kTolWords; ++w) word = (w == (tid_t >> 5)) ? tol[w] : word;
-        if (!((word >> (tid_t & 31)) & 1u)) {
-          if (e & kHardBit) return -1;
-          ++soft_cnt;
+      if (nt != kTaintSpill) {
+        for (int t = 0; t < nt; ++t) {
+          const int e = s_taints[j][t];
+          if (!tolerates(e & 0x7FFF)) {
+            if (e & kHardBit) return -1;
+            ++soft_cnt;
+          }
+        }
+      } else {
+        const size_t at = (size_t)row * a.ts;
+        for (int t = 0; t < a.ts; ++t) {
+          int tid_t, eff;
+          taint_slot<PACKED>(a, at, t, meta, tid_t, eff);
+          const bool hard = eff == 1 || eff == 3;
+          if (tid_t > 0 && tid_t < a.m && (hard || eff == 2) && !tolerates(tid_t)) {
+            if (hard) return -1;
+            ++soft_cnt;
+          }
         }
       }
       if constexpr (WITH_AFF) {
@@ -716,6 +876,11 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
               na_acc = na_acc + hit * pref_wt[x];
             }
           }
+          // Terms past the register masks, in order; a dead term adds 0.
+          for (int x = kMaxPrefTerms; x < a.p; ++x) {
+            const float wt = pref_weight(a, pod, x);
+            if (wt != 0.0f && pref_term_at(sa, a, pod, x, j, row)) na_acc = na_acc + wt;
+          }
           const float na = 100.0f * na_acc / fmaxf(wtot, 1.0f);
           score += (int)floorf(na) * a.w_na;
         }
@@ -735,15 +900,17 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
         for (int x = 0; x < a.s; ++x) {
           const size_t at = (size_t)pod * a.s + x;
           if (!a.sel_valid[at]) continue;
-          int q = a.sel_qidx[at];
-          q = (q >= 0 && q < a.q) ? q : kMaxQueryKeys;
+          const int qs = query_slot(a.sel_qidx[at], a.q);
           int vs[kMaxValues];
 #pragma unroll
           for (int i = 0; i < kMaxValues; ++i) vs[i] = 0;
           vs[0] = a.sel_val[at];
 #pragma unroll
           for (int w = 0; w < kTile / 32; ++w) {
-            if (32 * w < nmine) okw[w] &= expr_bits(sa, q, kOpIn, 0, vs, 1, rank, gsize, nmine, w);
+            if (32 * w < nmine) {
+              okw[w] &= expr_bits(sa, a, base, qs, kOpIn, 0, vs, a.sel_val + at, 1, rank, gsize,
+                                  nmine, w);
+            }
           }
         }
         if (has_terms) {
@@ -754,7 +921,7 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
             const size_t at = (size_t)pod * a.t + x;
             if (!a.req_tv[at]) continue;
             uint32_t tm[kTile / 32];
-            if (term_bits(sa, a.e, a.q, a.v, a.req_ev, a.req_qidx, a.req_op, a.req_num,
+            if (term_bits(sa, a, base, a.e, a.v, a.req_ev, a.req_qidx, a.req_op, a.req_num,
                           a.req_vals, at * a.e, rank, gsize, nmine, tm)) {
 #pragma unroll
               for (int w = 0; w < kTile / 32; ++w) any[w] |= tm[w];
@@ -772,8 +939,8 @@ __global__ void __launch_bounds__(kPods) fused_topk_kernel(const Args a) {
             const size_t at = (size_t)pod * a.p + x;
             if (a.pref_tv[at]) {
               uint32_t tm[kTile / 32];
-              if (term_bits(sa, a.e, a.q, a.v, a.pref_ev, a.pref_qidx, a.pref_op, a.pref_num,
-                            a.pref_vals, at * a.e, rank, gsize, nmine, tm)) {
+              if (term_bits(sa, a, base, a.e, a.v, a.pref_ev, a.pref_qidx, a.pref_op,
+                            a.pref_num, a.pref_vals, at * a.e, rank, gsize, nmine, tm)) {
 #pragma unroll
                 for (int w = 0; w < kTile / 32; ++w) prefw[x][w] = tm[w];
               }

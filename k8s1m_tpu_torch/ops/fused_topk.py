@@ -60,11 +60,6 @@ from k8s1m_tpu_torch.snapshot.constraints import NODE_FIELDS, slice_constraints
 from k8s1m_tpu_torch.snapshot.packing import DomainView, is_packed
 
 MAX_K = 128            # the Pallas running list is 128 wide
-MAX_TAINT_SLOTS = 16   # csrc/fused_topk.cuh kMaxTaintSlots
-MAX_TAINT_IDS = 128    # tolerated row held in four 32-bit registers
-MAX_QUERY_KEYS = 16    # kMaxQueryKeys: resolved keys of a tile in shared memory
-MAX_VALUES = 8         # kMaxValues: an In/NotIn set in registers
-MAX_PREF_TERMS = 4     # kMaxPrefTerms: one register mask per preferred term
 POD_TILE = 128         # pods per CUDA block
 _M32 = 0xFFFFFFFF
 
@@ -86,7 +81,7 @@ _PTRS = (
     "gkey", "order",
 )
 _INTS = (
-    "packed", "n", "ts", "b", "m", "seed", "row_base", "col_base", "stratum_bits",
+    "packed", "n", "ts", "taint_bytes", "b", "m", "seed", "row_base", "col_base", "stratum_bits",
     "w_la", "w_ba", "w_tt", "k", "splits",
     "with_aff", "l", "fused", "key_bits", "q", "s", "t", "e", "v", "p", "w_na",
     "with_cons", "zone_bytes", "region_bytes", "ld", "ss", "as", "zd", "rd", "sr", "ar", "ai",
@@ -240,9 +235,12 @@ def group_key(batch, *, with_affinity: bool = False, cons_inputs=None) -> torch.
 
 @functools.lru_cache(maxsize=32)
 def _hash_weights(width: int, device: torch.device) -> torch.Tensor:
-    # Below 2^20, so the int64 sum of up to 2^11 words of |x| < 2^31 never
-    # wraps; fixed, so the order is a function of the batch alone.
-    w = np.random.default_rng(width).integers(1, 1 << 20, width)
+    # Below 2^20 for rows of up to 2^11 words, and below 2^(31 -
+    # ceil(log2 width)) for wider ones, so the int64 sum of `width` words
+    # of |x| < 2^31 never wraps; fixed, so the order is a function of the
+    # batch alone.
+    bits = min(20, 31 - max(0, (width - 1).bit_length()))
+    w = np.random.default_rng(width).integers(1, 1 << max(bits, 1), width)
     return torch.from_numpy(w).to(device)
 
 
@@ -250,8 +248,6 @@ def group_order(key: torch.Tensor) -> torch.Tensor:
     """i32[B]: the pods sorted (stably) by a hash of their key rows, so
     pods with equal rows sit next to each other — unless another row
     collides with their hash, which only splits their group."""
-    if key.shape[1] > 1 << 11:
-        raise ValueError(f"group key rows are at most {1 << 11} words, got {key.shape[1]}")
     h = (key.to(torch.int64) * _hash_weights(key.shape[1], key.device)).sum(dim=1)
     return torch.argsort(h, stable=True).to(torch.int32)
 
@@ -285,16 +281,20 @@ def prepare_launch(table, batch, seed, profile, *, k, row_base=0, col_base=0,
     ts = table.taint_id.shape[1]
     b = batch.batch
     m = batch.tolerated.shape[1]
-    if not 1 <= ts <= MAX_TAINT_SLOTS:
-        raise ValueError(f"taint slots must be in [1, {MAX_TAINT_SLOTS}], got {ts}")
-    if not 1 <= m <= MAX_TAINT_IDS:
-        raise ValueError(f"max_taint_ids must be in [1, {MAX_TAINT_IDS}], got {m}")
+    # Any number of taint slots and taint ids (the kernel reads the slots
+    # and tolerated bytes it does not stage from global memory).
+    if ts < 1:
+        raise ValueError(f"taint slots must be >= 1, got {ts}")
+    if m < 1:
+        raise ValueError(f"max_taint_ids must be >= 1, got {m}")
     i32, i16, u8 = torch.int32, torch.int16, torch.bool
     narrow_t = i16 if packed else i32
     for name in ("cpu_alloc", "mem_alloc", "cpu_req", "mem_req", "pods_req", "name_id"):
         _require(getattr(table, name), name, i32, dev, (n,))
     _require(table.pods_alloc, "pods_alloc", narrow_t, dev, (n,))
-    _require(table.taint_id, "taint_id", narrow_t, dev, (n, ts))
+    # Packed taint ids are i16, or i32 past 2^15 ids (snapshot/packing.py).
+    taint_t = i32 if packed and table.taint_id.dtype == i32 else narrow_t
+    _require(table.taint_id, "taint_id", taint_t, dev, (n, ts))
     ptrs = {
         "cpu_alloc": table.cpu_alloc, "mem_alloc": table.mem_alloc,
         "pods_alloc": table.pods_alloc, "cpu_req": table.cpu_req, "mem_req": table.mem_req,
@@ -315,7 +315,8 @@ def prepare_launch(table, batch, seed, profile, *, k, row_base=0, col_base=0,
     ptrs.update(p_cpu=batch.cpu, p_mem=batch.mem, p_valid=batch.valid,
                 p_nnid=batch.node_name_id, tolerated=batch.tolerated)
     ints = dict(
-        packed=int(packed), n=n, ts=ts, b=b, m=m, seed=seed & _M32,
+        packed=int(packed), n=n, ts=ts, taint_bytes=table.taint_id.element_size(), b=b, m=m,
+        seed=seed & _M32,
         row_base=int(row_base), col_base=int(col_base), stratum_bits=stratum_bits,
         w_la=profile.least_allocated, w_ba=profile.balanced_allocation,
         w_tt=profile.taint_toleration, k=k,
@@ -379,12 +380,9 @@ def _affinity_args(table, batch, dev, packed):
     t, e = batch.req_expr_valid.shape[1:]
     v = batch.req_vals.shape[3]
     p = batch.pref_term_valid.shape[1]
-    if not 1 <= q <= MAX_QUERY_KEYS:
-        raise ValueError(f"PodSpec.query_keys must be in [1, {MAX_QUERY_KEYS}], got {q}")
-    if v > MAX_VALUES:
-        raise ValueError(f"PodSpec.aff_values must be <= {MAX_VALUES}, got {v}")
-    if p > MAX_PREF_TERMS:
-        raise ValueError(f"PodSpec.pref_terms must be <= {MAX_PREF_TERMS}, got {p}")
+    # Any Q, V and P, as the Pallas kernel (csrc/fused_topk.cuh resolves
+    # keys past its shared table, values past its registers and preferred
+    # terms past its masks from global memory).
     _require(batch.qkey, "qkey", i32, dev, (q,))
     for name, dtype, shape in (
         ("sel_valid", u8, (b, s)), ("sel_qidx", i32, (b, s)), ("sel_val", i32, (b, s)),

@@ -420,6 +420,30 @@ def list_prefix_values(store, prefix: bytes, *, page: int = 5000):
     raise CompactedError()
 
 
+def list_prefix_items(store, prefix: bytes, *, revision: int = 0, keys_only: bool = False,
+                      page: int = 5000) -> list:
+    """A prefix's ``(key, value)`` pairs (bare keys with ``keys_only``),
+    every page read at one revision (``revision``, or the first page's when
+    0) — ``list_prefix`` without the per-KV objects
+    (``MemStore.range_items``).  A pinned revision outside the store's
+    window raises ``CompactedError``/``FutureRevError``.  Falls back to
+    ``list_prefix`` for stores without the light parse."""
+    ri = getattr(store, "range_items", None)
+    if ri is None:
+        kvs, _ = list_prefix(store, prefix, page=page, keys_only=keys_only, revision=revision)
+        return [kv.key if keys_only else (kv.key, kv.value) for kv in kvs]
+    start, end = prefix, prefix_end(prefix)
+    out: list = []
+    rev = revision
+    while True:
+        r, more, items = ri(start, end, limit=page, revision=rev, keys_only=keys_only)
+        rev = rev or r
+        out.extend(items)
+        if not more or not items:
+            return out
+        start = (items[-1] if keys_only else items[-1][0]) + b"\x00"
+
+
 def drain_events_light(watcher, batch: int = 10000, limit: int = 200_000):
     """Yield ``(type, key, value, mod_revision)`` tuples (type 0=PUT,
     1=DELETE) from a watcher until its queue momentarily empties or
@@ -638,6 +662,47 @@ class MemStore:
             values.append(bytes(buf[kend:off]))
         last_key = bytes(buf[kend - klen:kend]) if n else None
         return rev, bool(more), values, last_key
+
+    def range_items(
+        self,
+        start: bytes,
+        end: bytes | None = None,
+        *,
+        revision: int = 0,
+        limit: int = 0,
+        keys_only: bool = False,
+    ) -> tuple[int, bool, list]:
+        """``range`` minus the KeyValue construction: returns ``(revision,
+        more, items)`` with ``(key, value)`` pairs, or bare keys with
+        ``keys_only`` — the light parse for audits that read only names
+        and bytes."""
+        lib = _lib()
+        out = ctypes.POINTER(ctypes.c_uint8)()
+        out_len = ctypes.c_size_t()
+        rc = lib.ms_range(
+            self._h, start, len(start),
+            end, 0 if end is None else len(end),
+            revision, limit, 0, 1 if keys_only else 0,
+            ctypes.byref(out), ctypes.byref(out_len),
+        )
+        if rc == _ERR_COMPACTED:
+            raise CompactedError(self.compact_revision)
+        if rc == _ERR_FUTURE_REV:
+            raise FutureRevError(f"revision {revision} > current")
+        data = _take_buf(lib, out, out_len)
+        buf = memoryview(data)
+        rev, _count, n, more = struct.unpack_from("<qqIB", buf, 0)
+        off = 21
+        items: list = []
+        unpack = _KV_FIXED.unpack_from
+        fixed = _KV_FIXED.size
+        for _ in range(n):
+            klen, vlen = unpack(buf, off)[:2]
+            kend = off + fixed + klen
+            off = kend + vlen
+            key = bytes(buf[kend - klen:kend])
+            items.append(key if keys_only else (key, bytes(buf[kend:off])))
+        return rev, bool(more), items
 
     def get(self, key: bytes, revision: int = 0) -> KeyValue | None:
         res = self.range(key, revision=revision)

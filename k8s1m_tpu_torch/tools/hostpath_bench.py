@@ -4,9 +4,9 @@ The port's own copy of ``k8s1m_tpu/tools/hostpath_bench.py``.  Its
 encode+cycle lane runs the wave on the card unless ``--device cpu`` is
 given, with ``--backend auto`` (the default: the kernels on ``cuda``, the
 scan path on the CPU) where the JAX tool hard-codes its CPU XLA path.  The
-lane's ``PodSpec(query_keys=80)`` is past the fused kernel's 16 resolved
-query keys, so on the card the kernels refuse it: pass ``--backend xla``
-there (the scan path on the card).
+lane's ``PodSpec(query_keys=80)`` runs on the fused kernel's affinity
+stage like any other query table (the kernel takes any number of query
+keys, as the Pallas kernel does).
 
 The hotfeed tentpole claims the host encode — the last serial stage of
 the scheduling cycle — collapses when encoding is cached by structural

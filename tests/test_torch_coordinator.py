@@ -304,17 +304,25 @@ def test_row_mask_half(pair_factory, pipeline):
 
 
 def test_unported_options_raise(tmp_path):
-    """The mesh and lease fencing stay refused; tracing, the flight
-    recorder and the profiler are ported and run."""
+    """The mesh stays refused; lease fencing, tracing, the flight recorder
+    and the profiler are ported and run."""
+    from k8s1m_tpu_torch.control.coordinator import _NOT_PORTED
     from k8s1m_tpu_torch.obs.podtrace import PodTracer
     from k8s1m_tpu_torch.obs.profiler import SamplingProfiler
     from k8s1m_tpu_torch.obs.trace import FlightRecorder
 
+    assert _NOT_PORTED == ("mesh",)
     with tnative.MemStore() as store:
-        for kw in (dict(mesh="2x4"), dict(fence=object())):
-            with pytest.raises(NotImplementedError):
-                Coordinator(store, TableSpec(max_nodes=N), PodSpec(batch=64),
-                            Profile(**BASE), chunk=512, device="cpu", **kw)
+        with pytest.raises(NotImplementedError):
+            Coordinator(store, TableSpec(max_nodes=N), PodSpec(batch=64),
+                        Profile(**BASE), chunk=512, device="cpu", mesh="2x4")
+        from k8s1m_tpu_torch.control.leader import LeaderElector
+
+        fence = LeaderElector(store, "a").fence()
+        fenced = Coordinator(store, TableSpec(max_nodes=N), PodSpec(batch=64),
+                             Profile(**BASE), chunk=512, device="cpu", fence=fence)
+        assert fenced.fence is fence
+        fenced.close()
         with pytest.raises(ValueError):
             Coordinator(store, TableSpec(max_nodes=N), PodSpec(batch=64), Profile(**BASE),
                         chunk=512, device="cpu", delta_index_k=8)

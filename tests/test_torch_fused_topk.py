@@ -343,3 +343,108 @@ def test_wrapper_requires_stats_with_constraints(rng):
     with pytest.raises(ValueError):
         fused_topk(port_table(host.to_device()), port_batch(pb), 1, Profile(), k=K,
                    constraints=object())
+
+
+# ---- shapes past the CUDA kernel's fast paths ------------------------------
+#
+# The Pallas kernel loops over whatever query keys, In/NotIn values,
+# preferred terms, taint slots and taint ids it is given; the port's kernel
+# takes them too (csrc/fused_topk.cuh spills past its fast paths), and its
+# plain version must agree with the Pallas kernel at each WIDE_SWEEP point.
+# Slot dims aff_terms = aff_exprs = 2 keep the interpreted kernel's time
+# down (it unrolls one evaluation per selector slot).
+
+WIDE_N = 256
+
+
+def _wide_state(shape, layout="plain"):
+    from k8s1m_tpu_torch.cluster.testbeds import wide_fleet, wide_pods
+
+    q, v, p, ts, m = shape
+    spec = TableSpec(max_nodes=WIDE_N, taint_slots=ts, max_taint_ids=m)
+    host = wide_fleet(NodeTableHost(spec), seed=ts + m)
+    pods = _to_jax(wide_pods(21, query_keys=q, values=v, pref_terms=p, max_taint_ids=m,
+                             seed=q))
+    pb = PodBatchHost(PodSpec(batch=24, query_keys=q, aff_values=v, pref_terms=p,
+                              aff_terms=2, aff_exprs=2), spec, host.vocab).encode_packed(pods)
+    return jax_tables(spec, host, layout), pb
+
+
+def _wide_cases():
+    from k8s1m_tpu_torch.cluster.testbeds import WIDE_SWEEP
+
+    cases = [("plain", s) for s in WIDE_SWEEP]
+    cases += [("packed", (80, 8, 4, 8, 128)), ("packed", (16, 8, 4, 8, 1024))]
+    return cases
+
+
+@pytest.mark.parametrize("layout,shape", _wide_cases(),
+                         ids=lambda x: x if isinstance(x, str) else "q{}-v{}-p{}-ts{}-m{}".format(*x))
+def test_wide_shapes_reference_matches_pallas(layout, shape):
+    jt, pb = _wide_state(shape, layout)
+    jb = unpack_pod_batch(pb.ints, pb.bools, pb.spec, pb.table_spec, pb.groups)
+    kw = dict(stratum_bits=5, row_base=1, col_base=9)
+    want_i, want_p = pallas_topk.fused_topk(
+        jt, jb, jnp.int32(77), JAX_AFF, chunk=WIDE_N, k=K, with_affinity=True,
+        interpret=True, **kw)
+    got_i, got_p = fused_topk(port_table(jt), port_batch(pb), 77, AFF, k=K,
+                              with_affinity=True, **kw)
+    np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    want_p = np.asarray(want_p)
+    assert (want_p >= 0).any() and (want_p < 0).any()
+
+
+class _FakeEntry:
+    """Stands in for the CUDA entry point: records the argument arrays."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, ptrs, n_ptrs, ints, n_ints, stream):
+        self.calls.append((list(ptrs), list(ints)))
+        return 0
+
+
+@pytest.mark.parametrize("shape", [(1024, 32, 16, 32, 1024), (80, 9, 5, 8, 129)],
+                         ids=lambda s: "q{}-v{}-p{}-ts{}-m{}".format(*s))
+def test_launch_arguments_take_wide_shapes(monkeypatch, shape):
+    """The wrapper's argument assembly (checks, group key and order, the
+    pointer and integer arrays) takes the wide shapes it used to refuse,
+    on both stages; the ctypes call is intercepted, so this runs on CPU
+    tensors."""
+    import contextlib
+    import types as _types
+
+    import torch
+
+    from k8s1m_tpu_torch.ops import fused_topk as ft
+
+    fake = _FakeEntry()
+    monkeypatch.setattr(ft, "_kernel_entry", lambda: fake)
+    monkeypatch.setattr(ft, "_resident_blocks", lambda *a: 8)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: _types.SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: _types.SimpleNamespace(cuda_stream=0))
+    q, v, p, ts, m = shape
+    jt, pb = _wide_state(shape)
+    table, batch = port_table(jt), port_batch(pb)
+    for with_aff in (False, True):
+        before = dict(ft.fused_topk.launches_by_stage)
+        run, (idx, prio) = ft.prepare_launch(table, batch, 5, AFF, k=K,
+                                             with_affinity=with_aff)
+        run()
+        stage = "aff" if with_aff else "base"
+        assert ft.fused_topk.launches_by_stage[stage] == before[stage] + 1
+        ptrs, ints = fake.calls[-1]
+        iv = dict(zip(ft._INTS, ints))
+        assert (iv["ts"], iv["m"], iv["taint_bytes"]) == (ts, m, 4)
+        if with_aff:
+            assert (iv["q"], iv["v"], iv["p"]) == (q, v, p)
+        assert len(ptrs) == len(ft._PTRS) and idx.shape == (24, K)
+        key = ft.group_key(batch, with_affinity=with_aff)
+        assert iv["kw"] == key.shape[1]
+        order = ft.group_order(key)
+        assert sorted(order.tolist()) == list(range(24))

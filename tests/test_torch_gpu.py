@@ -10,16 +10,21 @@ on a machine that has only PyTorch and the CUDA toolkit:
 Tolerance: exact equality — every output is an integer.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from k8s1m_tpu_torch.cluster import populate_kwok_nodes, uniform_pods
 from k8s1m_tpu_torch.cluster.testbeds import (
+    WIDE_SWEEP,
     affinity_pods,
     constraint_fleet,
     constraint_pods,
     labeled_fleet,
+    wide_fleet,
+    wide_pods,
 )
 from k8s1m_tpu_torch.config import (
     EFFECT_NO_EXECUTE,
@@ -194,6 +199,46 @@ def test_affinity_stage_last_matching_slot_wins(cuda, layout):
     idx, prio = fused_topk(t, batch, 99, AFF, **kw)
     ridx, rprio = fused_topk_reference(t, batch, 99, AFF, **kw)
     assert torch.equal(prio, rprio) and torch.equal(idx, ridx)
+
+
+def _wide_state(cuda, shape):
+    """The tables (plain, and packed where the taint slots fit its meta
+    word) and batch of one WIDE_SWEEP point at AN rows x AB pods."""
+    q, v, p, ts, m = shape
+    spec = TableSpec(max_nodes=AN, taint_slots=ts, max_taint_ids=m)
+    host = wide_fleet(NodeTableHost(spec), seed=ts + m)
+    pods = wide_pods(AB - 5, query_keys=q, values=v, pref_terms=p, max_taint_ids=m, seed=q)
+    pb = PodBatchHost(PodSpec(batch=AB, query_keys=q, aff_values=v, pref_terms=p), spec,
+                      host.vocab).encode_packed(pods)
+    tables = {"plain": host.to_device(cuda)}
+    if 1 + 2 * ts <= 31:
+        packed = pack_table_host(host, build_packing_spec(spec, host.vocab), cuda)
+        tables["packed"] = packed
+        # The packed layout's i32 taint ids (past 2^15 ids) at this shape.
+        tables["packed-i32-taints"] = dataclasses.replace(
+            packed, taint_id=packed.taint_id.to(torch.int32))
+    batch = unpack_pod_batch(pb.ints, pb.bools, pb.spec, pb.table_spec, pb.groups, cuda)
+    return tables, batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WIDE_SWEEP, ids=lambda s: "q{}-v{}-p{}-ts{}-m{}".format(*s))
+def test_wide_shapes_match_plain_version(cuda, shape):
+    """Every WIDE_SWEEP point — query keys, In/NotIn values, preferred
+    terms, taint slots and taint ids past the kernel's fast paths — on
+    the base and affinity stages, whole table and a window: the kernel
+    equals the plain version."""
+    tables, batch = _wide_state(cuda, shape)
+    for layout, table in tables.items():
+        for t in (table, table.narrow(300, 1024)):
+            for with_aff, profile in ((False, BASE), (True, AFF)):
+                kw = dict(k=4, stratum_bits=7, row_base=3, with_affinity=with_aff)
+                idx, prio = fused_topk(t, batch, 31337, profile, **kw)
+                torch.cuda.synchronize()
+                ridx, rprio = fused_topk_reference(t, batch, 31337, profile, **kw)
+                assert torch.equal(prio, rprio), (layout, with_aff)
+                assert torch.equal(idx, ridx), (layout, with_aff)
+                assert (rprio >= 0).any() and (rprio < 0).any()
 
 
 def _cons_state(cuda, layout, with_selectors):
@@ -912,3 +957,36 @@ def test_webhook_fed_coordinator_on_card_equals_cpu(cuda, slow_card):
     got, want = _webhook_stored("cuda"), _webhook_stored("cpu")
     assert got == want and len(got) == 8 * 128
     assert all(b'"nodeName"' in v for v in got.values())
+
+
+# ---- lease election, fencing and warm-standby failover ----------------------
+
+
+@pytest.mark.gpu
+def test_warm_takeover_on_card_equals_cpu(cuda, slow_card):
+    """``failover_drill`` (mid-wave kill with a cold and a warm standby, the
+    paused leader's split brain) on the card leaves the same stored pods in
+    every scenario as with ``--device cpu``, with the same evidence apart
+    from the takeover seconds, and passes every gate on both; the warm
+    standby's discarded wave runs the card's kernel on clones."""
+    from k8s1m_tpu_torch.ops.fused_topk import fused_topk as ft
+    from k8s1m_tpu_torch.tools import failover_drill
+
+    clock = ("recovery_s", "recovery_warm_s", "recovery_cold_s", "warm_speedup", "value",
+             "device")
+
+    def scrub(d):
+        return ({k: scrub(v) for k, v in d.items() if k not in clock}
+                if isinstance(d, dict) else d)
+
+    shape = ["--nodes", "1024", "--batch", "128", "--chunk", "256", "--pods-per-tick", "96",
+             "--pre-ticks", "6"]
+    before = ft.launches_by_stage["base"]
+    card = failover_drill.main(shape)
+    assert ft.launches_by_stage["base"] > before
+    cpu = failover_drill.main(shape + ["--device", "cpu"])
+    assert card["passed"] and cpu["passed"]
+    assert card["device"] == "cuda" and cpu["device"] == "cpu"
+    for k in ("mid_wave_kill_cold", "mid_wave_kill_warm", "split_brain"):
+        assert card["evidence"][k]["pods_sha256"] == cpu["evidence"][k]["pods_sha256"], k
+    assert scrub(card) == scrub(cpu)
