@@ -20,7 +20,10 @@ headline run with overload control, fault injection and tenancy (phase
 admission webhook (12), the overload and tenantfair drills (13),
 ``tools/hostpath_bench.py`` (14), ``tools/latency_curve.py`` (15) and
 ``tools/failover_drill.py``, lease election, fencing and warm-standby
-takeover (16, 16a).
+takeover (16, 16a), and the deployed topology, where the scheduler is a
+client of the store over the etcd wire: ``sched_bench --target`` against
+the port's store server (17, and BASELINE config 5 under 100 stress
+watchers, 17b) and the coordinator over the wire vs in-process (17a).
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device  — the card's name, and its name and power limit as
@@ -117,7 +120,7 @@ Phases (each raises on failure; the script then exits non-zero):
                ``Coordinator(with_constraints=True)``: 4 waves of 2048 spread
                + 2048 anti pods, the ``cons`` stage, no node holding anti
                pods of two waves, the count tables equal to a host recount
-               from the stored binds) and D5 (D1 at ``--rate 2000``, 16,384 pods:
+               from the stored binds) and D5 (D1 at ``--rate 2000``, 8,192 pods:
                p50/p95/p99 schedule-to-bind, adaptive quiesces).  Each pod
                is bound exactly once in the store, the device request
                columns (D3: and allocatable columns) equal the host mirror
@@ -164,7 +167,7 @@ Phases (each raises on failure; the script then exits non-zero):
                ``--trace 1``: stored pod values byte-identical;
   12. webhook intake — a ``Coordinator`` at D1's shape behind
                ``WebhookServer(coord.submit_external)``: one client thread
-               POSTs 16,384 AdmissionReviews in waves of 4,096, storing each
+               POSTs 8,192 AdmissionReviews in waves of 4,096, storing each
                wave after its admission; every answer 200 and allowed, every
                pod bound exactly once, no second bind from the watch intake.
                Prints POSTs/s, binds/s, schedule-to-bind p50/p99;
@@ -182,7 +185,7 @@ Phases (each raises on failure; the script then exits non-zero):
                the card's fused kernel with the tool's 80-key query table
                (one launch per wave, counted);
   15. latency curve — ``latency_curve --nodes 1048576 --rates
-               2000,4000,8000 --seconds 4 --min-pods 8192``: a row per point,
+               2000,4000,8000 --seconds 2 --min-pods 8192``: a row per point,
                the 2,000/s point (below D1's knee) within 5% of its offered
                rate;
   16. failover — ``failover_drill --nodes 1048576 --chunk 4096``: the
@@ -196,14 +199,35 @@ Phases (each raises on failure; the script then exits non-zero):
   16a. failover parity — the drill at its default shape (2,048 nodes,
                chunk 256) on the card and with ``--device cpu``: both pass,
                equal evidence without the wall-clock keys, byte-identical
-               stored pods per scenario.
+               stored pods per scenario;
+  17. D1 over the wire — ``python -m k8s1m_tpu_torch.store.server_main
+               --port 0`` in a fresh child process and ``sched_bench --target``
+               at D1's exact shape (1,048,576 nodes, 32,768 pods, batch 4096,
+               depth 2, 5%, packed, ``--stats --encode-profile``): every pod
+               bound exactly once, the checks of phase 8, the base stage
+               launched in the window, the server reaped.  Prints binds/s,
+               schedule-to-bind p50/p99, node write, cold build and relist
+               seconds, the stage means and the base launches (phase 8's D1,
+               in-process, is the comparison; it now prints its relist too);
+  17a. wire parity — 8a's uniform shape (65,536 nodes x 16,384 pods, 5%,
+               packed, chunk 4096, zero-delay retries) through a
+               ``Coordinator`` over a ``RemoteStore``, a watch progress
+               barrier before every ``step()``: on the card over the wire, on
+               the card in-process and on the CPU over the wire, each with a
+               fresh server; byte-identical stored pods;
+  17b. BASELINE config 5 — 17's shape with ``--churn --stress-watchers 100
+               --stress-write-concurrency 1`` (``tools/watch_stress.py`` as a
+               child process for the window): every pod bound, every pod not
+               deleted stored and bound, the stressor's report with no failed
+               stream and every write delivered to every watcher, server and
+               stressor reaped.  Prints 17's numbers and the stressor's.
 Phases 5 and 6 print the same group and bound figures as phase 4.  The
 next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
 stage configuration and one for the delta kernel: times, bound, launches;
 the fused entries add ``bound_per_pair_ms``, ``groups`` and
-``all_distinct_ms``; ``launches`` includes the coordinator's of phases 8
-and 10-16a, which ``coordinator_launches`` also gives alone, per fused
-stage);
+``all_distinct_ms``; ``launches`` includes the coordinator's of phases 8,
+10-16a and 17-17b, which ``coordinator_launches`` also gives alone, per
+fused stage);
 the last is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--steps 4] [--path-steps 3] [--delta-steps 2] [--warmup 1]
@@ -215,6 +239,7 @@ Needs one CUDA card; without one it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -1574,11 +1599,12 @@ def _delta_wave_checks(tag, layout, i, pre, table, asg, rows, planes, packed, se
 # ---- phase 8: the coordinator (store -> watch -> wave -> CAS bind) -----------
 
 # Cut to make room for phases 11-15: D1 from 65,536 pods to 32,768, D2
-# and D3 to 16,384, D4 from 8 waves to 4, D5 from 32,768 pods to 16,384.
+# and D3 to 16,384, D4 from 8 waves to 4, D5 from 32,768 pods to 16,384;
+# and for phases 17-17b, D5 to 8,192.
 COORD_PODS = {"D1": 32768, "D2": 16384, "D3": 16384}
 PARITY_NODES, PARITY_PODS = 65536, 16384
 D4_WAVES, D4_PER = 4, 2048          # 4 waves of 2048 spread + 2048 anti pods
-D5_RATE, D5_PODS = 2000, 16384
+D5_RATE, D5_PODS = 2000, 8192
 SHAPE_POOL = dict(shape_pool=8, shape_share=0.9, seed=3)
 # Zero-delay, zero-jitter retries: a retried pod's next wave does not
 # depend on the clock, so a card run and a CPU run see the same waves.
@@ -1895,6 +1921,8 @@ def phase_coordinator(config: str) -> dict:
         if lane in d:
             log(f"[{config}] {lane}: {json.dumps(d[lane])}")
     if config == "D1":
+        report["relist_s"] = _time_relist(store)
+        log(f"[D1] relist of {NODES:,} nodes in-process: {report['relist_s']:.3f} s")
         # The knock-out variants over the live table on both backends
         # (sched_bench's --kernel-profile ran the kernels; one block of
         # one call per variant on the scan path).
@@ -2289,14 +2317,16 @@ TRACE_PODS, TRACE_SAMPLE = 16384, 16
 # is spent.
 FLIGHT_THRESHOLD_S, FLIGHT_MAX_DUMPS = 0.001, 8
 TRACE_STAGES = {"queue_wait", "encode", "dispatch_wait", "device", "bind"}
-WEBHOOK_PODS, WEBHOOK_WAVE = 16384, 4096
+# Phase 12 from 16,384 POSTs to 8,192 and phase 15's window from 4 s to 2 s
+# to make room for phases 17-17b.
+WEBHOOK_PODS, WEBHOOK_WAVE = 8192, 4096
 # 12a: 256-pod waves; 3 rounds of 768 POSTs drive the controller to
 # SHEDDING (from the second round), then 2 rounds of 64.
 HOOK_PARITY_BATCH = 256
 HOOK_PARITY_ROUNDS = (768,) * 3 + (64,) * 2
 # D1 saturated near 5,700 binds/s on the H100 (PERF.md): 2,000 sits below
 # the knee (the gated point), 4,000 near it, 8,000 above it.
-CURVE_RATES, CURVE_SECONDS, CURVE_MIN_PODS = (2000, 4000, 8000), 4.0, 8192
+CURVE_RATES, CURVE_SECONDS, CURVE_MIN_PODS = (2000, 4000, 8000), 2.0, 8192
 CURVE_BELOW_KNEE = (2000,)
 # Keys of the drills' evidence that differ between the card and the CPU by
 # design; no key of either drill holds a host timing (both run on a
@@ -2466,7 +2496,7 @@ def _hook_pod(name: str, cpu_milli: int = 10):
 def phase_webhook() -> dict:
     """12: a ``Coordinator`` at D1's shape (1,048,576 nodes, batch 4096, 5%,
     depth 2, packed) behind ``WebhookServer(coord.submit_external)`` on
-    localhost.  One client thread POSTs 16,384 AdmissionReviews in waves of
+    localhost.  One client thread POSTs 8,192 AdmissionReviews in waves of
     4,096 and stores each wave after its admission (the apiserver's write);
     the main thread steps the coordinator once per stored wave.  Every
     response is 200 and allowed, every pod is bound exactly once, and the
@@ -2764,7 +2794,7 @@ def phase_hostpath() -> dict:
 
 
 def phase_curve() -> dict:
-    """15: ``latency_curve --nodes 1048576 --rates 2000,4000,8000 --seconds 4
+    """15: ``latency_curve --nodes 1048576 --rates 2000,4000,8000 --seconds 2
     --min-pods 8192`` (one ``sched_bench --rate R`` subprocess per point,
     through ``tools/with_deadline.py``): every point returns a row, and
     below the knee (``CURVE_BELOW_KNEE``) achieved binds/s is within 5% of
@@ -2925,6 +2955,155 @@ def phase_failover_parity() -> dict:
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
+WIRE_STRESS_WATCHERS, WIRE_STRESS_WRITERS = 100, 1
+
+
+def _time_relist(store) -> float:
+    """Seconds for the coordinator's node relist (``list_prefix_values``, the
+    light parse) of the whole fleet from ``store``."""
+    from k8s1m_tpu_torch.control.coordinator import NODES_PREFIX
+    from k8s1m_tpu_torch.store.native import list_prefix_values
+
+    t0 = time.perf_counter()
+    values, _rev = list_prefix_values(store, NODES_PREFIX)
+    seconds = time.perf_counter() - t0
+    check(len(values) == NODES, f"relist returned {len(values)} nodes, want {NODES}")
+    return round(seconds, 3)
+
+
+def phase_wire(config: str) -> dict:
+    """17 (D1 over the wire) / 17b (BASELINE config 5): ``sched_bench --target``
+    against ``python -m k8s1m_tpu_torch.store.server_main --port 0`` in a
+    fresh child process, at D1's exact shape (1,048,576 nodes, 32,768 pods,
+    batch 4096, depth 2, 5%, packed, ``--stats --encode-profile``); 17b adds
+    ``--churn --stress-watchers 100 --stress-write-concurrency 1``.  Every
+    pod bound once (17b: every pod not deleted), the base stage launched in
+    the window, the stressor's report read back with no failed stream and
+    every write delivered to every watcher, and the server and the stressor
+    gone afterwards."""
+    from k8s1m_tpu_torch.store.server_main import serve_subprocess
+    from k8s1m_tpu_torch.tools import sched_bench
+
+    over = _d1_over(pods=COORD_PODS["D1"], stats=True, encode_profile=True)
+    if config == "17b":
+        over.update(churn=True, stress_watchers=WIRE_STRESS_WATCHERS,
+                    stress_write_concurrency=WIRE_STRESS_WRITERS)
+    t0 = time.perf_counter()
+    with serve_subprocess() as (proc, target):
+        report, coord, store = sched_bench.run(_bench_args(target=target, **over))
+        try:
+            d = report["detail"]
+            pods = over["pods"]
+            if config == "17b":
+                check(d["bound"] + 1 == pods, f"[17b] {d['bound']} binds + 1 warm-up != {pods}")
+                check(d["deleted"] > 0, "[17b] churn deleted no pod")
+                # The last deletes' events reach the mirror, and the rows
+                # they freed the device table, before the checks.
+                sched_bench._settle(coord)
+                coord.run_until_idle()
+                _store_checks(config, coord, store, pods - d["deleted"])
+            else:
+                _coordinator_checks(config, report, coord, store, pods)
+            report["relist_s"] = _time_relist(store)
+        finally:
+            coord.close()
+            store.close()
+    check(proc.returncode is not None, f"[{config}] the store server is still running")
+    launches = d["launches"]
+    check(launches["fused_topk_by_stage"]["base"] > 0,
+          f"[{config}] no fused base-stage launch in the window: {launches}")
+    _log_report(config, report, t0)
+    log(f"[{config}] over the wire: node write {d['node_create_s']} s, cold build "
+        f"{d['cold_build_s']} s (bootstrap {d['bootstrap_s']} s), relist "
+        f"{report['relist_s']} s, fused base launches {launches['fused_topk_by_stage']['base']}")
+    log(f"[{config}] encode_profile: {json.dumps(d.get('encode_profile'))}")
+    if config == "17b":
+        ws = d.get("watch_stress")
+        check(ws is not None and d["watch_stress_rc"] is not None,
+              f"[17b] no report from the stressor: {ws}")
+        check(ws["watchers"] == WIRE_STRESS_WATCHERS and ws["stream_errors"] == 0,
+              f"[17b] stressor streams failed: {ws}")
+        check(ws["writes"] > 0 and ws["events_delivered"] == ws["watchers"] * ws["writes"],
+              f"[17b] not every write reached every watcher: {ws}")
+        log(f"[17b] watch stress: {json.dumps(ws)} (exit code {d['watch_stress_rc']})")
+    return report
+
+
+def _wire_parity_run(device: str, wire: bool) -> tuple[dict, float, dict]:
+    """17a member: a ``Coordinator`` driven directly over a ``RemoteStore`` to
+    a fresh server child process (``wire``) or over the in-process store, at
+    8a's uniform shape; pods written one batch at a time, and before every
+    ``step()`` a watch progress barrier (over the wire) puts every event up
+    to the store's revision in the coordinator's queue.  Returns the stored
+    pod values, the seconds and the launches."""
+    from k8s1m_tpu_torch.faultline import RetryPolicy
+    from k8s1m_tpu_torch.config import PodSpec, TableSpec
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.store.native import MemStore
+    from k8s1m_tpu_torch.store.remote import RemoteStore
+    from k8s1m_tpu_torch.store.server_main import serve_subprocess
+    from k8s1m_tpu_torch.tools import sched_bench
+
+    tag = f"17a {device} {'wire' if wire else 'in-process'}"
+    t0 = time.perf_counter()
+    server = serve_subprocess() if wire else contextlib.nullcontext((None, None))
+    with server as (proc, target):
+        store = RemoteStore(target) if wire else MemStore()
+        try:
+            sched_bench.write_nodes(store, PARITY_NODES)
+            coord = Coordinator(
+                store, TableSpec(max_nodes=PARITY_NODES), PodSpec(batch=BATCH),
+                Profile(node_affinity=0, topology_spread=0, interpod_affinity=0),
+                chunk=CHUNK, with_constraints=False, pipeline=True, depth=2,
+                score_pct=SCORE_PCT, packing="packed", device=device,
+                retry_policy=RetryPolicy(**_ZERO_DELAY))
+            coord.bootstrap()
+            values, keys, _strs = sched_bench._pod_values(_bench_args(pods=PARITY_PODS))
+            _reset_launches()
+
+            def step() -> int:
+                sched_bench._settle(coord)
+                return coord.step()
+
+            for off in range(0, PARITY_PODS, BATCH):
+                store.put_batch(list(zip(keys[off:off + BATCH], values[off:off + BATCH])))
+                step()
+            idle = 0
+            for _ in range(1000):
+                step()
+                idle = 0 if coord.queue or coord._inflights or coord._backoff else idle + 1
+                if idle > 1:
+                    break
+            launches = _launch_counts()
+            stored = _store_checks(tag, coord, store, PARITY_PODS)
+            coord.close()
+        finally:
+            store.close()
+    check(proc is None or proc.returncode is not None, f"[{tag}] the store server is running")
+    return stored, time.perf_counter() - t0, launches
+
+
+def phase_wire_parity() -> dict:
+    """17a: 8a's uniform shape (65,536 nodes x 16,384 pods, 5%, packed,
+    chunk 4096, zero-delay retries) through a ``Coordinator`` stepped with a
+    barrier before every step, on the card over the wire, on the card
+    in-process and on the CPU over the wire: byte-identical stored pods."""
+    runs = []
+    for device, wire in (("cuda", True), ("cuda", False), ("cpu", True)):
+        stored, seconds, launches = _wire_parity_run(device, wire)
+        runs.append((f"{device} {'wire' if wire else 'in-process'}", stored, seconds, launches))
+    for tag, stored, _s, _l in runs[1:]:
+        check(stored == runs[0][1], f"[17a] {tag} stored pod values differ from {runs[0][0]}")
+    check(runs[0][3]["fused_topk_by_stage"]["base"] > 0, f"[17a] no base launch: {runs[0][3]}")
+    log("[17a] " + ", ".join(f"{t} ({s:.1f}s)" for t, _st, s, _l in runs)
+        + f" left byte-identical pod values ({len(runs[0][1])} pods); card launches "
+        f"wire {runs[0][3]['fused_topk_by_stage']['base']}, in-process "
+        f"{runs[1][3]['fused_topk_by_stage']['base']}")
+    return {tag: {"seconds": round(s, 3), "launches": launches}
+            for tag, _st, s, launches in runs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="timed waves per layout (phase 4)")
@@ -2985,17 +3164,22 @@ def main(argv=None) -> int:
     curve = phase_curve()
     failover = phase_failover()
     failover_parity = phase_failover_parity()
+    wire = {"17": phase_wire("17")}
+    wire_parity = phase_wire_parity()
+    wire["17b"] = phase_wire("17b")
     log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
 
-    # Launches of the coordinator's paths (phases 8 and 10-16a, counts set to
-    # 0 just before each measured run and read just after it), per fused
-    # stage.
+    # Launches of the coordinator's paths (phases 8, 10-16a and 17-17b, counts
+    # set to 0 just before each measured run and read just after it), per
+    # fused stage.
     runs = ([r["detail"]["launches"] for r in coord.values()]
             + [megarow["launches"], trace["launches"], trace_parity["launches"],
                webhook["launches"], webhook_parity["cuda"]["launches"],
                drills["overload_drill"]["launches"], drills["tenantfair_drill"]["launches"],
                hostpath["launches"], curve["launches"], failover["launches"],
-               failover_parity["cuda"]["launches"]])
+               failover_parity["cuda"]["launches"]]
+            + [r["detail"]["launches"] for r in wire.values()]
+            + [wire_parity[tag]["launches"] for tag in ("cuda wire", "cuda in-process")])
     coord_launches = {
         stage: sum(r["fused_topk_by_stage"][stage] for r in runs)
         for stage in ("base", "aff", "cons")
@@ -3064,6 +3248,7 @@ def main(argv=None) -> int:
                        "webhook": webhook, "webhook_parity": webhook_parity,
                        "drills": drills, "hostpath": hostpath, "latency_curve": curve,
                        "failover": failover, "failover_parity": failover_parity,
+                       "wire": wire, "wire_parity": wire_parity,
                        **kernels}, f, indent=1, default=str)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,7 @@ import time
 
 from k8s1m_tpu_torch.faultline.plan import InjectedFault
 from k8s1m_tpu_torch.obs.metrics import Counter
+from k8s1m_tpu_torch.store.wire import StatusCode, WireError
 
 _RETRIES = Counter(
     "retry_attempts_total",
@@ -103,11 +104,16 @@ class GiveUp(Exception):
 
 
 def default_retryable(e: Exception) -> bool:
-    """Transient-error test shared by the store-facing components:
-    injected faults, connection resets and timeouts.  Semantic errors
-    (CompactedError, CAS conflicts, bad requests) are never retried
-    here — they have their own recovery contracts (relist, requeue)."""
-    return isinstance(e, (InjectedFault, ConnectionError, TimeoutError))
+    """Transient-wire-error test shared by the store-facing components:
+    injected faults, connection resets and timeouts, and the wire
+    client's ``WireError`` with gRPC UNAVAILABLE / DEADLINE_EXCEEDED /
+    RESOURCE_EXHAUSTED.  Semantic errors (CompactedError, CAS conflicts,
+    bad requests) are never retried here — they have their own recovery
+    contracts (relist, requeue)."""
+    if isinstance(e, (InjectedFault, ConnectionError, TimeoutError)):
+        return True
+    return isinstance(e, WireError) and e.code in (
+        StatusCode.UNAVAILABLE, StatusCode.DEADLINE_EXCEEDED, StatusCode.RESOURCE_EXHAUSTED)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,10 +2,13 @@
 
 The port's own copy of the parts of ``k8s1m_tpu/store/native.py`` the
 coordinator and ``tools/sched_bench.py`` call: ``MemStore`` (put, batched
-put, CAS, range, watch, the native bind wave ``bind_batch``), ``Watcher``
-(``poll_light``, the columnar pod drain ``poll_pods``), the paginated
-relists ``list_prefix``/``list_prefix_values``, ``drain_events_light``,
-``prefix_end``, the errors and the ``POD_*`` flags.  It loads the port's
+put, CAS, range, watch, the native bind wave ``bind_batch``; a write-ahead
+log with ``wal_dir=``), ``Watcher`` (``poll_light``, the columnar pod drain
+``poll_pods``), ``parse_pod_events`` (the same columnar parse over events
+received off the wire), ``WireFront`` (the native etcd-wire server over a
+``MemStore``), the paginated relists ``list_prefix``/``list_prefix_values``,
+``drain_events_light``, ``prefix_end``, the errors and the ``POD_*``
+flags.  It loads the port's
 own ``libmemstore.so`` (``store/build.py``), built from the C++ sources
 under ``native/``; binary result layouts are defined in
 ``native/memstore/memstore.h``.
@@ -26,7 +29,7 @@ _RELIST_COMPACTED = Counter(
     "compaction window mid-scan (the reflector-on-410 rule)", ()
 )
 
-_WAL_NONE = 0
+_WAL_MODES = {"none": 0, "buffered": 1, "fsync": 2}   # memstore.h MS_WAL_*
 
 _ERR_CAS = -1
 _ERR_COMPACTED = -2
@@ -68,6 +71,13 @@ class KeyValue:
     mod_revision: int
     version: int
     lease: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class WatchEvent:
+    type: str           # "PUT" | "DELETE"
+    kv: KeyValue
+    prev_kv: KeyValue | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,6 +248,16 @@ def _load_lib():
         c.c_void_p, c.c_int64, c.c_int, c.c_char_p, c.c_size_t,
         c.POINTER(P8), c.POINTER(c.c_size_t),
     ]
+    lib.ms_parse_pod_events.restype = c.c_int
+    lib.ms_parse_pod_events.argtypes = [
+        c.c_char_p, c.c_size_t, c.c_int, c.c_char_p, c.c_size_t,
+        c.POINTER(P8), c.POINTER(c.c_size_t),
+    ]
+    lib.wf_start.restype = c.c_void_p
+    lib.wf_start.argtypes = [c.c_void_p, c.c_char_p, c.c_int, c.c_int]
+    lib.wf_port.restype = c.c_int
+    lib.wf_port.argtypes = [c.c_void_p]
+    lib.wf_stop.argtypes = [c.c_void_p]
     return lib
 
 
@@ -342,6 +362,37 @@ class Watcher:
         if not self.canceled:
             _lib().ms_watch_cancel(self._store._h, self.id)
             self.canceled = True
+
+
+_POD_EV_REC = struct.Struct("<bqII")    # etype, mod_revision, klen, vlen
+
+
+def parse_pod_events(events, scheduler_name: bytes = b"") -> PodEventBatch:
+    """Run the native canonical-pod parser over already-received events
+    (``(etype, key, value, mod_revision)`` tuples, e.g. a RemoteWatcher's
+    buffered wire events) — the store-independent half of ``poll_pods``,
+    so the wire topology gets the same columnar lane as the in-process
+    store."""
+    lib = _lib()
+    parts = []
+    pack = _POD_EV_REC.pack
+    n = 0
+    for etype, key, value, mrev in events:
+        v = value or b""
+        parts.append(pack(etype, mrev, len(key), len(v)))
+        parts.append(key)
+        parts.append(v)
+        n += 1
+    frame = b"".join(parts)
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    out_len = ctypes.c_size_t()
+    rc = lib.ms_parse_pod_events(
+        frame, len(frame), n, scheduler_name, len(scheduler_name),
+        ctypes.byref(out), ctypes.byref(out_len),
+    )
+    if rc < 0:
+        raise ValueError(f"ms_parse_pod_events rc={rc}")
+    return PodEventBatch.parse(_take_buf(lib, out, out_len))
 
 
 def list_prefix(
@@ -460,11 +511,25 @@ def drain_events_light(watcher, batch: int = 10000, limit: int = 200_000):
 
 
 class MemStore:
-    """In-process native store with etcd semantics (no write-ahead log:
-    the coordinator's store lives and dies with its process)."""
+    """In-process native store with etcd semantics.
 
-    def __init__(self):
-        self._h = _lib().ms_open(None, _WAL_NONE, b"")
+    ``wal_dir=None`` disables the write-ahead log (the coordinator's own
+    store lives and dies with its process); ``wal_mode`` in {none,
+    buffered, fsync} mirrors the reference's ``--wal-default`` (reference
+    main.rs:60-81); ``no_write_prefixes`` skips the log for hot
+    non-durable prefixes like ``/registry/leases/`` (reference
+    ``--wal-no-write-prefix``)."""
+
+    def __init__(
+        self,
+        wal_dir: str | None = None,
+        wal_mode: str = "buffered",
+        no_write_prefixes: tuple[str, ...] = (),
+    ):
+        nwp = "\n".join(no_write_prefixes).encode()
+        self._h = _lib().ms_open(
+            wal_dir.encode() if wal_dir else None, _WAL_MODES[wal_mode], nwp
+        )
         if not self._h:
             raise RuntimeError("ms_open failed")
 
@@ -744,3 +809,30 @@ class MemStore:
     @property
     def compact_revision(self) -> int:
         return _lib().ms_compact_revision(self._h)
+
+
+class WireFront:
+    """The native etcd-wire server over an in-process ``MemStore``:
+    hand-rolled HTTP/2 + HPACK + the etcd protobuf subset in C++
+    (``native/wirefront/wirefront.cc``), dispatching straight into the
+    store on its event-loop threads.  Serves KV, Watch, Lease,
+    Maintenance.Status and the k8s1m.BatchKV extension.  ``port=0`` binds
+    a free port; ``self.port`` is the one bound."""
+
+    def __init__(self, store: MemStore, host: str = "127.0.0.1",
+                 port: int = 0, threads: int = 1):
+        self._h = _lib().wf_start(store._h, host.encode(), port, threads)
+        if not self._h:
+            raise RuntimeError(f"wf_start failed for {host}:{port}")
+        self.port = _lib().wf_port(self._h)
+
+    def close(self) -> None:
+        if self._h:
+            _lib().wf_stop(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

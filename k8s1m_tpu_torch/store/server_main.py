@@ -1,0 +1,122 @@
+"""CLI bootstrap for the etcd-compatible store server (the port's copy of
+``k8s1m_tpu/store/server_main.py``).
+
+Mirrors the reference's flags (reference mem_etcd/src/main.rs:60-81):
+
+    python -m k8s1m_tpu_torch.store.server_main \\
+        --port 2379 --wal-dir /var/lib/memstore --wal-default buffered \\
+        --wal-no-write-prefix /registry/leases/
+
+The server is the native front-end (``--wire native``, ``WireFront``:
+HTTP/2, HPACK and the etcd protobuf subset in C++) over the port's
+``MemStore``.  The first line on stdout is the bound port, so a caller can
+pass ``--port 0`` and read it back.  SIGTERM or SIGINT stops the server and
+closes the store (its write-ahead log flushed).
+
+Two flags of the JAX server name modules the port does not carry:
+``--wire asyncio`` (the asyncio gRPC server, ``store/etcd_server.py``,
+which needs a gRPC server library) and ``--metrics-port`` other than 0
+(the Prometheus endpoint, ``obs/http.py``).  Each exits with a message
+that says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import logging
+import os
+import select
+import signal
+import subprocess
+import sys
+import threading
+
+from k8s1m_tpu_torch.store.native import MemStore, WireFront
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="etcd-compatible in-memory store (port)")
+    ap.add_argument("--port", type=int, default=2379)
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--metrics-port", type=int, default=0,
+                    help="Prometheus endpoint port; the port has no obs/http.py yet, so "
+                    "only 0 (off) is accepted")
+    ap.add_argument("--wal-dir", default=None)
+    ap.add_argument("--wal-default", choices=["none", "buffered", "fsync"],
+                    default="buffered")
+    ap.add_argument("--wal-no-write-prefix", action="append", default=[],
+                    help="prefixes whose writes skip the WAL (e.g. /registry/leases/)")
+    ap.add_argument("--wire", choices=["asyncio", "native"], default="native",
+                    help="wire implementation: the C++ front-end (native/wirefront); "
+                    "the asyncio gRPC server is not part of the port")
+    ap.add_argument("--wire-threads", type=int, default=1,
+                    help="event-loop threads for --wire native")
+    args = ap.parse_args(argv)
+    if args.wire == "asyncio":
+        ap.exit(2, "server_main: --wire asyncio needs the asyncio gRPC server "
+                "(k8s1m_tpu/store/etcd_server.py), which the port does not carry; "
+                "use --wire native\n")
+    if args.metrics_port:
+        ap.exit(2, "server_main: --metrics-port needs the metrics endpoint "
+                "(k8s1m_tpu/obs/http.py), which the port does not carry; pass 0\n")
+    return args
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO)
+    args = parse_args(argv)
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+    store = MemStore(wal_dir=args.wal_dir, wal_mode=args.wal_default,
+                     no_write_prefixes=tuple(args.wal_no_write_prefix))
+    try:
+        wf = WireFront(store, host=args.host, port=args.port, threads=args.wire_threads)
+        try:
+            print(wf.port, flush=True)
+            logging.info("memstore serving etcd API on :%d via native wirefront", wf.port)
+            # The C++ loops serve; this thread only waits for the signal.
+            while not stop.wait(1.0):
+                pass
+        finally:
+            wf.close()
+    finally:
+        store.close()
+    sys.stdout.flush()
+
+
+@contextlib.contextmanager
+def serve_subprocess():
+    """Run this server in a child process on a free port of 127.0.0.1;
+    yields ``(process, "127.0.0.1:port")``.  A server that does not report
+    its port within two minutes (a first run builds ``libmemstore.so``)
+    fails the caller; on every exit path the child is terminated (killed
+    if it lingers) and reaped."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "k8s1m_tpu_torch.store.server_main", "--port", "0",
+         "--host", "127.0.0.1", "--wal-default", "none"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, env=env, cwd=root)
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 120.0)
+        line = proc.stdout.readline().strip() if ready else ""
+        if not line.isdigit():
+            raise RuntimeError(f"store server did not start (exit code {proc.poll()}, "
+                               f"first line {line!r})")
+        yield proc, f"127.0.0.1:{line}"
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        proc.stdout.close()
+
+
+if __name__ == "__main__":
+    main()

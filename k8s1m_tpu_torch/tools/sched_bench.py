@@ -2,7 +2,7 @@
 
 The port's counterpart of ``k8s1m_tpu/tools/sched_bench.py``: the full
 loop the coordinator runs, on the port's engine and kernels.  Nodes are
-written into an in-process store in waves of 8192, the coordinator
+written into the store in waves of 8192, the coordinator
 bootstraps (relist + bulk ingest + device table), one pod warms every
 path up, and then one of two measured windows runs:
 
@@ -45,10 +45,28 @@ or a named plan) for the run; the injected-fault and retry counts land in
 the report.  ``--trace N`` traces 1-in-N pods through their lifecycle
 (``obs/podtrace.py``; the waterfall lands in ``latency_attribution``,
 ``--trace-out`` writes the Perfetto export) and ``--profile PATH`` samples
-the measured window (``obs/profiler.py``).  The JAX tool's remote store,
-stress watchers and mesh are not part of the port; their flags are
-unknown here.  With nothing to compile, ``--churn`` skips the JAX tool's
-warm-up wave of 4096 throwaway pods.
+the measured window (``obs/profiler.py``).  With nothing to compile,
+``--churn`` skips the JAX tool's warm-up wave of 4096 throwaway pods.  The
+JAX tool's mesh is not part of the port; ``--mesh`` is unknown here.
+
+The store is in-process by default (store and scheduler colocated, like
+the reference's mem_etcd benchmarks).  ``--target host:port`` drives a
+remote etcd-wire server instead (``store/remote.py`` over the port's own
+HTTP/2 client; ``--ca-pem``/``--token`` for a TLS tier with bearer auth),
+adding the wire hop to every write, relist, watch event and bind — the
+deployed topology, where the scheduler is a client of the store:
+
+    python -m k8s1m_tpu_torch.store.server_main --port 2379 &
+    python -m k8s1m_tpu_torch.tools.sched_bench --target 127.0.0.1:2379 \
+        --nodes 4096 --pods 8192 --device cpu
+
+Over the wire a write's watch event can still be in flight when the
+coordinator finds its queue empty, so the window's tail first waits on a
+watch progress barrier (``RemoteWatcher.progress``).  ``--stress-watchers
+N`` (needs ``--target``) runs ``tools/watch_stress.py`` against the same
+server for the whole measured window — BASELINE config 5 is churn under
+that apiserver stress — and its report (delivered events, stream errors)
+lands in the report's ``watch_stress``.
 """
 
 from __future__ import annotations
@@ -58,7 +76,10 @@ import contextlib
 import copy
 import json
 import math
+import os
 import random
+import signal
+import subprocess
 import sys
 import time
 
@@ -176,6 +197,18 @@ def parse_args(argv=None):
                     help="sample the measured window with obs/profiler.py, write the "
                     "collapsed-stack artifact to PATH and print the self-time top "
                     "table to stderr")
+    ap.add_argument("--target", default=None,
+                    help="remote store addr host:port (default: in-process store)")
+    ap.add_argument("--ca-pem", default=None,
+                    help="TLS: trust this CA for --target (a secured tier)")
+    ap.add_argument("--token", default=None, help="bearer token for --target")
+    ap.add_argument("--stress-watchers", type=int, default=0,
+                    help="run the apiserver-stress equivalent (tools/watch_stress) as a "
+                    "subprocess against the same --target for the whole measured window "
+                    "(config 5 is churn under watch stress).  Requires --target")
+    ap.add_argument("--stress-write-concurrency", type=int, default=1,
+                    help="stressor's concurrent writers (keep low, or the stressor "
+                    "starves the scheduler it is stressing)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--out", default=None, metavar="PATH",
                     help="also write the report JSON to PATH")
@@ -475,6 +508,58 @@ def _profiled(args, coord):
             print(prof.format_top(), file=sys.stderr)
 
 
+def _start_watch_stress(args) -> subprocess.Popen:
+    """Spawn the apiserver-stress equivalent against ``--target`` for the
+    measured window (``_stressed`` stops it)."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    cmd = [sys.executable, "-m", "k8s1m_tpu_torch.tools.watch_stress",
+           "--target", args.target, "--watchers", str(args.stress_watchers),
+           "--write-concurrency", str(args.stress_write_concurrency),
+           "--writes", str(1 << 30)]
+    if args.ca_pem:
+        cmd += ["--ca-pem", args.ca_pem]
+    if args.token:
+        cmd += ["--token", args.token]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                            text=True, env=env, cwd=root)
+
+
+@contextlib.contextmanager
+def _stressed(args, out: dict):
+    """The watch stressor around the measured window (``--stress-watchers``):
+    SIGTERM at the end, its report into ``out["watch_stress"]``; on every
+    exit path the process is stopped (killed if it lingers) and reaped."""
+    if not args.stress_watchers:
+        yield
+        return
+    proc = _start_watch_stress(args)
+    try:
+        yield
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            stdout, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, _ = proc.communicate()
+        lines = (stdout or "").strip().splitlines()
+        out["watch_stress"] = json.loads(lines[-1]) if lines else None
+        out["watch_stress_rc"] = proc.returncode
+
+
+def _settle(coord) -> None:
+    """Over the wire a write's watch event may still be in flight when the
+    coordinator finds its queue empty: a progress barrier on each watch
+    brings every event written so far into its queue.  The in-process
+    watcher has no ``progress`` and needs none."""
+    for w in (coord._nodes_watch, coord._pods_watch):
+        progress = getattr(w, "progress", None)
+        if progress is not None:
+            progress()
+
+
 def _tenant_detail(args) -> dict:
     """Tenant-load shape for the report (empty without --tenants)."""
     if not args.tenants:
@@ -631,6 +716,7 @@ def _paced_window(args, coord, store, values, keys, key_strs):
             win.depth_samples.append(len(coord._inflights))
         if (emitted >= args.pods and not coord.queue and not coord._inflights
                 and not coord._backoff):
+            _settle(coord)
             bound += coord.run_until_idle()
             if args.churn:
                 dels = churn.advance(emitted - lag)
@@ -663,6 +749,7 @@ def _closed_window(args, coord, store, values, keys, key_strs):
         bound += coord.step()
         if off < args.pods:
             win.depth_samples.append(len(coord._inflights))
+    _settle(coord)
     bound += coord.run_until_idle()
     seconds = time.perf_counter() - t0
     if args.churn:
@@ -691,6 +778,8 @@ def run(args, **coord_kw):
     and the coordinator stay open for the caller's checks
     (``chip_smoke.py`` reads both); ``main`` closes them.  ``coord_kw``
     goes to the Coordinator (a test's deterministic ``retry_policy``)."""
+    if args.stress_watchers and not args.target:
+        raise SystemExit("--stress-watchers requires --target (wire store)")
     device = resolve_device(args.device)
     args.backend = resolve_backend(args.backend, device)
     if args.chunk is None:
@@ -698,7 +787,12 @@ def run(args, **coord_kw):
     if args.fault_plan:
         faultline.install_plan(faultline.FaultPlan.from_arg(args.fault_plan))
 
-    store = MemStore()
+    if args.target:
+        from k8s1m_tpu_torch.store.remote import RemoteStore
+
+        store = RemoteStore(args.target, ca_pem=args.ca_pem, token=args.token)
+    else:
+        store = MemStore()
     t0 = time.perf_counter()
     write_nodes(store, args.nodes)
     nodes_s = time.perf_counter() - t0
@@ -741,7 +835,8 @@ def run(args, **coord_kw):
         _warm_buckets(coord, store)
     _reset_window_metrics(coord)
     window = _paced_window if args.rate else _closed_window
-    with _profiled(args, coord):
+    stress: dict = {}
+    with _stressed(args, stress), _profiled(args, coord):
         bound, deleted, sched_s, win = window(args, coord, store, values, keys, key_strs)
     launches = _launches()
     if args.stats:
@@ -771,6 +866,9 @@ def run(args, **coord_kw):
         "waves": {p: coord.waves[p] for p in ("full", "delta")},
         "launches": launches,
         "delta_enabled": coord.delta_enabled,
+        "target": args.target,
+        "stress_watchers": args.stress_watchers,
+        **stress,
         **win.pipeline_detail(coord),
         **_tenant_detail(args),
         **_trace_detail(args, tracer),

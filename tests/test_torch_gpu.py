@@ -990,3 +990,34 @@ def test_warm_takeover_on_card_equals_cpu(cuda, slow_card):
     for k in ("mid_wave_kill_cold", "mid_wave_kill_warm", "split_brain"):
         assert card["evidence"][k]["pods_sha256"] == cpu["evidence"][k]["pods_sha256"], k
     assert scrub(card) == scrub(cpu)
+
+
+# ---- the store over the wire ---------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_sched_bench_over_the_wire_on_card(cuda):
+    """``sched_bench --target`` against the port's store server in a child
+    process: the nodes, the relist, every watch event and every bind cross
+    the wire, the fused kernel launches in the measured window, every pod
+    binds, and the server process is gone afterwards."""
+    from k8s1m_tpu_torch.store.native import list_prefix
+    from k8s1m_tpu_torch.store.server_main import serve_subprocess
+    from k8s1m_tpu_torch.tools import sched_bench
+
+    with serve_subprocess() as (proc, target):
+        args = sched_bench.parse_args(["--target", target, "--nodes", "16384", "--pods",
+                                       "4096", "--batch", "512", "--score-pct", "25",
+                                       "--packing", "packed"])
+        report, coord, store = sched_bench.run(args)
+        try:
+            coord.flush()
+            kvs, _ = list_prefix(store, b"/registry/pods/")
+        finally:
+            coord.close()
+            store.close()
+    assert proc.returncode is not None
+    d = report["detail"]
+    assert d["device"] == "cuda" and d["launches"]["fused_topk"] > 0
+    assert d["bound"] == 4095 and len(kvs) == 4096
+    assert all(b'"nodeName"' in kv.value for kv in kvs)

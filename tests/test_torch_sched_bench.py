@@ -61,7 +61,7 @@ def test_churn_deletes_bound_pods_and_store_agrees():
 
 SMALL = ["--nodes", "256", "--batch", "128", "--device", "cpu"]
 # Flags of the JAX tool the port leaves out, and the report keys they own.
-JAX_ONLY_KEYS = {"mesh", "stress_watchers"}
+JAX_ONLY_KEYS = {"mesh"}
 
 
 def _stored(store):
@@ -192,11 +192,14 @@ def test_offered_pods_at_steps_the_rate():
         100, 200, 600, 700]
     with pytest.raises(SystemExit):
         sched_bench.parse_args(["--overload-at", "2"])
-    # The JAX tool's remote and mesh flags are unknown; its fault-plan,
+    # The JAX tool's mesh flag is unknown; its remote-store, fault-plan,
     # trace and profile flags are the port's too.
-    for flag in ("--target", "--mesh", "--stress-watchers"):
-        with pytest.raises(SystemExit):
-            sched_bench.parse_args([flag, "1"])
+    with pytest.raises(SystemExit):
+        sched_bench.parse_args(["--mesh", "1"])
+    args = sched_bench.parse_args(["--target", "h:1", "--ca-pem", "ca.pem", "--token", "t",
+                                   "--stress-watchers", "2", "--stress-write-concurrency", "3"])
+    assert (args.target, args.ca_pem, args.token, args.stress_watchers,
+            args.stress_write_concurrency) == ("h:1", "ca.pem", "t", 2, 3)
     assert sched_bench.parse_args(["--fault-plan", "watchstorm"]).fault_plan == "watchstorm"
     args = sched_bench.parse_args(["--trace", "4", "--trace-out", "t.json", "--profile", "p.json"])
     assert (args.trace, args.trace_out, args.profile) == (4, "t.json", "p.json")
@@ -225,3 +228,55 @@ def test_write_nodes_writes_encode_node_bytes():
             assert v == encode_node(build_node(i))
             if i % 97 == 0:
                 assert v == jax_encode_node(jax_build_node(i))
+
+
+# ---- the wire lanes (--target, --stress-watchers) ------------------------------
+
+
+def test_stress_watchers_need_a_target():
+    """Refused with the JAX tool's message, before anything is written."""
+    with pytest.raises(SystemExit, match="--stress-watchers requires --target"):
+        sched_bench.main(SMALL + ["--pods", "64", "--stress-watchers", "2"])
+
+
+@pytest.mark.parametrize("lane", [[], ["--churn", "--stress-watchers", "4"]],
+                         ids=["target", "config5"])
+def test_target_report_keys_match_jax(lane):
+    """``--target`` against a store server, the port's tool against the
+    port's server and the JAX tool against the JAX one: the port's report
+    carries the JAX report's keys (``stress_watchers`` included), every pod
+    binds over the wire, and with ``--stress-watchers`` the stressor's own
+    report is read back (every event delivered to every watcher, no failed
+    stream) and its process is gone."""
+    import k8s1m_tpu.store.native as jnative
+    from k8s1m_tpu.tools.sched_bench import main as jax_main
+    from k8s1m_tpu_torch.store.server_main import serve_subprocess
+
+    shape = ["--nodes", "256", "--batch", "128", "--pods", "1024"]
+    with jnative.MemStore() as js, jnative.WireFront(js) as jwf:
+        want = jax_main(shape + ["--backend", "xla", "--target", f"127.0.0.1:{jwf.port}"]
+                        + lane)
+    with serve_subprocess() as (proc, target):
+        args = sched_bench.parse_args(shape + ["--device", "cpu", "--target", target] + lane)
+        report, coord, store = sched_bench.run(args)
+        try:
+            coord.flush()
+            stored = _stored(store)
+        finally:
+            coord.close()
+            store.close()
+    assert proc.returncode is not None
+    missing = {k for k in _key_sets(want) - _key_sets(report)
+               if k.split(".")[1] not in JAX_ONLY_KEYS}
+    assert not missing
+    d = report["detail"]
+    assert d["bound"] == 1023 and d["target"] == target
+    if lane:
+        assert d["deleted"] > 0 and len(stored) == 1024 - d["deleted"]
+        ws = d["watch_stress"]
+        assert d["stress_watchers"] == ws["watchers"] == 4 and d["watch_stress_rc"] == 0
+        assert ws["stream_errors"] == 0 and ws["writes"] > 0
+        assert ws["events_delivered"] == 4 * ws["writes"]
+    else:
+        assert len(stored) == 1024 and all(b'"nodeName"' in v for v in stored.values())
+        assert d["stress_watchers"] == 0 and "watch_stress" not in d
