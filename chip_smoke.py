@@ -23,7 +23,10 @@ admission webhook (12), the overload and tenantfair drills (13),
 takeover (16, 16a), and the deployed topology, where the scheduler is a
 client of the store over the etcd wire: ``sched_bench --target`` against
 the port's store server (17, and BASELINE config 5 under 100 stress
-watchers, 17b) and the coordinator over the wire vs in-process (17a).
+watchers, 17b) and the coordinator over the wire vs in-process (17a) —
+and the shard set: ``tools/shard_bench.py`` with 1, 2 and 4 worker
+processes sharing the card (18) and three ``ShardMember``s with the
+``Rebalancer`` in one process, card vs CPU (18a).
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device  — the card's name, and its name and power limit as
@@ -99,7 +102,7 @@ Phases (each raises on failure; the script then exits non-zero):
                layouts bind identically; no node over-committed; binds > 0.
                Prints binds/s, p50 wave ms, delta kernel ms/wave, merge,
                greedy-assign and fill ms, plane and table MB.
-  8a. coordinator parity — three groups at 65,536 nodes x 16,384 pods
+  8a. coordinator parity — three groups at 65,536 nodes x 8,192 pods
                (5% window, packed, depth 2, chunk 4096, zero-delay
                retries), each leaving byte-identical stored pod values:
                ``tools/sched_bench.py`` with uniform pods on the card's
@@ -111,11 +114,11 @@ Phases (each raises on failure; the script then exits non-zero):
                4096 --depth 2 --score-pct 5``, 32,768 pods, the fused kernel
                on every wave, with ``--encode-profile --delta-profile
                --stats --kernel-profile`` and the knock-out variants over the
-               live table on both backends), D2 (16,384 pods at the megarow shape:
+               live table on both backends), D2 (8,192 pods at the megarow shape:
                ``--batch 512 --depth 3 --score-pct 100 --deltacache on
                --delta-index-k 64 --stratum-bits 15``, the delta kernel on
                the delta waves), D3 (D1 with ``--shape-pool 8 --shape-share
-               0.9 --seed 3 --node-churn 4000``, 16,384 pods: the ``aff`` stage, the sync
+               0.9 --seed 3 --node-churn 4000``, 8,192 pods: the ``aff`` stage, the sync
                stage, no structural or resync quiesce), D4 (path B through a
                ``Coordinator(with_constraints=True)``: 4 waves of 2048 spread
                + 2048 anti pods, the ``cons`` stage, no node holding anti
@@ -167,7 +170,7 @@ Phases (each raises on failure; the script then exits non-zero):
                ``--trace 1``: stored pod values byte-identical;
   12. webhook intake — a ``Coordinator`` at D1's shape behind
                ``WebhookServer(coord.submit_external)``: one client thread
-               POSTs 8,192 AdmissionReviews in waves of 4,096, storing each
+               POSTs 4,096 AdmissionReviews in waves of 4,096, storing each
                wave after its admission; every answer 200 and allowed, every
                pod bound exactly once, no second bind from the watch intake.
                Prints POSTs/s, binds/s, schedule-to-bind p50/p99;
@@ -180,15 +183,15 @@ Phases (each raises on failure; the script then exits non-zero):
                shapes on the card and with ``--device cpu``: both pass, and
                the evidence is equal without the ``device`` key (no key of
                either drill holds a host timing);
-  14. hostpath — ``hostpath_bench --nodes 1048576``: the encode gate
+  14. hostpath — ``hostpath_bench --nodes 262144``: the encode gate
                (>= 3x), byte-identical encodes, and the encode+cycle lane on
                the card's fused kernel with the tool's 80-key query table
                (one launch per wave, counted);
-  15. latency curve — ``latency_curve --nodes 1048576 --rates
-               2000,4000,8000 --seconds 2 --min-pods 8192``: a row per point,
+  15. latency curve — ``latency_curve --nodes 262144 --rates
+               2000,8000 --seconds 2 --min-pods 8192``: a row per point,
                the 2,000/s point (below D1's knee) within 5% of its offered
                rate;
-  16. failover — ``failover_drill --nodes 1048576 --chunk 4096``: the
+  16. failover — ``failover_drill --nodes 262144 --chunk 4096``: the
                mid-wave kill with a cold and a warm standby and the paused
                leader's split brain, every gate (0 lost, 0 double binds in
                the full-history ledger, fencing rejects > 0 and no deposed
@@ -209,7 +212,7 @@ Phases (each raises on failure; the script then exits non-zero):
                schedule-to-bind p50/p99, node write, cold build and relist
                seconds, the stage means and the base launches (phase 8's D1,
                in-process, is the comparison; it now prints its relist too);
-  17a. wire parity — 8a's uniform shape (65,536 nodes x 16,384 pods, 5%,
+  17a. wire parity — 8a's uniform shape (65,536 nodes x 8,192 pods, 5%,
                packed, chunk 4096, zero-delay retries) through a
                ``Coordinator`` over a ``RemoteStore``, a watch progress
                barrier before every ``step()``: on the card over the wire, on
@@ -220,14 +223,33 @@ Phases (each raises on failure; the script then exits non-zero):
                child process for the window): every pod bound, every pod not
                deleted stored and bound, the stressor's report with no failed
                stream and every write delivered to every watcher, server and
-               stressor reaped.  Prints 17's numbers and the stressor's.
+               stressor reaped.  Prints 17's numbers and the stressor's;
+  18. shard set at scale — ``shard_bench --nodes 1048576 --pods 65536
+               --batch 4096 --score-pct 5`` with ``--shards`` 1, 2 and 4, each
+               against a fresh ``server_main``, every worker on ``cuda``:
+               the workers' binds sum to the pods and each worker binds its
+               FNV share, every worker done and exited 0, each launched the
+               base stage, every stored pod (warm-up pods too) on a node whose
+               group its shard owns in the final assignment, server and
+               workers reaped.  Prints binds/s, window s and the ratio to one
+               worker, populate and worker-ready s, per worker p50/p99
+               schedule-to-bind, conflicts, waves and stage means, peak card
+               memory and host RSS, ``mask_rows`` ms and new bytes, and the
+               host's core count;
+  18a. shard-set parity — at 65,536 nodes three ``ShardMember``s over one
+               in-process ``MemStore`` (5%, chunk 4096, zero-delay retries),
+               4,096 pods in four rounds over a skewed start, the
+               ``Rebalancer`` evening it out after round 2, on the card and
+               the CPU: after every tick the masks are disjoint and every
+               pod the tick bound sits on a row its member owned at launch;
+               byte-identical stored pods.
 Phases 5 and 6 print the same group and bound figures as phase 4.  The
 next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
 stage configuration and one for the delta kernel: times, bound, launches;
 the fused entries add ``bound_per_pair_ms``, ``groups`` and
 ``all_distinct_ms``; ``launches`` includes the coordinator's of phases 8,
-10-16a and 17-17b, which ``coordinator_launches`` also gives alone, per
-fused stage);
+10-16a, 17-17b, 18 (each worker's window) and 18a, which
+``coordinator_launches`` also gives alone, per fused stage);
 the last is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--steps 4] [--path-steps 3] [--delta-steps 2] [--warmup 1]
@@ -278,8 +300,13 @@ SCAN_OPS_PER_PAIR = 3
 COLUMN_HASH_OPS = 36
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, after the seconds since the script started
+    (the gaps between phases' lines are their times)."""
+    print(f"[{time.perf_counter() - _T0:7.1f}s] {msg}", flush=True)
 
 
 def check(cond, msg: str) -> None:
@@ -316,7 +343,7 @@ def phase_device() -> dict:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; {name}")
-    log(smi)
+    print(smi, flush=True)       # the line as nvidia-smi gives it, with no prefix
     return {"kind": name, "count": torch.cuda.device_count(), "nvidia_smi": smi}
 
 
@@ -1600,9 +1627,10 @@ def _delta_wave_checks(tag, layout, i, pre, table, asg, rows, planes, packed, se
 
 # Cut to make room for phases 11-15: D1 from 65,536 pods to 32,768, D2
 # and D3 to 16,384, D4 from 8 waves to 4, D5 from 32,768 pods to 16,384;
-# and for phases 17-17b, D5 to 8,192.
-COORD_PODS = {"D1": 32768, "D2": 16384, "D3": 16384}
-PARITY_NODES, PARITY_PODS = 65536, 16384
+# for phases 17-17b, D5 to 8,192; for phases 18-18a, D2 and D3 to 8,192 and
+# the parity runs of 8a, 11a and 17a from 16,384 pods to 8,192.
+COORD_PODS = {"D1": 32768, "D2": 8192, "D3": 8192}
+PARITY_NODES, PARITY_PODS = 65536, 8192
 D4_WAVES, D4_PER = 4, 2048          # 4 waves of 2048 spread + 2048 anti pods
 D5_RATE, D5_PODS = 2000, 8192
 SHAPE_POOL = dict(shape_pool=8, shape_share=0.9, seed=3)
@@ -1799,7 +1827,7 @@ def _constraint_run(device: str, *, nodes: int, waves: int, per: int, **coord_kw
 
 
 def phase_coordinator_parity() -> tuple[dict, dict]:
-    """8a: three groups of the same run, each at 65,536 nodes x 16,384
+    """8a: three groups of the same run, each at 65,536 nodes x 8,192
     pods, 5% window, packed, chunk 4096, zero-delay retries — uniform pods
     on the card's kernels, on the card's scan path (``backend="xla"``) and
     on the CPU; template pods (``--shape-pool 8 --shape-share 0.9 --seed
@@ -2318,15 +2346,18 @@ TRACE_PODS, TRACE_SAMPLE = 16384, 16
 FLIGHT_THRESHOLD_S, FLIGHT_MAX_DUMPS = 0.001, 8
 TRACE_STAGES = {"queue_wait", "encode", "dispatch_wait", "device", "bind"}
 # Phase 12 from 16,384 POSTs to 8,192 and phase 15's window from 4 s to 2 s
-# to make room for phases 17-17b.
-WEBHOOK_PODS, WEBHOOK_WAVE = 8192, 4096
+# to make room for phases 17-17b; for phases 18-18a, phase 12 to 4,096 POSTs,
+# phase 15 without its 4,000/s point, and phases 14, 15 and 16 at 262,144
+# nodes (D5 keeps the paced lane at 1,048,576).
+WEBHOOK_PODS, WEBHOOK_WAVE = 4096, 4096
+HOSTPATH_NODES = FAILOVER_NODES = CURVE_NODES = 1 << 18
 # 12a: 256-pod waves; 3 rounds of 768 POSTs drive the controller to
 # SHEDDING (from the second round), then 2 rounds of 64.
 HOOK_PARITY_BATCH = 256
 HOOK_PARITY_ROUNDS = (768,) * 3 + (64,) * 2
 # D1 saturated near 5,700 binds/s on the H100 (PERF.md): 2,000 sits below
-# the knee (the gated point), 4,000 near it, 8,000 above it.
-CURVE_RATES, CURVE_SECONDS, CURVE_MIN_PODS = (2000, 4000, 8000), 2.0, 8192
+# the knee (the gated point), 8,000 above it.
+CURVE_RATES, CURVE_SECONDS, CURVE_MIN_PODS = (2000, 8000), 2.0, 8192
 CURVE_BELOW_KNEE = (2000,)
 # Keys of the drills' evidence that differ between the card and the CPU by
 # design; no key of either drill holds a host timing (both run on a
@@ -2445,7 +2476,7 @@ def _sum_launches(*runs) -> dict:
 
 
 def phase_trace_parity(untraced: dict) -> dict:
-    """11a: 8a's uniform card run (65,536 nodes x 16,384 pods, chunk 4096,
+    """11a: 8a's uniform card run (65,536 nodes x 8,192 pods, chunk 4096,
     zero-delay retries, no tracer) again with ``--trace 1``: the stored pod
     values must equal the untraced run's byte for byte."""
     from k8s1m_tpu_torch.faultline import RetryPolicy
@@ -2496,7 +2527,7 @@ def _hook_pod(name: str, cpu_milli: int = 10):
 def phase_webhook() -> dict:
     """12: a ``Coordinator`` at D1's shape (1,048,576 nodes, batch 4096, 5%,
     depth 2, packed) behind ``WebhookServer(coord.submit_external)`` on
-    localhost.  One client thread POSTs 8,192 AdmissionReviews in waves of
+    localhost.  One client thread POSTs 4,096 AdmissionReviews in waves of
     4,096 and stores each wave after its admission (the apiserver's write);
     the main thread steps the coordinator once per stored wave.  Every
     response is 200 and allowed, every pod is bound exactly once, and the
@@ -2753,7 +2784,7 @@ def phase_drills() -> dict:
 
 
 def phase_hostpath() -> dict:
-    """14: ``hostpath_bench --nodes 1048576`` (otherwise its defaults): the
+    """14: ``hostpath_bench --nodes 262144`` (otherwise its defaults): the
     encode gate (>= 3x) passes, cached and uncached encodes are
     byte-identical (the tool exits otherwise), and the encode+cycle lane
     runs its three passes on the fused kernel's affinity stage with the
@@ -2767,7 +2798,7 @@ def phase_hostpath() -> dict:
     t0 = time.perf_counter()
     _reset_launches()
     with contextlib.redirect_stdout(io.StringIO()):
-        rep = hostpath_bench.main(["--nodes", str(NODES),
+        rep = hostpath_bench.main(["--nodes", str(HOSTPATH_NODES),
                                    "--out", os.path.join(OUT_DIR, "hostpath_bench.json")])
     launches = _launch_counts()
     d = rep["detail"]
@@ -2782,7 +2813,7 @@ def phase_hostpath() -> dict:
           f"[14] the cycle lane launched no affinity-stage kernel: {launches}")
     check(launches["fused_topk"] == waves,
           f"[14] {launches['fused_topk']} fused launches for {waves} waves")
-    log(f"[14] hostpath_bench at {NODES:,} nodes: encode speedup {rep['value']}x (uncached "
+    log(f"[14] hostpath_bench at {HOSTPATH_NODES:,} nodes: encode speedup {rep['value']}x (uncached "
         f"{enc['uncached_s']} s, cached {enc['cached_s']} s; {enc['pods_per_sec_uncached']} "
         f"vs {enc['pods_per_sec_cached']} pods/s, hit rate {enc['cache_hit_rate']}), "
         f"byte-identical; encode+cycle on the fused aff stage (80 query keys): uncached "
@@ -2794,7 +2825,7 @@ def phase_hostpath() -> dict:
 
 
 def phase_curve() -> dict:
-    """15: ``latency_curve --nodes 1048576 --rates 2000,4000,8000 --seconds 2
+    """15: ``latency_curve --nodes 262144 --rates 2000,8000 --seconds 2
     --min-pods 8192`` (one ``sched_bench --rate R`` subprocess per point,
     through ``tools/with_deadline.py``): every point returns a row, and
     below the knee (``CURVE_BELOW_KNEE``) achieved binds/s is within 5% of
@@ -2812,7 +2843,7 @@ def phase_curve() -> dict:
     rates = ",".join(str(r) for r in CURVE_RATES)
     with contextlib.redirect_stdout(io.StringIO()):
         rows = latency_curve.main([
-            "--nodes", str(NODES), "--rates", rates, "--seconds", str(CURVE_SECONDS),
+            "--nodes", str(CURVE_NODES), "--rates", rates, "--seconds", str(CURVE_SECONDS),
             "--min-pods", str(CURVE_MIN_PODS), "--timeout", "300", "--out", out,
             "--reports", reports])
     check([r["rate"] for r in rows] == list(CURVE_RATES), f"[15] rows {rows}")
@@ -2827,7 +2858,7 @@ def phase_curve() -> dict:
             continue
         check(abs(r["binds_per_sec"] - r["rate"]) <= 0.05 * r["rate"],
               f"[15] below the knee: rate {r['rate']} achieved {r['binds_per_sec']} binds/s")
-    log(f"[15] latency curve at {NODES:,} nodes: " + "; ".join(
+    log(f"[15] latency curve at {CURVE_NODES:,} nodes: " + "; ".join(
         f"offered {r['rate']}/s -> {r['binds_per_sec']} binds/s, p50 {r['p50_ms']} ms p95 "
         f"{r['p95_ms']} ms p99 {r['p99_ms']} ms ({r['point_wall_s']} s)" for r in rows)
         + f"; launches {launches}")
@@ -2869,7 +2900,7 @@ def _scrub_clock(d):
 
 
 def phase_failover() -> dict:
-    """16: ``failover_drill --nodes 1048576 --chunk 4096`` on the card
+    """16: ``failover_drill --nodes 262144 --chunk 4096`` on the card
     (otherwise the drill's defaults: batch 256, depth 3, 4 tenants, 192
     pods per tick, 12 loaded ticks before the kill or the pause): every
     gate of all three scenarios, fused base-stage launches counted in the
@@ -2882,7 +2913,7 @@ def phase_failover() -> dict:
     t0 = time.perf_counter()
     _reset_launches()
     with contextlib.redirect_stdout(io.StringIO()):
-        rep = failover_drill.main(["--nodes", str(NODES), "--chunk", str(CHUNK),
+        rep = failover_drill.main(["--nodes", str(FAILOVER_NODES), "--chunk", str(CHUNK),
                                    "--out", os.path.join(OUT_DIR, "failover_drill.json")])
     launches = _launch_counts()
     _failover_gates("16", rep)
@@ -2890,7 +2921,7 @@ def phase_failover() -> dict:
           f"[16] no fused base-stage launch: {launches}")
     ev = rep["evidence"]
     warm, cold = ev["mid_wave_kill_warm"], ev["mid_wave_kill_cold"]
-    log(f"[16] failover_drill at {NODES:,} nodes (chunk {CHUNK}): passed; recovery warm "
+    log(f"[16] failover_drill at {FAILOVER_NODES:,} nodes (chunk {CHUNK}): passed; recovery warm "
         f"{ev['recovery_warm_s']:.4f} s, cold {ev['recovery_cold_s']:.4f} s, cold/warm "
         f"{ev['warm_speedup']:.2f}x; split-brain fencing rejects "
         f"{ev['split_brain']['fencing_rejected']}, deposed binds "
@@ -3085,7 +3116,7 @@ def _wire_parity_run(device: str, wire: bool) -> tuple[dict, float, dict]:
 
 
 def phase_wire_parity() -> dict:
-    """17a: 8a's uniform shape (65,536 nodes x 16,384 pods, 5%, packed,
+    """17a: 8a's uniform shape (65,536 nodes x 8,192 pods, 5%, packed,
     chunk 4096, zero-delay retries) through a ``Coordinator`` stepped with a
     barrier before every step, on the card over the wire, on the card
     in-process and on the CPU over the wire: byte-identical stored pods."""
@@ -3102,6 +3133,209 @@ def phase_wire_parity() -> dict:
         f"{runs[1][3]['fused_topk_by_stage']['base']}")
     return {tag: {"seconds": round(s, 3), "launches": launches}
             for tag, _st, s, launches in runs}
+
+
+# ---- phases 18, 18a: the shard set --------------------------------------------
+
+# 18: shard_bench at 1,048,576 nodes with 1, 2 and 4 worker processes, each on
+# the card (BASELINE config 1's shape: D1's batch and 5% window, 65,536 pods).
+SHARD_PODS, SHARD_COUNTS = 65536, (1, 2, 4)
+# 18a: three ShardMembers on one in-process store at 8a's node count; 4,096
+# pods in 4 rounds of 1,024, the Rebalancer run after round 2 over a skewed
+# start (groups by g % 8: 0-4 on shard 0, 5-6 on shard 1, 7 on shard 2).
+SHARD_PARITY_MEMBERS, SHARD_PARITY_ROUNDS, SHARD_PARITY_PER = 3, 4, 1024
+
+
+def _shard_ownership(tag: str, kvs, asg, shards: int) -> int:
+    """Every stored pod bound, on a node whose group ``asg`` gives to the
+    pod's FNV shard; returns the pods read."""
+    from k8s1m_tpu_torch.control.shardset import group_of, pod_shard
+
+    for kv in kvs:
+        pod = json.loads(kv.value)
+        node = pod["spec"].get("nodeName")
+        key = f"{pod['metadata']['namespace']}/{pod['metadata']['name']}"
+        check(node is not None, f"[{tag}] {key} was left unbound")
+        check(asg.groups[group_of(node)] == pod_shard(key, shards),
+              f"[{tag}] {key} bound to {node}, group {group_of(node)} of shard "
+              f"{asg.groups[group_of(node)]}, not of its shard {pod_shard(key, shards)}")
+    return len(kvs)
+
+
+def phase_shards() -> dict:
+    """18: ``tools/shard_bench.py --nodes 1048576 --pods 65536 --batch 4096
+    --score-pct 5`` with 1, 2 and 4 worker processes, each on ``cuda``, each
+    count against a fresh ``python -m k8s1m_tpu_torch.store.server_main``.
+    Every pod bound exactly once (the workers' binds sum to the pods, each
+    worker binds its FNV share), every worker done and exited 0, every stored
+    pod on a node its shard owns in the final assignment, server and workers
+    reaped."""
+    from k8s1m_tpu_torch.control.shardset import load_assignment
+    from k8s1m_tpu_torch.store.native import list_prefix
+    from k8s1m_tpu_torch.store.remote import RemoteStore
+    from k8s1m_tpu_torch.store.server_main import serve_subprocess
+    from k8s1m_tpu_torch.tools import shard_bench
+
+    runs = {}
+    for shards in SHARD_COUNTS:
+        tag = f"18 x{shards}"
+        t0 = time.perf_counter()
+        with serve_subprocess() as (proc, target):
+            out = shard_bench.main([
+                "--target", target, "--nodes", str(NODES), "--pods", str(SHARD_PODS),
+                "--shards", str(shards), "--batch", str(BATCH),
+                "--score-pct", str(SCORE_PCT), "--device", "cuda"])
+            t_read = time.perf_counter()
+            with RemoteStore(target) as store:
+                kvs, _rev = list_prefix(store, b"/registry/pods/")
+                asg = load_assignment(store)
+            read_s = time.perf_counter() - t_read
+        check(proc.returncode is not None, f"[{tag}] the store server is still running")
+        workers = out["per_worker"]
+        check(all(w is not None and w["done"] for w in workers),
+              f"[{tag}] a worker did not finish: {workers}")
+        check(out["worker_rcs"] == [0] * shards, f"[{tag}] worker exit codes {out['worker_rcs']}")
+        check(sum(w["bound"] for w in workers) == SHARD_PODS == sum(out["pod_share"]),
+              f"[{tag}] {sum(w['bound'] for w in workers)} binds for {SHARD_PODS} pods")
+        check([w["bound"] for w in workers] == out["pod_share"],
+              f"[{tag}] binds per worker {[w['bound'] for w in workers]} != shares "
+              f"{out['pod_share']}")
+        check(all(w["device"] == "cuda" for w in workers), f"[{tag}] a worker off the card")
+        check(all(w["launches"]["fused_topk_by_stage"]["base"] > 0 for w in workers),
+              f"[{tag}] a worker launched no base stage: {[w['launches'] for w in workers]}")
+        # The warm-up pod of each worker is stored and bound too.
+        read = _shard_ownership(tag, kvs, asg, shards)
+        check(read == SHARD_PODS + shards, f"[{tag}] {read} pods stored, want "
+              f"{SHARD_PODS} + {shards} warm-up")
+        out["readback_s"] = round(read_s, 3)
+        out["seconds"] = round(time.perf_counter() - t0, 3)
+        runs[shards] = out
+        log(f"[{tag}] {out['value']} binds/s over {out['window_s']} s "
+            f"(x{out['value'] / runs[SHARD_COUNTS[0]]['value']:.3f} of 1 worker), populate "
+            f"{out['populate_s']} s, workers ready {out['ready_s']} s, read back {read_s:.1f} s, "
+            f"cores {out['cpu_count']} "
+            f"(affinity {out['affinity_cpus']}), {out['seconds']} s in all")
+        for w in workers:
+            log(f"[{tag}] worker {w['worker']}: bound {w['bound']}, p50/p99 {w['p50_ms']}/"
+                f"{w['p99_ms']} ms, conflicts {w['conflicts']}, waves {w['waves']}, stage "
+                f"means {w['stage_means_ms']} ms, peak card "
+                f"{w['peak_card_mb']} MB, peak RSS {w['peak_rss_mb']} MB, mask_rows "
+                f"{w['mask_rows_ms']} ms / {w['mask_rows_bytes'] / 2**20:.2f} MB new, "
+                f"launches {w['launches']['fused_topk_by_stage']}")
+    return runs
+
+
+def _shard_parity_run(device: str) -> dict:
+    """18a member: three ``ShardMember``s over one in-process ``MemStore`` at
+    65,536 nodes (5%, chunk 4096, zero-delay retries), pods written in rounds
+    and every member ticked once per round on a virtual clock, the
+    ``Rebalancer`` evening out a skewed assignment after round 2; after every
+    tick the masks are disjoint and every pod the tick bound sits on a row its
+    member owned when the wave launched.  Returns the stored pods, seconds,
+    launches and the rebalance's counts."""
+    from k8s1m_tpu_torch.config import PodSpec, TableSpec
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
+    from k8s1m_tpu_torch.control.shardset import (
+        ASSIGN_KEY, NUM_GROUPS, Assignment, Rebalancer, ShardMember, load_assignment,
+        pod_shard)
+    from k8s1m_tpu_torch.faultline import RetryPolicy
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.store.native import MemStore
+    from k8s1m_tpu_torch.tools import sched_bench
+
+    tag, n = f"18a {device}", SHARD_PARITY_MEMBERS
+    t0 = time.perf_counter()
+    store = MemStore()
+    members = []
+    try:
+        sched_bench.write_nodes(store, PARITY_NODES)
+        skew = [0 if g % 8 < 5 else 1 if g % 8 < 7 else 2 for g in range(NUM_GROUPS)]
+        store.cas(ASSIGN_KEY, Assignment(1, n, skew).encode(), required_version=0)
+        for i in range(n):
+            coord = Coordinator(
+                store, TableSpec(max_nodes=PARITY_NODES), PodSpec(batch=BATCH),
+                Profile(node_affinity=0, topology_spread=0, interpod_affinity=0),
+                chunk=CHUNK, with_constraints=False, score_pct=SCORE_PCT, device=device,
+                retry_policy=RetryPolicy(**_ZERO_DELAY))
+            members.append(ShardMember(store, coord, i, n))
+        for m in members:
+            m.start(now=0.0)
+        owned0 = [int(m.coordinator._row_mask_np.sum()) for m in members]
+        reb = Rebalancer(store, members[0].coordinator.host, n, min_interval=0.0,
+                         max_moves=NUM_GROUPS, dead_after=60.0)
+        values, keys, _strs = sched_bench._pod_values(
+            _bench_args(pods=SHARD_PARITY_ROUNDS * SHARD_PARITY_PER))
+        _reset_launches()
+        now, binds = 0.0, 0
+
+        def tick_all() -> int:
+            nonlocal now
+            now += 1.0
+            bound = 0
+            for i, m in enumerate(members):
+                coord = m.coordinator
+                mask = coord._row_mask_np.copy()
+                before = set(coord._bound)
+                bound += m.tick(now)
+                for key in coord._bound.keys() - before:
+                    if pod_shard(key, n) != i:
+                        continue                  # another shard's bind, observed
+                    row = coord.host.row_of(coord._bound[key][0])
+                    check(mask[row], f"[{tag}] member {i} bound {key} on row {row} it "
+                          "did not own at launch")
+            masks = [m.coordinator._row_mask_np for m in members]
+            for a in range(n):
+                for b in range(a + 1, n):
+                    check(not (masks[a] & masks[b]).any(), f"[{tag}] masks {a}, {b} overlap")
+            return bound
+
+        for r in range(SHARD_PARITY_ROUNDS):
+            off = r * SHARD_PARITY_PER
+            store.put_batch(list(zip(keys[off:off + SHARD_PARITY_PER],
+                                     values[off:off + SHARD_PARITY_PER])))
+            binds += tick_all()
+            if r == SHARD_PARITY_ROUNDS // 2 - 1:
+                check(reb.run_once(now=now, force=True), f"[{tag}] the rebalancer moved nothing")
+        for _ in range(200):
+            got = tick_all()
+            binds += got
+            if got == 0 and all(not m.coordinator.queue and not m.coordinator._inflights
+                                and not m.coordinator._backoff for m in members):
+                break
+        launches = _launch_counts()
+        asg = load_assignment(store)
+        owned = [int(m.coordinator._row_mask_np.sum()) for m in members]
+        stored = _stored_pods(store)
+    finally:
+        for m in members:
+            m.close()
+        store.close()
+    total = SHARD_PARITY_ROUNDS * SHARD_PARITY_PER
+    check(binds == total, f"[{tag}] {binds} binds for {total} pods")
+    check(len(stored) == total and all(b'"nodeName"' in v for v in stored.values()),
+          f"[{tag}] {len(stored)} pods stored, not all bound")
+    check(asg.version == 2 and sum(owned) == PARITY_NODES, f"[{tag}] assignment "
+          f"v{asg.version}, owned {owned}")
+    check(max(owned) - min(owned) < min(owned0), f"[{tag}] not evened out: {owned0} -> {owned}")
+    return {"stored": stored, "seconds": time.perf_counter() - t0, "launches": launches,
+            "owned_before": owned0, "owned_after": owned}
+
+
+def phase_shard_parity() -> dict:
+    """18a: ``_shard_parity_run`` on the card and on the CPU: both pass their
+    checks, and the stored pods are byte-identical."""
+    card = _shard_parity_run("cuda")
+    cpu = _shard_parity_run("cpu")
+    check(card["stored"] == cpu["stored"], "[18a] stored pod values differ between card and CPU")
+    check(card["launches"]["fused_topk_by_stage"]["base"] > 0,
+          f"[18a] no base launch: {card['launches']}")
+    log(f"[18a] 3 members at {PARITY_NODES:,} nodes, {len(card['stored'])} pods, owned nodes "
+        f"{card['owned_before']} -> {card['owned_after']} after the rebalance: card "
+        f"({card['seconds']:.1f}s) and CPU ({cpu['seconds']:.1f}s) byte-identical; card "
+        f"launches {card['launches']['fused_topk_by_stage']}")
+    return {dev: {"seconds": round(r["seconds"], 3), "launches": r["launches"],
+                  "owned_before": r["owned_before"], "owned_after": r["owned_after"]}
+            for dev, r in (("cuda", card), ("cpu", cpu))}
 
 
 def main(argv=None) -> int:
@@ -3167,11 +3401,14 @@ def main(argv=None) -> int:
     wire = {"17": phase_wire("17")}
     wire_parity = phase_wire_parity()
     wire["17b"] = phase_wire("17b")
+    shards = phase_shards()
+    shard_parity = phase_shard_parity()
     log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
 
-    # Launches of the coordinator's paths (phases 8, 10-16a and 17-17b, counts
-    # set to 0 just before each measured run and read just after it), per
-    # fused stage.
+    # Launches of the coordinator's paths (phases 8, 10-16a, 17-17b and 18a,
+    # counts set to 0 just before each measured run and read just after it;
+    # 18's workers set theirs to 0 after their warm-up pod and report them
+    # with their final status), per fused stage.
     runs = ([r["detail"]["launches"] for r in coord.values()]
             + [megarow["launches"], trace["launches"], trace_parity["launches"],
                webhook["launches"], webhook_parity["cuda"]["launches"],
@@ -3179,7 +3416,9 @@ def main(argv=None) -> int:
                hostpath["launches"], curve["launches"], failover["launches"],
                failover_parity["cuda"]["launches"]]
             + [r["detail"]["launches"] for r in wire.values()]
-            + [wire_parity[tag]["launches"] for tag in ("cuda wire", "cuda in-process")])
+            + [wire_parity[tag]["launches"] for tag in ("cuda wire", "cuda in-process")]
+            + [w["launches"] for r in shards.values() for w in r["per_worker"]]
+            + [shard_parity["cuda"]["launches"]])
     coord_launches = {
         stage: sum(r["fused_topk_by_stage"][stage] for r in runs)
         for stage in ("base", "aff", "cons")
@@ -3248,8 +3487,8 @@ def main(argv=None) -> int:
                        "webhook": webhook, "webhook_parity": webhook_parity,
                        "drills": drills, "hostpath": hostpath, "latency_curve": curve,
                        "failover": failover, "failover_parity": failover_parity,
-                       "wire": wire, "wire_parity": wire_parity,
-                       **kernels}, f, indent=1, default=str)
+                       "wire": wire, "wire_parity": wire_parity, "shards": shards,
+                       "shard_parity": shard_parity, **kernels}, f, indent=1, default=str)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -70,6 +70,10 @@ class SamplingProfiler:
         self.interval = 1.0 / hz
         self.targets = target_thread_ids
         self.stacks: collections.Counter[str] = collections.Counter()
+        # Held by the sampler around each tick's inserts and by report()
+        # around its one copy of ``stacks``: a walk of the live table
+        # would meet a new stack mid-walk and raise.
+        self._lock = threading.Lock()
         self.samples = 0
         self.started_at = 0.0
         self.wall_s = 0.0
@@ -117,28 +121,34 @@ class SamplingProfiler:
                 if t.name.startswith(_EXCLUDE_THREADS)
             }
             frames = sys._current_frames()
-            self.samples += 1
-            for ident, frame in frames.items():
-                if ident == me or ident in skip_idents:
-                    continue
-                if self.targets is not None and ident not in self.targets:
-                    continue
-                self.stacks[_fold(frame)] += 1
+            folded = [
+                _fold(frame) for ident, frame in frames.items()
+                if ident != me and ident not in skip_idents
+                and (self.targets is None or ident in self.targets)
+            ]
+            with self._lock:
+                self.samples += 1
+                for stack in folded:
+                    self.stacks[stack] += 1
 
     # -- reporting ------------------------------------------------------
 
     def report(self, top: int = 25) -> dict:
-        """Self-time and cumulative-time tables + collapsed stacks."""
+        """Self-time and cumulative-time tables + collapsed stacks, all
+        from one snapshot of ``stacks``."""
+        with self._lock:
+            stacks = collections.Counter(dict(self.stacks))
+            samples = self.samples
         self_time: collections.Counter[str] = collections.Counter()
         cum_time: collections.Counter[str] = collections.Counter()
-        for stack, n in self.stacks.items():
+        for stack, n in stacks.items():
             frames = stack.split(";")
             self_time[frames[-1]] += n
             for f in set(frames):
                 cum_time[f] += n
-        total = sum(self.stacks.values()) or 1
+        total = sum(stacks.values()) or 1
         return {
-            "samples": self.samples,
+            "samples": samples,
             "thread_samples": total,
             "wall_s": round(self.wall_s, 3),
             "started_at": self.started_at,
@@ -150,7 +160,7 @@ class SamplingProfiler:
                 {"frame": f, "pct": round(100.0 * n / total, 2), "n": n}
                 for f, n in cum_time.most_common(top)
             ],
-            "collapsed": dict(self.stacks.most_common()),
+            "collapsed": dict(stacks.most_common()),
         }
 
     def dump(self, path: str | None = None, top: int = 25) -> str:

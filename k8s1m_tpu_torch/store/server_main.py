@@ -86,6 +86,16 @@ def main(argv=None) -> None:
     sys.stdout.flush()
 
 
+def child_env() -> tuple[str, dict]:
+    """The repository root and an environment with it first on
+    ``PYTHONPATH``: a child started as ``python -m k8s1m_tpu_torch...`` from
+    that root finds the port whatever the caller's directory."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    return root, env
+
+
 @contextlib.contextmanager
 def serve_subprocess():
     """Run this server in a child process on a free port of 127.0.0.1;
@@ -93,9 +103,7 @@ def serve_subprocess():
     its port within two minutes (a first run builds ``libmemstore.so``)
     fails the caller; on every exit path the child is terminated (killed
     if it lingers) and reaped."""
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    root, env = child_env()
     proc = subprocess.Popen(
         [sys.executable, "-m", "k8s1m_tpu_torch.store.server_main", "--port", "0",
          "--host", "127.0.0.1", "--wal-default", "none"],

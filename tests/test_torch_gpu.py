@@ -1021,3 +1021,40 @@ def test_sched_bench_over_the_wire_on_card(cuda):
     assert d["device"] == "cuda" and d["launches"]["fused_topk"] > 0
     assert d["bound"] == 4095 and len(kvs) == 4096
     assert all(b'"nodeName"' in kv.value for kv in kvs)
+
+
+# ---- the shard set -------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_shard_bench_two_workers_on_card(cuda):
+    """``shard_bench`` with two worker processes, each opening the card,
+    against the port's store server: every pod bound once, each worker binds
+    its FNV share and exits 0, each launched the fused kernel, and every bound
+    pod's node belongs to a group its shard owns."""
+    import json
+
+    from k8s1m_tpu_torch.control.shardset import group_of, load_assignment, pod_shard
+    from k8s1m_tpu_torch.store.native import list_prefix
+    from k8s1m_tpu_torch.store.remote import RemoteStore
+    from k8s1m_tpu_torch.store.server_main import serve_subprocess
+    from k8s1m_tpu_torch.tools import shard_bench
+
+    with serve_subprocess() as (proc, target):
+        out = shard_bench.main(["--target", target, "--nodes", "16384", "--pods", "4096",
+                                "--shards", "2", "--batch", "512", "--score-pct", "25"])
+        with RemoteStore(target) as store:
+            kvs, _ = list_prefix(store, b"/registry/pods/")
+            asg = load_assignment(store)
+    assert proc.returncode is not None
+    workers = out["per_worker"]
+    assert out["worker_rcs"] == [0, 0] and all(w["done"] for w in workers)
+    assert [w["bound"] for w in workers] == out["pod_share"] and sum(out["pod_share"]) == 4096
+    assert all(w["device"] == "cuda" and w["launches"]["fused_topk"] > 0 for w in workers)
+    assert all(w["peak_card_mb"] > 0 for w in workers)
+    assert len(kvs) == 4096 + 2                   # and one warm-up pod per worker
+    for kv in kvs:
+        pod = json.loads(kv.value)
+        node = pod["spec"]["nodeName"]
+        key = f"{pod['metadata']['namespace']}/{pod['metadata']['name']}"
+        assert asg.groups[group_of(node)] == pod_shard(key, 2)
