@@ -26,7 +26,10 @@ the port's store server (17, and BASELINE config 5 under 100 stress
 watchers, 17b) and the coordinator over the wire vs in-process (17a) —
 and the shard set: ``tools/shard_bench.py`` with 1, 2 and 4 worker
 processes sharing the card (18) and three ``ShardMember``s with the
-``Rebalancer`` in one process, card vs CPU (18a).
+``Rebalancer`` in one process, card vs CPU (18a) — and the reference's own
+experiment through the load tools over the wire: make_nodes, make_pods, a
+coordinator, KWOK controllers, the lease flood and store stress,
+verify_cluster, /metrics and delete_pods (19), card vs CPU (19a).
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device  — the card's name, and its name and power limit as
@@ -156,7 +159,7 @@ Phases (each raises on failure; the script then exits non-zero):
                argmax over the host mirror, the breaker walks CLOSED -> OPEN
                -> HALF_OPEN -> CLOSED, and after ``flush`` the device request
                columns equal the host mirror, no node over its allocatable;
-  11. tracing — ``sched_bench`` at D1's shape with 16,384 pods, ``--trace
+  11. tracing — ``sched_bench`` at D1's shape (262,144 nodes) with 16,384 pods, ``--trace
                16 --trace-out chiprun_out/trace_d1.json --profile
                chiprun_out/profile_d1.json`` and a ``FlightRecorder`` below
                one cycle: the Perfetto export validates, attribution covers
@@ -168,7 +171,7 @@ Phases (each raises on failure; the script then exits non-zero):
                gated);
   11a. tracing does not move placement — 8a's uniform card run again with
                ``--trace 1``: stored pod values byte-identical;
-  12. webhook intake — a ``Coordinator`` at D1's shape behind
+  12. webhook intake — a ``Coordinator`` at D1's shape (262,144 nodes) behind
                ``WebhookServer(coord.submit_external)``: one client thread
                POSTs 4,096 AdmissionReviews in waves of 4,096, storing each
                wave after its admission; every answer 200 and allowed, every
@@ -183,15 +186,15 @@ Phases (each raises on failure; the script then exits non-zero):
                shapes on the card and with ``--device cpu``: both pass, and
                the evidence is equal without the ``device`` key (no key of
                either drill holds a host timing);
-  14. hostpath — ``hostpath_bench --nodes 262144``: the encode gate
+  14. hostpath — ``hostpath_bench --nodes 131072``: the encode gate
                (>= 3x), byte-identical encodes, and the encode+cycle lane on
                the card's fused kernel with the tool's 80-key query table
                (one launch per wave, counted);
-  15. latency curve — ``latency_curve --nodes 262144 --rates
+  15. latency curve — ``latency_curve --nodes 131072 --rates
                2000,8000 --seconds 2 --min-pods 8192``: a row per point,
                the 2,000/s point (below D1's knee) within 5% of its offered
                rate;
-  16. failover — ``failover_drill --nodes 262144 --chunk 4096``: the
+  16. failover — ``failover_drill --nodes 131072 --chunk 4096``: the
                mid-wave kill with a cold and a warm standby and the paused
                leader's split brain, every gate (0 lost, 0 double binds in
                the full-history ledger, fencing rejects > 0 and no deposed
@@ -218,13 +221,14 @@ Phases (each raises on failure; the script then exits non-zero):
                barrier before every ``step()``: on the card over the wire, on
                the card in-process and on the CPU over the wire, each with a
                fresh server; byte-identical stored pods;
-  17b. BASELINE config 5 — 17's shape with ``--churn --stress-watchers 100
-               --stress-write-concurrency 1`` (``tools/watch_stress.py`` as a
+  17b. BASELINE config 5 — 17's shape at 262,144 nodes with ``--churn
+               --stress-watchers 100 --stress-write-concurrency 1``
+               (``tools/watch_stress.py`` as a
                child process for the window): every pod bound, every pod not
                deleted stored and bound, the stressor's report with no failed
                stream and every write delivered to every watcher, server and
                stressor reaped.  Prints 17's numbers and the stressor's;
-  18. shard set at scale — ``shard_bench --nodes 1048576 --pods 65536
+  18. shard set at scale — ``shard_bench --nodes 1048576 --pods 32768
                --batch 4096 --score-pct 5`` with ``--shards`` 1, 2 and 4, each
                against a fresh ``server_main``, every worker on ``cuda``:
                the workers' binds sum to the pods and each worker binds its
@@ -242,13 +246,42 @@ Phases (each raises on failure; the script then exits non-zero):
                ``Rebalancer`` evening it out after round 2, on the card and
                the CPU: after every tick the masks are disjoint and every
                pod the tick bound sits on a row its member owned at launch;
-               byte-identical stored pods.
+               byte-identical stored pods;
+  19. experiment — the reference's 1M-node procedure against a fresh
+               ``server_main --metrics-port`` child, each tool a CLI child
+               (``python -m k8s1m_tpu_torch.tools.<tool>``, its JSON line
+               read, a non-zero exit fails the phase): ``make_nodes --count
+               1048576 --bulk 1024`` (count, 0 errors, ``find_gaps`` none),
+               ``make_pods --count 32768`` (per-put RPCs at the tools'
+               defaults), a ``Coordinator`` on the card over a
+               ``RemoteStore`` at D1's shape (every pod bound once, base
+               launches), group 0's ``KwokController`` (bootstrap, ticks at
+               10 and 20: its 104,858 nodes adopted, every pod bound to them
+               started, every lease renewed on each tick and stored, the
+               lease-delay histogram rendered), ``lease_flood --nodes
+               1048576 --rounds 1 --batch 1024``, ``store_stress
+               --native-client --puts 200000`` and the Python lane at 10,000
+               puts and 1,000 ranges (0 errors), ``count_ready`` (nodes sum
+               to 1,048,576, Running = started, none unbound), one ``GET
+               /metrics`` (200), ``delete_pods --prefix bench-pod`` (32,768
+               deleted, the prefix empty).  Prints every tool's rate and
+               each step's seconds;
+  19a. experiment parity — 19's flow at 65,536 nodes x 4,096 pods with all
+               ten KWOK groups and ``--concurrency 1 --clients 1`` (the
+               tools in-process, a fresh server child per pass), the
+               coordinator on the card and, concurrently in a child process,
+               on the CPU: every check of 19 in both, and the stored pods
+               after binding and after the ticks and the lease values
+               byte-identical, revisions included (equal sha256 digests).
 Phases 5 and 6 print the same group and bound figures as phase 4.  The
+parity phases 8a, 10a, 12a, 18a and 19a run their CPU half in a child
+process beside the card's half; 12a runs right after 10a, and 18a after 19,
+so that the CPU halves of each pair run together.  The
 next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
 stage configuration and one for the delta kernel: times, bound, launches;
 the fused entries add ``bound_per_pair_ms``, ``groups`` and
 ``all_distinct_ms``; ``launches`` includes the coordinator's of phases 8,
-10-16a, 17-17b, 18 (each worker's window) and 18a, which
+10-16a, 17-17b, 18 (each worker's window), 18a, 19 and 19a, which
 ``coordinator_launches`` also gives alone, per fused stage);
 the last is ``{"ok": true, "device": {...}}``.
 
@@ -1826,28 +1859,28 @@ def _constraint_run(device: str, *, nodes: int, waves: int, per: int, **coord_kw
     return report, coord, store
 
 
-def phase_coordinator_parity() -> tuple[dict, dict]:
-    """8a: three groups of the same run, each at 65,536 nodes x 8,192
-    pods, 5% window, packed, chunk 4096, zero-delay retries — uniform pods
-    on the card's kernels, on the card's scan path (``backend="xla"``) and
-    on the CPU; template pods (``--shape-pool 8 --shape-share 0.9 --seed
-    3``) on the card and the CPU; D4's constraint construction on the card
-    and the CPU.  Each group must leave byte-identical pod values.  Returns
-    the reports and the uniform card run's stored pod values (11a's
-    untraced run)."""
+# 8a's members, per group: (device, sched_bench overrides; None = D4's
+# constraint construction).  The first member of each group is the reference.
+PARITY_GROUPS = {
+    "uniform": [("cuda", {}), ("cuda", {"backend": "xla"}), ("cpu", {})],
+    "shape-pool": [("cuda", SHAPE_POOL), ("cpu", SHAPE_POOL)],
+    "constraints": [("cuda", None), ("cpu", None)],
+}
+
+
+def _parity_members(device: str, groups=tuple(PARITY_GROUPS)) -> dict:
+    """8a's members of ``groups`` on ``device``, in group order: each one's
+    report and seconds under ``runs[tag]``, its stored pod values under
+    ``stored <tag>``."""
     from k8s1m_tpu_torch.faultline import RetryPolicy
     from k8s1m_tpu_torch.tools import sched_bench
 
     policy = RetryPolicy(**_ZERO_DELAY)
-    groups = {
-        "uniform": [("cuda", {}), ("cuda", {"backend": "xla"}), ("cpu", {})],
-        "shape-pool": [("cuda", SHAPE_POOL), ("cpu", SHAPE_POOL)],
-        "constraints": [("cuda", None), ("cpu", None)],
-    }
-    out = {}
-    for group, members in groups.items():
-        runs = []
-        for dev, over in members:
+    out: dict = {"runs": {}}
+    for group in groups:
+        for dev, over in PARITY_GROUPS[group]:
+            if dev != device:
+                continue
             t0 = time.perf_counter()
             if over is None:
                 report, coord, store = _constraint_run(
@@ -1868,12 +1901,35 @@ def phase_coordinator_parity() -> tuple[dict, dict]:
                 _recount_constraints(coord, stored)
             coord.close()
             store.close()
-            runs.append((tag, stored, report, time.perf_counter() - t0))
-        for tag, stored, _r, _t in runs[1:]:
-            check(stored == runs[0][1], f"[{tag}] stored pod values differ from [{runs[0][0]}]")
-        log(f"[8a] {group}: " + ", ".join(f"{t} ({s:.1f}s)" for t, _st, _r, s in runs)
-            + f" left byte-identical pod values ({len(runs[0][1])} pods)")
-        out[group] = {tag: rep for tag, _st, rep, _s in runs}
+            out["runs"][tag] = {"group": group, "report": report,
+                                "seconds": round(time.perf_counter() - t0, 3)}
+            out[f"stored {tag}"] = stored
+    return out
+
+
+def phase_coordinator_parity() -> tuple[dict, dict]:
+    """8a: three groups of the same run, each at 65,536 nodes x 8,192
+    pods, 5% window, packed, chunk 4096, zero-delay retries — uniform pods
+    on the card's kernels, on the card's scan path (``backend="xla"``) and
+    on the CPU; template pods (``--shape-pool 8 --shape-share 0.9 --seed
+    3``) on the card and the CPU; D4's constraint construction on the card
+    and the CPU (each group's CPU member in a child process of its own, while
+    the card's run here).  Each group must leave byte-identical pod values.  Returns the
+    reports and the uniform card run's stored pod values as their digest
+    (11a's untraced run)."""
+    card, cpu = _card_and_cpu("8a", "_parity_members",
+                              cpu_calls=[((group,),) for group in PARITY_GROUPS])
+    out = {}
+    for group in PARITY_GROUPS:
+        runs = [(tag, res[f"stored {tag}"], r) for res in (card, cpu)
+                for tag, r in res["runs"].items() if r["group"] == group]
+        for tag, stored, _r in runs[1:]:
+            _same_stored(tag, f"stored pod values of [{tag}] and [{runs[0][0]}]", stored,
+                         runs[0][1])
+        log(f"[8a] {group}: " + ", ".join(f"{t} ({r['seconds']:.1f}s)" for t, _st, r in runs)
+            + f" left byte-identical pod values ({runs[0][1]['entries']} pods; CPU members "
+            "concurrently)")
+        out[group] = {tag: r["report"] for tag, _st, r in runs}
         if group == "uniform":
             untraced = runs[0][1]
     return out, untraced
@@ -1949,7 +2005,7 @@ def phase_coordinator(config: str) -> dict:
         if lane in d:
             log(f"[{config}] {lane}: {json.dumps(d[lane])}")
     if config == "D1":
-        report["relist_s"] = _time_relist(store)
+        report["relist_s"] = _time_relist(store, NODES)
         log(f"[D1] relist of {NODES:,} nodes in-process: {report['relist_s']:.3f} s")
         # The knock-out variants over the live table on both backends
         # (sched_bench's --kernel-profile ran the kernels; one block of
@@ -2028,6 +2084,142 @@ def phase_probe() -> dict:
         log(f"[9] kernel_probe {backend}, packed, 53248 rows x 8192 pods: ms per batch "
             f"{out[backend]} ({time.perf_counter() - t0:.1f}s)")
     return out
+
+
+# ---- the CPU halves of the parity phases --------------------------------------
+
+# Result keys that hold stored bytes ({key: value} or {key: (value, mod_revision)}),
+# besides any key "stored <tag>": a child process hands them back in their
+# ``_stored_form``.
+STORED_KEYS = ("stored", "bound_pods", "ticked_pods", "leases")
+
+
+def _digest(stored: dict) -> str:
+    """sha256 over ``stored``'s entries in key order, every bytes field
+    length-prefixed and every revision as 8 bytes: equal digests are equal
+    bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for key in sorted(stored):
+        v = stored[key]
+        for field in (key, *(v if isinstance(v, tuple) else (v,))):
+            if isinstance(field, bytes):
+                h.update(len(field).to_bytes(4, "big") + field)
+            else:
+                h.update(int(field).to_bytes(8, "big", signed=True))
+    return h.hexdigest()
+
+
+def _stored_form(stored: dict) -> dict:
+    """Stored bytes as a child process hands them back: the entry count, the
+    sha256 over every entry and each entry's own digest by key, so that a
+    mismatch names the keys that differ (``_same_stored``)."""
+    return {"entries": len(stored), "sha256": _digest(stored),
+            "keys": {k.decode() if isinstance(k, bytes) else str(k): _digest({k: v})[:16]
+                     for k, v in stored.items()}}
+
+
+def _same_stored(tag: str, what: str, a: dict, b: dict) -> None:
+    """Fails unless two ``_stored_form``s are equal; the message names the
+    first keys whose entries differ or are missing on one side."""
+    if a == b:
+        return
+    ka, kb = a["keys"], b["keys"]
+    diff = sorted(k for k in ka.keys() | kb.keys() if ka.get(k) != kb.get(k))
+    check(False, f"[{tag}] {what} differ: {len(diff)} keys of {a['entries']} / "
+          f"{b['entries']}, first {diff[:3]}")
+
+
+def _without_keys(run: dict) -> dict:
+    """``run`` with each stored form cut to its count and sha256 (for --out)."""
+    return {k: {f: x for f, x in v.items() if f != "keys"}
+            if isinstance(v, dict) and "keys" in v else v for k, v in run.items()}
+
+
+def _portable(run: dict) -> dict:
+    """``run`` as a child process hands it back over JSON: stored bytes in
+    their ``_stored_form``, tuples as lists."""
+    out = {k: _stored_form(v) if k in STORED_KEYS or k.startswith("stored ") else v
+           for k, v in run.items()}
+    return json.loads(json.dumps(out, default=str))
+
+
+# The CPU halves of the parity phases, in the order ``main`` starts them:
+# 8a's three groups each in a child of its own (two torch threads each), then
+# 10a, 12a, 18a and 19a (four threads).  ``main`` starts the children a
+# parity phase ahead, so that their import of torch and the port (8-10 s on
+# the card's host) overlaps the phases between; each then waits on stdin for
+# its call.  10a and 12a run side by side, and so do 18a and 19a: both CPU
+# halves of a pair are handed their calls before the first card half runs.
+_CPU_CHILD = ("import json, sys, chip_smoke as cs, k8s1m_tpu_torch.tools.sched_bench; "
+              "func, args = json.loads(sys.stdin.readline()); "
+              "print(json.dumps(cs._portable(getattr(cs, func)('cpu', *args))), flush=True)")
+_CPU_THREADS = [2, 2, 2, 4, 4, 4, 4]
+_WARM: list = []
+
+
+def _warm_cpu_children(n: int) -> None:
+    """Start the next ``n`` CPU children of ``_CPU_THREADS``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    for _ in range(n):
+        threads = _CPU_THREADS.pop(0) if _CPU_THREADS else 2
+        env = dict(os.environ, OMP_NUM_THREADS=str(threads),
+                   PYTHONPATH=os.pathsep.join(
+                       p for p in (root, os.environ.get("PYTHONPATH")) if p))
+        _WARM.append(subprocess.Popen(
+            [sys.executable, "-c", _CPU_CHILD], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=root))
+
+
+def _stop_cpu_children() -> None:
+    while _WARM:
+        child = _WARM.pop()
+        child.kill()
+        child.communicate()
+
+
+def _start_cpu_half(func: str, cpu_calls=((),)) -> list:
+    """Hands ``func("cpu", *args)`` for each ``args`` of ``cpu_calls`` to a
+    warm CPU child; returns the children."""
+    if len(_WARM) < len(cpu_calls):
+        _warm_cpu_children(len(cpu_calls) - len(_WARM))
+    children = [_WARM.pop(0) for _ in cpu_calls]
+    for child, args in zip(children, cpu_calls):
+        child.stdin.write(json.dumps([func, list(args)]) + "\n")
+        child.stdin.close()
+        child.stdin = None  # so that communicate() writes nothing
+    return children
+
+
+def _card_and_cpu(tag: str, func: str, cpu_calls=((),), children=None) -> tuple[dict, dict]:
+    """``func("cuda")`` in this process while ``func("cpu", *args)`` runs in a
+    warm CPU child for each ``args`` of ``cpu_calls`` (or in ``children``,
+    from ``_start_cpu_half``): their log lines forwarded, their results
+    merged (``runs`` joined, other keys by name); both results in their
+    ``_portable`` form.  Every child must exit 0."""
+    children = children or _start_cpu_half(func, cpu_calls)
+    try:
+        card = _portable(globals()[func]("cuda"))
+        outs = [child.communicate(timeout=900) for child in children]
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
+    cpu: dict = {}
+    for child, (stdout, stderr) in zip(children, outs):
+        lines = stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(f"(cpu child) {line}", flush=True)
+        check(child.returncode == 0 and lines,
+              f"[{tag}] the CPU half exited {child.returncode}: {stderr[-2000:]}")
+        part = json.loads(lines[-1])
+        cpu.setdefault("runs", {}).update(part.pop("runs", {}))
+        cpu.update(part)
+    if not cpu["runs"]:
+        del cpu["runs"]
+    return card, cpu
 
 
 # ---- phase 10: the megarow drill, composed parity, breaker ---------------------
@@ -2184,15 +2376,16 @@ def _composed_run(device: str) -> dict:
 
 
 def phase_composed_parity() -> dict:
-    """10a: ``_composed_run`` on the card and on the CPU must leave
+    """10a: ``_composed_run`` on the card and, concurrently in a child
+    process, on the CPU must leave
     byte-identical stored pods, the same admitted / rejected counts and
     per-tenant ledger, and the same controller state after every tick,
     walking through SHEDDING and back to HEALTHY."""
     from k8s1m_tpu_torch.loadshed import HEALTHY, SHEDDING, STATE_NAMES
 
-    runs = {dev: _composed_run(dev) for dev in ("cuda", "cpu")}
-    card, cpu = runs["cuda"], runs["cpu"]
-    check(card["stored"] == cpu["stored"], "[10a] card and CPU stored pod values differ")
+    card, cpu = _card_and_cpu("10a", "_composed_run")
+    runs = {"cuda": card, "cpu": cpu}
+    _same_stored("10a", "card and CPU stored pod values", card["stored"], cpu["stored"])
     for key in ("admitted", "rejected", "states", "counters", "overcommitted_nodes",
                 "max_pods_over"):
         check(card[key] == cpu[key], f"[10a] card and CPU {key} differ")
@@ -2201,7 +2394,8 @@ def phase_composed_parity() -> dict:
     walk = [STATE_NAMES[s] for i, s in enumerate(card["states"])
             if i == 0 or s != card["states"][i - 1]]
     log(f"[10a] composed parity at {COMPOSED_NODES:,} nodes: card ({card['seconds']:.1f}s) and "
-        f"CPU ({cpu['seconds']:.1f}s) byte-identical over {len(card['stored'])} pods; admitted "
+        f"CPU ({cpu['seconds']:.1f}s, concurrently) byte-identical over "
+        f"{card['stored']['entries']} pods; admitted "
         f"{card['admitted']} rejected {card['rejected']}; states {' -> '.join(walk)}; nodes "
         f"over their pod allocatable {card['overcommitted_nodes']} (at most "
         f"{card['max_pods_over']} pods over); card launches {card['launches']}")
@@ -2348,9 +2542,12 @@ TRACE_STAGES = {"queue_wait", "encode", "dispatch_wait", "device", "bind"}
 # Phase 12 from 16,384 POSTs to 8,192 and phase 15's window from 4 s to 2 s
 # to make room for phases 17-17b; for phases 18-18a, phase 12 to 4,096 POSTs,
 # phase 15 without its 4,000/s point, and phases 14, 15 and 16 at 262,144
-# nodes (D5 keeps the paced lane at 1,048,576).
+# nodes (D5 keeps the paced lane at 1,048,576); for phases 19-19a, phases 11
+# and 12 at 262,144 nodes (D1 keeps their coordinator shape at 1,048,576) and
+# 14, 15 and 16 at 131,072.
 WEBHOOK_PODS, WEBHOOK_WAVE = 4096, 4096
-HOSTPATH_NODES = FAILOVER_NODES = CURVE_NODES = 1 << 18
+TRACE_NODES = WEBHOOK_NODES = 1 << 18
+HOSTPATH_NODES = FAILOVER_NODES = CURVE_NODES = 1 << 17
 # 12a: 256-pod waves; 3 rounds of 768 POSTs drive the controller to
 # SHEDDING (from the second round), then 2 rounds of 64.
 HOOK_PARITY_BATCH = 256
@@ -2381,12 +2578,12 @@ def _reset_launches() -> None:
 
 
 def _d1_over(**extra) -> dict:
-    return dict(nodes=NODES, packing="packed", batch=BATCH, depth=2, score_pct=SCORE_PCT,
-                **extra)
+    return {**dict(nodes=NODES, packing="packed", batch=BATCH, depth=2, score_pct=SCORE_PCT),
+            **extra}
 
 
 def phase_trace() -> dict:
-    """11: ``sched_bench.run`` at D1's shape with 16,384 pods, ``--trace 16
+    """11: ``sched_bench.run`` at D1's shape at 262,144 nodes with 16,384 pods, ``--trace 16
     --trace-out --profile`` and a ``FlightRecorder`` whose threshold is
     below one cycle: the Perfetto export validates, attribution covers >=
     95% of schedule-to-bind, the stages include queue_wait, encode,
@@ -2412,7 +2609,8 @@ def phase_trace() -> dict:
                             max_dumps=FLIGHT_MAX_DUMPS)
     t0 = time.perf_counter()
     report, coord, store = sched_bench.run(_bench_args(**_d1_over(
-        pods=TRACE_PODS, trace=TRACE_SAMPLE, trace_out=trace_out, profile=prof_out)),
+        nodes=TRACE_NODES, pods=TRACE_PODS, trace=TRACE_SAMPLE, trace_out=trace_out,
+        profile=prof_out)),
         flight_recorder=flight)
     d = report["detail"]
     _coordinator_checks("11", report, coord, store, TRACE_PODS)
@@ -2490,8 +2688,8 @@ def phase_trace_parity(untraced: dict) -> dict:
     coord.close()
     store.close()
     d = report["detail"]
-    check(stored == untraced, "[11a] tracing moved placement: stored pod values differ from "
-          "8a's untraced card run")
+    _same_stored("11a", "tracing moved placement: stored pod values and 8a's untraced card "
+                 "run's", _stored_form(stored), untraced)
     att = d["latency_attribution"]
     check(att["coverage"] >= 0.95, f"[11a] coverage {att['coverage']}")
     log(f"[11a] {PARITY_NODES:,} nodes x {PARITY_PODS:,} pods with --trace 1 on the card: "
@@ -2525,7 +2723,7 @@ def _hook_pod(name: str, cpu_milli: int = 10):
 
 
 def phase_webhook() -> dict:
-    """12: a ``Coordinator`` at D1's shape (1,048,576 nodes, batch 4096, 5%,
+    """12: a ``Coordinator`` at D1's shape (262,144 nodes, batch 4096, 5%,
     depth 2, packed) behind ``WebhookServer(coord.submit_external)`` on
     localhost.  One client thread POSTs 4,096 AdmissionReviews in waves of
     4,096 and stores each wave after its admission (the apiserver's write);
@@ -2546,9 +2744,9 @@ def phase_webhook() -> dict:
 
     t0 = time.perf_counter()
     store = MemStore()
-    write_nodes(store, NODES)
+    write_nodes(store, WEBHOOK_NODES)
     coord = Coordinator(
-        store, TableSpec(max_nodes=NODES), PodSpec(batch=BATCH),
+        store, TableSpec(max_nodes=WEBHOOK_NODES), PodSpec(batch=BATCH),
         Profile(node_affinity=0, topology_spread=0, interpod_affinity=0), chunk=CHUNK,
         with_constraints=False, pipeline=True, depth=2, score_pct=SCORE_PCT,
         packing="packed", device="cuda")
@@ -2618,7 +2816,7 @@ def phase_webhook() -> dict:
         srv.stop()
         coord.close()
         store.close()
-    log(f"[12] webhook intake at {NODES:,} nodes: {WEBHOOK_PODS} POSTs from one client "
+    log(f"[12] webhook intake at {WEBHOOK_NODES:,} nodes: {WEBHOOK_PODS} POSTs from one client "
         f"thread at {res['posts_per_sec']} POSTs/s, {res['binds_per_sec']} binds/s over "
         f"{res['window_s']} s, schedule-to-bind p50 {res['p50_ms']} ms p99 {res['p99_ms']} "
         f"ms, every pod bound once; stage means ms {res['stage_means_ms']}, waves "
@@ -2701,25 +2899,26 @@ def _webhook_parity_run(device: str) -> dict:
             "launches": launches, "seconds": time.perf_counter() - t0}
 
 
-def phase_webhook_parity() -> dict:
-    """12a: ``_webhook_parity_run`` on the card and the CPU: the same status
+def phase_webhook_parity(cpu_half=None) -> dict:
+    """12a: ``_webhook_parity_run`` on the card and, concurrently in a child
+    process, the CPU: the same status
     sequence (200 or 429), the same ``Retry-After`` values, byte-identical
     stored pods; the controller reached SHEDDING; no shed pod bound."""
-    runs = {dev: _webhook_parity_run(dev) for dev in ("cuda", "cpu")}
-    card, cpu = runs["cuda"], runs["cpu"]
+    card, cpu = _card_and_cpu("12a", "_webhook_parity_run", children=cpu_half)
+    runs = {"cuda": card, "cpu": cpu}
     check(card["answers"] == cpu["answers"],
           "[12a] card and CPU answered the POST sequence differently")
-    check(card["stored"] == cpu["stored"], "[12a] card and CPU stored pod values differ")
+    _same_stored("12a", "card and CPU stored pod values", card["stored"], cpu["stored"])
     check(card["states"] == cpu["states"], "[12a] card and CPU controller states differ")
     check("shedding" in card["states"] and card["shed"] > 0,
           f"[12a] the burst never drove the controller to SHEDDING: {card['states']}")
     retry = sorted({ra for s, ra in card["answers"] if s == 429})
     log(f"[12a] webhook parity at {PARITY_NODES:,} nodes: card ({card['seconds']:.1f}s) and "
-        f"CPU ({cpu['seconds']:.1f}s) gave the same {len(card['answers'])} answers "
-        f"({card['shed']} x 429, Retry-After {retry}) and byte-identical stored pods "
-        f"({len(card['stored'])}); states {card['states']}; card launches "
+        f"CPU ({cpu['seconds']:.1f}s, concurrently) gave the same {len(card['answers'])} "
+        f"answers ({card['shed']} x 429, Retry-After {retry}) and byte-identical stored pods "
+        f"({card['stored']['entries']}); states {card['states']}; card launches "
         f"{card['launches']}")
-    return {dev: {"shed": r["shed"], "stored": len(r["stored"]), "states": r["states"],
+    return {dev: {"shed": r["shed"], "stored": r["stored"]["entries"], "states": r["states"],
                   "launches": r["launches"], "seconds": round(r["seconds"], 3)}
             for dev, r in runs.items()}
 
@@ -2987,18 +3186,21 @@ def phase_failover_parity() -> dict:
 
 
 WIRE_STRESS_WATCHERS, WIRE_STRESS_WRITERS = 100, 1
+# 17b at 262,144 nodes (1,048,576 before phases 19-19a, which needed the
+# room): 17 keeps D1 over the wire at 1,048,576.
+WIRE_CONFIG5_NODES = 1 << 18
 
 
-def _time_relist(store) -> float:
+def _time_relist(store, nodes: int) -> float:
     """Seconds for the coordinator's node relist (``list_prefix_values``, the
-    light parse) of the whole fleet from ``store``."""
+    light parse) of the whole fleet of ``nodes`` from ``store``."""
     from k8s1m_tpu_torch.control.coordinator import NODES_PREFIX
     from k8s1m_tpu_torch.store.native import list_prefix_values
 
     t0 = time.perf_counter()
     values, _rev = list_prefix_values(store, NODES_PREFIX)
     seconds = time.perf_counter() - t0
-    check(len(values) == NODES, f"relist returned {len(values)} nodes, want {NODES}")
+    check(len(values) == nodes, f"relist returned {len(values)} nodes, want {nodes}")
     return round(seconds, 3)
 
 
@@ -3007,7 +3209,8 @@ def phase_wire(config: str) -> dict:
     against ``python -m k8s1m_tpu_torch.store.server_main --port 0`` in a
     fresh child process, at D1's exact shape (1,048,576 nodes, 32,768 pods,
     batch 4096, depth 2, 5%, packed, ``--stats --encode-profile``); 17b adds
-    ``--churn --stress-watchers 100 --stress-write-concurrency 1``.  Every
+    ``--churn --stress-watchers 100 --stress-write-concurrency 1`` at
+    262,144 nodes.  Every
     pod bound once (17b: every pod not deleted), the base stage launched in
     the window, the stressor's report read back with no failed stream and
     every write delivered to every watcher, and the server and the stressor
@@ -3017,7 +3220,7 @@ def phase_wire(config: str) -> dict:
 
     over = _d1_over(pods=COORD_PODS["D1"], stats=True, encode_profile=True)
     if config == "17b":
-        over.update(churn=True, stress_watchers=WIRE_STRESS_WATCHERS,
+        over.update(nodes=WIRE_CONFIG5_NODES, churn=True, stress_watchers=WIRE_STRESS_WATCHERS,
                     stress_write_concurrency=WIRE_STRESS_WRITERS)
     t0 = time.perf_counter()
     with serve_subprocess() as (proc, target):
@@ -3035,7 +3238,7 @@ def phase_wire(config: str) -> dict:
                 _store_checks(config, coord, store, pods - d["deleted"])
             else:
                 _coordinator_checks(config, report, coord, store, pods)
-            report["relist_s"] = _time_relist(store)
+            report["relist_s"] = _time_relist(store, over["nodes"])
         finally:
             coord.close()
             store.close()
@@ -3137,9 +3340,11 @@ def phase_wire_parity() -> dict:
 
 # ---- phases 18, 18a: the shard set --------------------------------------------
 
-# 18: shard_bench at 1,048,576 nodes with 1, 2 and 4 worker processes, each on
-# the card (BASELINE config 1's shape: D1's batch and 5% window, 65,536 pods).
-SHARD_PODS, SHARD_COUNTS = 65536, (1, 2, 4)
+# 18: shard_bench with 1, 2 and 4 worker processes, each on the card
+# (BASELINE config 1's shape: D1's batch and 5% window), at 1,048,576 nodes
+# (no other phase runs the FNV intake split and mask_rows at 1M rows) and
+# D1's 32,768 pods (65,536 before phases 19-19a).
+SHARD_NODES, SHARD_PODS, SHARD_COUNTS = NODES, 32768, (1, 2, 4)
 # 18a: three ShardMembers on one in-process store at 8a's node count; 4,096
 # pods in 4 rounds of 1,024, the Rebalancer run after round 2 over a skewed
 # start (groups by g % 8: 0-4 on shard 0, 5-6 on shard 1, 7 on shard 2).
@@ -3163,7 +3368,7 @@ def _shard_ownership(tag: str, kvs, asg, shards: int) -> int:
 
 
 def phase_shards() -> dict:
-    """18: ``tools/shard_bench.py --nodes 1048576 --pods 65536 --batch 4096
+    """18: ``tools/shard_bench.py --nodes 1048576 --pods 32768 --batch 4096
     --score-pct 5`` with 1, 2 and 4 worker processes, each on ``cuda``, each
     count against a fresh ``python -m k8s1m_tpu_torch.store.server_main``.
     Every pod bound exactly once (the workers' binds sum to the pods, each
@@ -3182,7 +3387,7 @@ def phase_shards() -> dict:
         t0 = time.perf_counter()
         with serve_subprocess() as (proc, target):
             out = shard_bench.main([
-                "--target", target, "--nodes", str(NODES), "--pods", str(SHARD_PODS),
+                "--target", target, "--nodes", str(SHARD_NODES), "--pods", str(SHARD_PODS),
                 "--shards", str(shards), "--batch", str(BATCH),
                 "--score-pct", str(SCORE_PCT), "--device", "cuda"])
             t_read = time.perf_counter()
@@ -3322,20 +3527,301 @@ def _shard_parity_run(device: str) -> dict:
 
 
 def phase_shard_parity() -> dict:
-    """18a: ``_shard_parity_run`` on the card and on the CPU: both pass their
-    checks, and the stored pods are byte-identical."""
-    card = _shard_parity_run("cuda")
-    cpu = _shard_parity_run("cpu")
-    check(card["stored"] == cpu["stored"], "[18a] stored pod values differ between card and CPU")
+    """18a: ``_shard_parity_run`` on the card and, concurrently in a child
+    process, on the CPU: both pass their checks, and the stored pods are
+    byte-identical."""
+    card, cpu = _card_and_cpu("18a", "_shard_parity_run")
+    _same_stored("18a", "card and CPU stored pod values", card["stored"], cpu["stored"])
     check(card["launches"]["fused_topk_by_stage"]["base"] > 0,
           f"[18a] no base launch: {card['launches']}")
-    log(f"[18a] 3 members at {PARITY_NODES:,} nodes, {len(card['stored'])} pods, owned nodes "
-        f"{card['owned_before']} -> {card['owned_after']} after the rebalance: card "
-        f"({card['seconds']:.1f}s) and CPU ({cpu['seconds']:.1f}s) byte-identical; card "
+    log(f"[18a] 3 members at {PARITY_NODES:,} nodes, {card['stored']['entries']} pods, owned "
+        f"nodes {card['owned_before']} -> {card['owned_after']} after the rebalance: card "
+        f"({card['seconds']:.1f}s) and CPU ({cpu['seconds']:.1f}s, concurrently) "
+        f"byte-identical; card "
         f"launches {card['launches']['fused_topk_by_stage']}")
     return {dev: {"seconds": round(r["seconds"], 3), "launches": r["launches"],
                   "owned_before": r["owned_before"], "owned_after": r["owned_after"]}
             for dev, r in (("cuda", card), ("cpu", cpu))}
+
+
+# ---- phases 19, 19a: the reference's experiment through the load tools -------
+
+# 19: the reference's 1M-node experiment (SURVEY §3.5; reference README's
+# make_nodes / make_pods procedure) over the wire: make_nodes at 1,048,576
+# nodes in 1,024-node PutFrames, make_pods at D1's 32,768 per-put RPCs (the
+# tools' defaults, --concurrency 100 --clients 4), a coordinator at D1's shape
+# binding them, the KWOK controller of group 0, the lease flood and the store
+# stress (native and Python lanes), count-ready, a /metrics scrape and
+# delete_pods.  19a: the same flow at 8a's 65,536 nodes with 4,096 pods, all
+# ten KWOK groups and one client at a time, coordinator on the card and on
+# the CPU.
+EXP_NODES, EXP_PODS, EXP_BULK = NODES, COORD_PODS["D1"], 1024
+EXP_NATIVE_PUTS, EXP_PY_PUTS, EXP_PY_RANGES = 200_000, 10_000, 1_000
+EXP_PARITY_NODES, EXP_PARITY_PODS = PARITY_NODES, 4096
+EXP_TICKS = (10.0, 20.0)
+EXP_LEASES = b"/registry/leases/kube-node-lease/"
+
+
+def _tool_child(tag: str, name: str, argv: list) -> dict:
+    """``python -m k8s1m_tpu_torch.tools.<name> argv`` in a child process from
+    the repository root: it must exit 0; returns its last stdout line (JSON)
+    with the child's own seconds, start-up included, as ``child_s``."""
+    from k8s1m_tpu_torch.store.server_main import child_env
+
+    root, env = child_env()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"k8s1m_tpu_torch.tools.{name}", *argv],
+                          capture_output=True, text=True, env=env, cwd=root, timeout=900)
+    check(proc.returncode == 0,
+          f"[{tag}] {name} exited {proc.returncode}: {proc.stderr[-2000:]}{proc.stdout[-500:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["child_s"] = round(time.perf_counter() - t0, 3)
+    return out
+
+
+def _tool_inproc(tag: str, name: str, argv: list) -> dict:
+    """The tool's own entry (``amain(parse_args(argv))``) in this process."""
+    import asyncio
+    import importlib
+
+    mod = importlib.import_module(f"k8s1m_tpu_torch.tools.{name}")
+    t0 = time.perf_counter()
+    out = asyncio.run(mod.amain(mod.parse_args(argv)))
+    out["child_s"] = round(time.perf_counter() - t0, 3)
+    return out
+
+
+def _prefix_count(store, prefix: bytes) -> int:
+    from k8s1m_tpu_torch.store.native import prefix_end
+
+    return store.range(prefix, prefix_end(prefix), count_only=True).count
+
+
+def _prefix_dump(store, prefix: bytes) -> dict:
+    from k8s1m_tpu_torch.store.native import list_prefix
+
+    kvs, _rev = list_prefix(store, prefix)
+    return {kv.key: (kv.value, kv.mod_revision) for kv in kvs}
+
+
+def _experiment(tag: str, device: str, target: str, *, nodes: int, pods: int, groups,
+                load: list, run_tool, metrics_port: int = 0, parity: bool = False) -> dict:
+    """One pass of the reference's experiment against the server at
+    ``target``; ``load`` holds the tools' load flags.  Every step checked and
+    timed; with ``parity`` the stored pods after binding and after the ticks
+    and the lease values are returned for comparison."""
+    from k8s1m_tpu_torch.cluster.kwok_controller import KwokController
+    from k8s1m_tpu_torch.config import PodSpec, TableSpec
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
+    from k8s1m_tpu_torch.faultline import RetryPolicy
+    from k8s1m_tpu_torch.obs.metrics import REGISTRY
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.store.remote import RemoteStore
+    from k8s1m_tpu_torch.tools import verify_cluster
+
+    res: dict = {"device": device, "nodes": nodes, "pods": pods, "steps_s": {}}
+    base = ["--target", target, "--quiet", *load]
+
+    def step(name, t0):
+        res["steps_s"][name] = round(time.perf_counter() - t0, 3)
+
+    def tool(name, argv):
+        out = run_tool(tag, name, argv)
+        log(f"[{tag}] {name}: {json.dumps(out)}")
+        return out
+
+    t0 = time.perf_counter()
+    out = res["make_nodes"] = tool("make_nodes", base + ["--count", str(nodes),
+                                                         "--bulk", str(EXP_BULK)])
+    check(out["count"] == nodes and out["errors"] == 0, f"[{tag}] make_nodes: {out}")
+    step("make_nodes", t0)
+    store = RemoteStore(target)
+    kstore = RemoteStore(target)
+    try:
+        t0 = time.perf_counter()
+        gaps = verify_cluster.find_gaps(store)
+        check(gaps == [], f"[{tag}] find-gaps: {gaps[:5]}")
+        step("find_gaps", t0)
+        t0 = time.perf_counter()
+        out = res["make_pods"] = tool("make_pods", base + ["--count", str(pods)])
+        check(out["count"] == pods and out["errors"] == 0, f"[{tag}] make_pods: {out}")
+        step("make_pods", t0)
+
+        t0 = time.perf_counter()
+        coord = Coordinator(
+            store, TableSpec(max_nodes=nodes), PodSpec(batch=BATCH),
+            Profile(node_affinity=0, topology_spread=0, interpod_affinity=0),
+            chunk=CHUNK, with_constraints=False, pipeline=True, depth=2,
+            score_pct=SCORE_PCT, packing="packed", device=device,
+            retry_policy=RetryPolicy(**_ZERO_DELAY))
+        try:
+            _reset_launches()
+            coord.bootstrap()
+            res["cold_build_s"] = round(time.perf_counter() - t0, 3)
+            t1 = time.perf_counter()
+            bound = coord.run_until_idle()
+            bind_s = time.perf_counter() - t1
+            res["launches"] = _launch_counts()
+            check(bound == pods, f"[{tag}] {bound} binds, want {pods}")
+            res["binds_per_sec"] = round(bound / bind_s, 1)
+            stored = _store_checks(tag, coord, store, pods)
+        finally:
+            coord.close()
+        step("schedule", t0)
+        if device == "cuda":
+            check(res["launches"]["fused_topk_by_stage"]["base"] > 0,
+                  f"[{tag}] no fused base launch: {res['launches']}")
+        if parity:
+            res["bound_pods"] = _prefix_dump(store, b"/registry/pods/")
+        owners = {}
+        for v in stored.values():
+            node = json.loads(v)["spec"]["nodeName"]
+            g = int(node.rsplit("-", 1)[1]) % 10
+            owners[g] = owners.get(g, 0) + 1
+        want_started = sum(owners.get(g, 0) for g in groups)
+        want_nodes = sum(1 for i in range(nodes) if i % 10 in groups)
+
+        t0 = time.perf_counter()
+        controllers = [KwokController(kstore, g) for g in groups]
+        try:
+            for c in controllers:
+                c.bootstrap(now=0.0)
+            step("kwok_bootstrap", t0)
+            adopted = sum(len(c.nodes) for c in controllers)
+            check(adopted == want_nodes, f"[{tag}] kwok adopted {adopted}, want {want_nodes}")
+            t1 = time.perf_counter()
+            renewed = []
+            for now in EXP_TICKS:
+                total = 0
+                for c in controllers:
+                    c._nodes_watch.progress()
+                    c._pods_watch.progress()
+                    total += c.tick(now=now)["renewed"]
+                renewed.append(total)
+            step("kwok_ticks", t1)
+            started = sum(c._started_total for c in controllers)
+        finally:
+            for c in controllers:
+                c.close()
+        check(started == want_started,
+              f"[{tag}] kwok started {started}, want the {want_started} pods on its nodes")
+        check(renewed == [want_nodes] * len(EXP_TICKS), f"[{tag}] leases renewed {renewed}")
+        leases = _prefix_count(store, EXP_LEASES)
+        check(leases == want_nodes, f"[{tag}] {leases} leases stored, want {want_nodes}")
+        check("kwok_node_lease_delay_seconds" in REGISTRY.render(),
+              f"[{tag}] kwok_node_lease_delay_seconds not rendered")
+        res["kwok"] = {"groups": len(groups), "adopted": adopted, "started": started,
+                       "renewed_per_tick": renewed}
+        if parity:
+            res["ticked_pods"] = _prefix_dump(store, b"/registry/pods/")
+            res["leases"] = _prefix_dump(store, EXP_LEASES)
+
+        if not parity:
+            t0 = time.perf_counter()
+            out = res["lease_flood"] = tool("lease_flood", base + [
+                "--nodes", str(nodes), "--rounds", "1", "--batch", str(EXP_BULK)])
+            check(out["count"] == nodes and out["errors"] == 0, f"[{tag}] lease_flood: {out}")
+            out = res["store_stress_native"] = tool("store_stress", base + [
+                "--native-client", "--puts", str(EXP_NATIVE_PUTS)])
+            check(out["puts"] == EXP_NATIVE_PUTS, f"[{tag}] native store_stress: {out}")
+            out = res["store_stress"] = tool("store_stress", base + [
+                "--puts", str(EXP_PY_PUTS), "--ranges", str(EXP_PY_RANGES)])
+            check(out["put_errors"] == 0 and out["range_errors"] == 0,
+                  f"[{tag}] store_stress: {out}")
+            step("load", t0)
+
+        t0 = time.perf_counter()
+        counts = res["count_ready"] = verify_cluster.count_ready(store)
+        check(sum(counts["nodes"].values()) == nodes, f"[{tag}] count-ready nodes {counts}")
+        check(counts["pods"].get("Running", 0) == started
+              and not any("(unbound)" in k for k in counts["pods"])
+              and sum(counts["pods"].values()) == pods, f"[{tag}] count-ready pods {counts}")
+        step("count_ready", t0)
+        if metrics_port:
+            import urllib.request
+
+            with urllib.request.urlopen(f"http://127.0.0.1:{metrics_port}/metrics",
+                                        timeout=30) as resp:
+                check(resp.status == 200, f"[{tag}] GET /metrics: {resp.status}")
+                res["metrics_bytes"] = len(resp.read())
+        t0 = time.perf_counter()
+        out = res["delete_pods"] = tool("delete_pods", base + ["--prefix", "bench-pod"])
+        check(out["count"] == pods and out["errors"] == 0, f"[{tag}] delete_pods: {out}")
+        left = _prefix_count(store, b"/registry/pods/")
+        check(left == 0, f"[{tag}] {left} pods left after delete_pods")
+        step("delete_pods", t0)
+    finally:
+        kstore.close()
+        store.close()
+    return res
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_experiment() -> dict:
+    """19: the reference's experiment at 1,048,576 nodes: a fresh
+    ``server_main --metrics-port`` child; every tool a CLI child whose JSON
+    line is read (a non-zero exit fails the phase); group 0's controller;
+    the server reaped."""
+    from k8s1m_tpu_torch.store.server_main import serve_subprocess
+
+    mport = _free_port()
+    t0 = time.perf_counter()
+    with serve_subprocess("--metrics-port", str(mport)) as (proc, target):
+        res = _experiment("19", "cuda", target, nodes=EXP_NODES, pods=EXP_PODS, groups=(0,),
+                          load=[], run_tool=_tool_child, metrics_port=mport)
+    check(proc.returncode is not None, "[19] the store server is still running")
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    r = res
+    log(f"[19] {EXP_NODES:,} nodes: node write {r['make_nodes']['seconds']} s "
+        f"({r['make_nodes']['rate']}/s), pods {r['make_pods']['rate']}/s per-put, cold build "
+        f"{r['cold_build_s']} s, {r['binds_per_sec']} binds/s, kwok {json.dumps(r['kwok'])}, "
+        f"lease puts {r['lease_flood']['puts_per_sec']}/s, native puts "
+        f"{r['store_stress_native']['puts_per_sec']}/s, Python puts "
+        f"{r['store_stress']['puts_per_sec']}/s ranges {r['store_stress']['ranges_per_sec']}/s, "
+        f"count-ready {r['steps_s']['count_ready']} s, steps {json.dumps(r['steps_s'])}, "
+        f"base launches {r['launches']['fused_topk_by_stage']['base']}")
+    return res
+
+
+def _parity_pass(device: str) -> dict:
+    """One 19a pass against a fresh server child, the tools in this process."""
+    from k8s1m_tpu_torch.store.server_main import serve_subprocess
+
+    t0 = time.perf_counter()
+    with serve_subprocess() as (proc, target):
+        res = _experiment(
+            f"19a {device}", device, target, nodes=EXP_PARITY_NODES, pods=EXP_PARITY_PODS,
+            groups=tuple(range(10)), load=["--concurrency", "1", "--clients", "1"],
+            run_tool=_tool_inproc, parity=True)
+    check(proc.returncode is not None, f"[19a {device}] the store server is still running")
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    return res
+
+
+def phase_experiment_parity(cpu_half=None) -> dict:
+    """19a: the experiment at 65,536 nodes x 4,096 pods, all ten KWOK groups,
+    one client at a time (``--concurrency 1 --clients 1``), each pass against
+    a fresh server child with the tools in its own process: the coordinator
+    on the card here and, at the same time, on the CPU in a child process
+    (two torch threads).  Both pass every check, and the stored pods after
+    binding and after the ticks and the lease values are byte-identical,
+    revisions included (equal sha256 over every entry, ``_digest``)."""
+    card, cpu = _card_and_cpu("19a", "_parity_pass", children=cpu_half)
+    for key in ("bound_pods", "ticked_pods", "leases"):
+        _same_stored("19a", f"card and CPU {key}", card[key], cpu[key])
+    log(f"[19a] {EXP_PARITY_NODES:,} nodes x {EXP_PARITY_PODS:,} pods, 10 KWOK groups: card "
+        f"({card['seconds']:.1f}s) and CPU ({cpu['seconds']:.1f}s, concurrently) "
+        f"byte-identical ({card['ticked_pods']['entries']} pods, "
+        f"{card['leases']['entries']} leases); card launches "
+        f"{card['launches']['fused_topk_by_stage']}")
+    return {"cuda": _without_keys(card), "cpu": _without_keys(cpu)}
 
 
 def main(argv=None) -> int:
@@ -3369,6 +3855,7 @@ def main(argv=None) -> int:
     if args.worst_case_only:
         print(json.dumps({"worst_case": phase_worst_case(device)}), flush=True)
         return 0
+    _warm_cpu_children(len(PARITY_GROUPS))  # 8a's CPU halves
     err3 = phase_kernel_vs_plain(device)
     err3b = phase_affinity_vs_plain(device)
     wide = phase_wide_vs_plain(device)
@@ -3381,18 +3868,21 @@ def main(argv=None) -> int:
     path_c = {c: phase_delta_path(device, c, steps=args.delta_steps, warmup=args.warmup)
               for c in ("C1", "C2")}
     parity, untraced = phase_coordinator_parity()
+    _warm_cpu_children(2)  # 10a's and 12a's CPU halves
     coord = {c: phase_coordinator(c) for c in ("D1", "D2", "D3")}
     coord["D4"] = phase_constraints()
     coord["D5"] = phase_coordinator("D5")
     probe = phase_probe()
     megarow = phase_megarow()
+    webhook_cpu = _start_cpu_half("_webhook_parity_run")  # 12a's, beside 10a's
     composed = phase_composed_parity()
+    webhook_parity = phase_webhook_parity(webhook_cpu)
+    _warm_cpu_children(2)  # 18a's and 19a's CPU halves
     breaker = phase_breaker()
     trace = phase_trace()
     trace_parity = phase_trace_parity(untraced)
     del untraced
     webhook = phase_webhook()
-    webhook_parity = phase_webhook_parity()
     drills = phase_drills()
     hostpath = phase_hostpath()
     curve = phase_curve()
@@ -3402,13 +3892,16 @@ def main(argv=None) -> int:
     wire_parity = phase_wire_parity()
     wire["17b"] = phase_wire("17b")
     shards = phase_shards()
+    experiment = phase_experiment()
+    experiment_cpu = _start_cpu_half("_parity_pass")  # 19a's, beside 18a's
     shard_parity = phase_shard_parity()
+    experiment_parity = phase_experiment_parity(experiment_cpu)
     log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
 
-    # Launches of the coordinator's paths (phases 8, 10-16a, 17-17b and 18a,
-    # counts set to 0 just before each measured run and read just after it;
-    # 18's workers set theirs to 0 after their warm-up pod and report them
-    # with their final status), per fused stage.
+    # Launches of the coordinator's paths (phases 8, 10-16a, 17-17b, 18a, 19
+    # and 19a, counts set to 0 just before each measured run and read just
+    # after it; 18's workers set theirs to 0 after their warm-up pod and
+    # report them with their final status), per fused stage.
     runs = ([r["detail"]["launches"] for r in coord.values()]
             + [megarow["launches"], trace["launches"], trace_parity["launches"],
                webhook["launches"], webhook_parity["cuda"]["launches"],
@@ -3418,7 +3911,8 @@ def main(argv=None) -> int:
             + [r["detail"]["launches"] for r in wire.values()]
             + [wire_parity[tag]["launches"] for tag in ("cuda wire", "cuda in-process")]
             + [w["launches"] for r in shards.values() for w in r["per_worker"]]
-            + [shard_parity["cuda"]["launches"]])
+            + [shard_parity["cuda"]["launches"], experiment["launches"],
+               experiment_parity["cuda"]["launches"]])
     coord_launches = {
         stage: sum(r["fused_topk_by_stage"][stage] for r in runs)
         for stage in ("base", "aff", "cons")
@@ -3488,7 +3982,9 @@ def main(argv=None) -> int:
                        "drills": drills, "hostpath": hostpath, "latency_curve": curve,
                        "failover": failover, "failover_parity": failover_parity,
                        "wire": wire, "wire_parity": wire_parity, "shards": shards,
-                       "shard_parity": shard_parity, **kernels}, f, indent=1, default=str)
+                       "shard_parity": shard_parity, "experiment": experiment,
+                       "experiment_parity": experiment_parity, **kernels},
+                      f, indent=1, default=str)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3498,4 +3994,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        _stop_cpu_children()

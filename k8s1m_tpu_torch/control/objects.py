@@ -42,17 +42,18 @@ from k8s1m_tpu_torch.config import (
     TOPO_REGION,
     TOPO_ZONE,
 )
-from k8s1m_tpu_torch.ops.priority import pod_priority_of
-from k8s1m_tpu_torch.snapshot.constraints import ConstraintTracker
-from k8s1m_tpu_torch.snapshot.node_table import NodeInfo, Taint
-from k8s1m_tpu_torch.snapshot.pod_encoding import (
+from k8s1m_tpu_torch.snapshot.records import (
     AffinityTermRef,
+    ConstraintTracker,
+    NodeInfo,
     NodeSelectorTerm,
     PodInfo,
     PreferredSchedulingTerm,
     SelectorRequirement,
     SpreadConstraintRef,
+    Taint,
     Toleration,
+    pod_priority_of,
 )
 
 

@@ -1,13 +1,13 @@
 """Prometheus-style metrics, self-contained (no client library).
 
-The port's own copy of ``k8s1m_tpu/obs/metrics.py``, trimmed to what the
-coordinator and its tools read (no text exposition of the whole registry:
-the port serves no metrics endpoint): counters, gauges, histograms with
-labels, ``CallbackMetric`` (a sample set computed at read time) and
-``AlertingHistogram`` (logs any observation over its alert threshold, the
-reference's ``AlertingHistogramTimer``) in a registry of their own
-(``REGISTRY``), the ``LevelTimer`` of the pipeline depth and
-``quantile_report_ms``.  The
+The port's own copy of ``k8s1m_tpu/obs/metrics.py``: counters, gauges,
+histograms with labels, ``CallbackMetric`` (a sample set computed at read
+time) and ``AlertingHistogram`` (logs any observation over its alert
+threshold, the reference's ``AlertingHistogramTimer``) in a registry of
+their own (``REGISTRY``, rendered in the Prometheus text exposition
+format by ``Registry.render`` and served by
+``obs/http.start_metrics_server``), the ``LevelTimer`` of the pipeline
+depth and ``quantile_report_ms``.  The
 metric names are the JAX package's; a process that imports both packages
 holds two registries, so no name is registered twice in one.
 """
@@ -51,6 +51,9 @@ class Metric:
             )
         return tuple(str(labels[k]) for k in self.labelnames)
 
+    def render(self) -> list[str]:
+        raise NotImplementedError
+
 class Counter(Metric):
     kind = "counter"
 
@@ -65,6 +68,15 @@ class Counter(Metric):
 
     def value(self, **labels) -> float:
         return self._values.get(self._key(labels), 0.0)
+
+    def render(self) -> list[str]:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} counter"]
+        with self._lock:
+            for key, v in sorted(self._values.items()):
+                lbl = _label_str(dict(zip(self.labelnames, key)))
+                out.append(f"{self.name}{lbl} {v}")
+        return out
+
 
 class Gauge(Metric):
     kind = "gauge"
@@ -93,6 +105,21 @@ class Gauge(Metric):
         if key in self._callbacks:
             return float(self._callbacks[key]())
         return self._values.get(key, 0.0)
+
+    def render(self) -> list[str]:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} gauge"]
+        with self._lock:
+            items = dict(self._values)
+            for key, fn in self._callbacks.items():
+                try:
+                    items[key] = float(fn())
+                except Exception:  # graftlint: disable=broad-except (scrape must not die with the callback)
+                    continue
+        for key, v in sorted(items.items()):
+            lbl = _label_str(dict(zip(self.labelnames, key)))
+            out.append(f"{self.name}{lbl} {v}")
+        return out
+
 
 class CallbackMetric(Metric):
     """Metric whose whole sample set is computed at read time.
@@ -221,6 +248,22 @@ class Histogram(Metric):
             seen += c
         return float("inf")
 
+    def render(self) -> list[str]:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} histogram"]
+        with self._lock:
+            for key in sorted(self._counts):
+                base = dict(zip(self.labelnames, key))
+                cum = 0
+                for i, ub in enumerate(self.buckets):
+                    cum += self._counts[key][i]
+                    lbl = _label_str({**base, "le": repr(ub)})
+                    out.append(f"{self.name}_bucket{lbl} {cum}")
+                lbl = _label_str({**base, "le": "+Inf"})
+                out.append(f"{self.name}_bucket{lbl} {self._totals[key]}")
+                out.append(f"{self.name}_sum{_label_str(base)} {self._sums[key]}")
+                out.append(f"{self.name}_count{_label_str(base)} {self._totals[key]}")
+        return out
+
 class AlertingHistogram(Histogram):
     """Histogram that logs any observation above ``alert_s`` immediately
     (reference AlertingHistogramTimer, mem_etcd/src/store.rs:883-907)."""
@@ -307,5 +350,15 @@ class Registry:
 
     def get(self, name: str) -> Metric | None:
         return self._metrics.get(name)
+
+    def render(self) -> str:
+        """Every metric in the Prometheus text exposition format."""
+        lines: list[str] = []
+        with self._lock:
+            metrics = list(self._metrics.values())
+        for m in metrics:
+            lines.extend(m.render())
+        return "\n".join(lines) + "\n"
+
 
 REGISTRY = Registry()

@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from k8s1m_tpu_torch.snapshot.records import pod_priority_of  # noqa: F401 (re-exported)
+
 JITTER_BITS = 20
 MAX_SCORE = (1 << 11) - 1  # 2047; 2047 * 2^20 + (2^20 - 1) == int32 max
 INFEASIBLE = -1
@@ -151,13 +153,3 @@ def seed_of(key) -> int:
     lo = int(b0[0] ^ b1[0])
     off = lo % _M32
     return int(np.array((off - (1 << 31)) & _M32, np.uint32).view(np.int32))
-
-
-def pod_priority_of(obj: dict) -> int:
-    """``spec.priority`` of a pod API object dict (0 when unset or not an
-    integer) — the pod's PriorityClass value, never encoded for the
-    device."""
-    try:
-        return int((obj.get("spec") or {}).get("priority") or 0)
-    except (TypeError, ValueError, AttributeError):
-        return 0

@@ -24,6 +24,7 @@ import torch
 
 from k8s1m_tpu_torch.config import TOPO_HOSTNAME, TOPO_REGION, TOPO_ZONE, TableSpec
 from k8s1m_tpu_torch.device import resolve_device
+from k8s1m_tpu_torch.snapshot.records import ConstraintTracker, SelectorKey  # noqa: F401 (re-exported)
 
 # Field order of ConstraintState (also the order interop and the tests use).
 FIELDS = (
@@ -78,70 +79,6 @@ def slice_constraints(state: ConstraintState, start: int, rows: int) -> Constrai
 
 
 # ---- host-side interning ---------------------------------------------------
-
-
-@dataclasses.dataclass(frozen=True)
-class SelectorKey:
-    """Identity of a constraint: namespace + matchLabels + topology key."""
-
-    namespace: str
-    match_labels: tuple[tuple[str, str], ...]
-    topo: int
-
-
-class ConstraintTracker:
-    """Interns spread constraints and affinity terms into device slots
-    (a small fixed pool: TableSpec.spread_slots/affinity_slots)."""
-
-    def __init__(self, spec: TableSpec) -> None:
-        self.spec = spec
-        self._spread: dict[SelectorKey, int] = {}
-        self._affinity: dict[SelectorKey, int] = {}
-
-    @staticmethod
-    def _key(namespace: str, selector: dict[str, str], topo: int) -> SelectorKey:
-        return SelectorKey(namespace, tuple(sorted(selector.items())), topo)
-
-    def spread_slot(self, namespace: str, selector: dict[str, str], topo: int) -> int:
-        key = self._key(namespace, selector, topo)
-        slot = self._spread.get(key)
-        if slot is None:
-            slot = len(self._spread)
-            if slot >= self.spec.spread_slots:
-                raise ValueError("out of spread constraint slots; grow TableSpec.spread_slots")
-            self._spread[key] = slot
-        return slot
-
-    def affinity_slot(self, namespace: str, selector: dict[str, str], topo: int) -> int:
-        key = self._key(namespace, selector, topo)
-        slot = self._affinity.get(key)
-        if slot is None:
-            slot = len(self._affinity)
-            if slot >= self.spec.affinity_slots:
-                raise ValueError("out of affinity term slots; grow TableSpec.affinity_slots")
-            self._affinity[key] = slot
-        return slot
-
-    @staticmethod
-    def selector_matches(selector: dict[str, str], labels: dict[str, str]) -> bool:
-        return all(labels.get(k) == v for k, v in selector.items())
-
-    def spread_matches(self, namespace: str, labels: dict[str, str]):
-        """(slot, topo) of every interned spread constraint matching a pod."""
-        return [
-            (slot, key.topo)
-            for key, slot in self._spread.items()
-            if key.namespace == namespace
-            and self.selector_matches(dict(key.match_labels), labels)
-        ]
-
-    def affinity_matches(self, namespace: str, labels: dict[str, str]):
-        return [
-            (slot, key.topo)
-            for key, slot in self._affinity.items()
-            if key.namespace == namespace
-            and self.selector_matches(dict(key.match_labels), labels)
-        ]
 
 
 # ---- device-side commit ----------------------------------------------------

@@ -36,6 +36,14 @@ from k8s1m_tpu_torch.config import EFFECT_NO_SCHEDULE, NONE_ID, TableSpec
 from k8s1m_tpu_torch.device import resolve_device, to_tensor
 from k8s1m_tpu_torch.obs.metrics import Counter, Gauge
 from k8s1m_tpu_torch.snapshot.interning import Vocab, numeric_of
+from k8s1m_tpu_torch.snapshot.records import (  # noqa: F401 (re-exported)
+    HOSTNAME_LABEL,
+    REGION_LABEL,
+    UNSCHEDULABLE_TAINT_KEY,
+    ZONE_LABEL,
+    NodeInfo,
+    Taint,
+)
 
 _BULK_ROWS = Counter(
     "megarow_bulk_ingest_rows_total",
@@ -83,32 +91,6 @@ class RowsExhausted(ValueError):
     def __init__(self, msg: str, quarantined: int = 0):
         super().__init__(msg)
         self.quarantined = quarantined
-
-
-UNSCHEDULABLE_TAINT_KEY = "node.kubernetes.io/unschedulable"
-ZONE_LABEL = "topology.kubernetes.io/zone"
-REGION_LABEL = "topology.kubernetes.io/region"
-HOSTNAME_LABEL = "kubernetes.io/hostname"
-
-
-@dataclasses.dataclass
-class Taint:
-    key: str
-    value: str = ""
-    effect: int = EFFECT_NO_SCHEDULE
-
-
-@dataclasses.dataclass
-class NodeInfo:
-    """Host-side description of one node (the parsed KWOK/real Node object)."""
-
-    name: str
-    cpu_milli: int = 4000
-    mem_kib: int = 8 << 20          # 8 GiB
-    pods: int = 110
-    labels: dict[str, str] = dataclasses.field(default_factory=dict)
-    taints: list[Taint] = dataclasses.field(default_factory=list)
-    unschedulable: bool = False
 
 
 # Every NodeTable column, in field order.

@@ -23,97 +23,26 @@ import numpy as np
 import torch
 
 from k8s1m_tpu_torch.config import (
-    DEFAULT_SCHEDULER,
-    EFFECT_NONE,
     NO_NUMERIC,
     NONE_ID,
     PodSpec,
     SEL_OP_GT,
     SEL_OP_LT,
-    SPREAD_DO_NOT_SCHEDULE,
-    TOL_OP_EXISTS,
-    TOPO_HOSTNAME,
     TableSpec,
 )
 from k8s1m_tpu_torch.device import resolve_device
 from k8s1m_tpu_torch.semantics import pod_tolerates_taint
 from k8s1m_tpu_torch.snapshot.interning import Vocab, numeric_of
-from k8s1m_tpu_torch.snapshot.node_table import Taint
-
-
-@dataclasses.dataclass
-class Toleration:
-    key: str = ""                  # "" tolerates every key (with op Exists)
-    op: int = TOL_OP_EXISTS
-    value: str = ""
-    effect: int = EFFECT_NONE      # EFFECT_NONE tolerates every effect
-
-
-@dataclasses.dataclass
-class SelectorRequirement:
-    key: str
-    op: int                        # SEL_OP_*
-    values: list[str] = dataclasses.field(default_factory=list)
-
-
-@dataclasses.dataclass
-class NodeSelectorTerm:
-    match_expressions: list[SelectorRequirement] = dataclasses.field(default_factory=list)
-
-
-@dataclasses.dataclass
-class PreferredSchedulingTerm:
-    weight: int
-    term: NodeSelectorTerm
-
-
-@dataclasses.dataclass
-class SpreadConstraintRef:
-    """A pod's reference to an interned topologySpreadConstraint slot."""
-
-    cid: int
-    topo: int
-    max_skew: int = 1
-    mode: int = SPREAD_DO_NOT_SCHEDULE
-    self_match: bool = True
-
-
-@dataclasses.dataclass
-class AffinityTermRef:
-    """A pod's reference to an interned (anti)affinity term slot."""
-
-    tid: int
-    topo: int = TOPO_HOSTNAME
-    required: bool = False
-    anti: bool = False
-    weight: int = 1
-    self_match: bool = False
-
-
-@dataclasses.dataclass
-class PodInfo:
-    """Host-side description of one pending pod."""
-
-    name: str
-    namespace: str = "default"
-    cpu_milli: int = 100
-    mem_kib: int = 200 << 10       # 200 MiB
-    scheduler_name: str = DEFAULT_SCHEDULER
-    node_name: str | None = None
-    node_selector: dict[str, str] = dataclasses.field(default_factory=dict)
-    tolerations: list[Toleration] = dataclasses.field(default_factory=list)
-    required_terms: list[NodeSelectorTerm] = dataclasses.field(default_factory=list)
-    preferred_terms: list[PreferredSchedulingTerm] = dataclasses.field(default_factory=list)
-    spread_refs: list[SpreadConstraintRef] = dataclasses.field(default_factory=list)
-    affinity_refs: list[AffinityTermRef] = dataclasses.field(default_factory=list)
-    spread_incs: list[tuple[int, int]] = dataclasses.field(default_factory=list)
-    ipa_incs: list[tuple[int, int]] = dataclasses.field(default_factory=list)
-    labels: dict[str, str] = dataclasses.field(default_factory=dict)
-    priority: int = 0
-
-    @property
-    def key(self) -> str:
-        return f"{self.namespace}/{self.name}"
+from k8s1m_tpu_torch.snapshot.records import (  # noqa: F401 (re-exported)
+    AffinityTermRef,
+    NodeSelectorTerm,
+    PodInfo,
+    PreferredSchedulingTerm,
+    SelectorRequirement,
+    SpreadConstraintRef,
+    Taint,
+    Toleration,
+)
 
 
 @dataclasses.dataclass

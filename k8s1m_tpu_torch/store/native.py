@@ -4,11 +4,13 @@ The port's own copy of the parts of ``k8s1m_tpu/store/native.py`` the
 coordinator and ``tools/sched_bench.py`` call: ``MemStore`` (put, batched
 put, CAS, range, watch, the native bind wave ``bind_batch``; a write-ahead
 log with ``wal_dir=``), ``Watcher`` (``poll_light``, the columnar pod drain
-``poll_pods``), ``parse_pod_events`` (the same columnar parse over events
-received off the wire), ``WireFront`` (the native etcd-wire server over a
-``MemStore``), the paginated relists ``list_prefix``/``list_prefix_values``,
-``drain_events_light``, ``prefix_end``, the errors and the ``POD_*``
-flags.  It loads the port's
+``poll_pods``, the full ``poll``), ``parse_pod_events`` (the same columnar
+parse over events received off the wire), ``WireFront`` (the native
+etcd-wire server over a ``MemStore``) and ``wire_stress_put`` (its
+pipelined native Put client), the paginated relists
+``list_prefix``/``list_prefix_values`` and the unpinned ``scan_prefix``,
+``drain_events``/``drain_events_light``, ``prefix_end``, the errors and the
+``POD_*`` flags.  It loads the port's
 own ``libmemstore.so`` (``store/build.py``), built from the C++ sources
 under ``native/``; binary result layouts are defined in
 ``native/memstore/memstore.h``.
@@ -258,6 +260,11 @@ def _load_lib():
     lib.wf_port.restype = c.c_int
     lib.wf_port.argtypes = [c.c_void_p]
     lib.wf_stop.argtypes = [c.c_void_p]
+    lib.wf_stress_put.restype = c.c_int64
+    lib.wf_stress_put.argtypes = [
+        c.c_char_p, c.c_int, c.c_int64, c.c_int, c.c_char_p, c.c_int64,
+        c.c_int, c.POINTER(c.c_double),
+    ]
     return lib
 
 
@@ -286,6 +293,33 @@ class Watcher:
         self._store = store
         self.id = wid
         self.canceled = False
+
+    def poll(self, max_events: int = 1000, timeout_ms: int = 0) -> list[WatchEvent]:
+        lib = _lib()
+        out = ctypes.POINTER(ctypes.c_uint8)()
+        out_len = ctypes.c_size_t()
+        n = lib.ms_watch_poll(
+            self._store._h, self.id, max_events, timeout_ms,
+            ctypes.byref(out), ctypes.byref(out_len),
+        )
+        if n == _ERR_NOT_FOUND:
+            self.canceled = True
+            return []
+        buf = memoryview(_take_buf(lib, out, out_len))
+        (n_events,) = _U32.unpack_from(buf, 0)
+        if buf[4]:
+            self.canceled = True
+        off = 5
+        events = []
+        for _ in range(n_events):
+            etype, has_prev = buf[off], buf[off + 1]
+            off += 2
+            kv, off = _parse_kv(buf, off)
+            prev = None
+            if has_prev:
+                prev, off = _parse_kv(buf, off)
+            events.append(WatchEvent("DELETE" if etype else "PUT", kv, prev))
+        return events
 
     def poll_light(
         self, max_events: int = 1000, timeout_ms: int = 0
@@ -495,6 +529,38 @@ def list_prefix_items(store, prefix: bytes, *, revision: int = 0, keys_only: boo
         start = (items[-1] if keys_only else items[-1][0]) + b"\x00"
 
 
+def scan_prefix(store, prefix: bytes, *, page: int = 5000, keys_only: bool = False):
+    """Streaming paginated scan of a prefix, yielding ``(key, value)`` pairs
+    (bare keys with ``keys_only``) through the store's light parse
+    (``range_items``: no KeyValue per entry, which at 1M objects over the
+    wire is most of the scan).  Deliberately UNPINNED: each page reads the
+    latest revision, so a long scan over a live cluster sees a moving
+    snapshot but never hits ``CompactedError`` midway (a generator cannot
+    restart after it has yielded).  The verification tools want such a
+    scan; the list+watch handoff wants ``list_prefix``'s pinned one."""
+    start, end = prefix, prefix_end(prefix)
+    while True:
+        _rev, more, items = store.range_items(start, end, limit=page, keys_only=keys_only)
+        yield from items
+        if not more or not items:
+            return
+        start = (items[-1] if keys_only else items[-1][0]) + b"\x00"
+
+
+def drain_events(watcher, batch: int = 10000, limit: int = 200_000):
+    """Yield ``WatchEvent``s from a watcher (in-process or remote) until its
+    queue momentarily empties or ``limit`` events have been yielded (a
+    liveness bound for tick-driven consumers: the remainder stays queued
+    for the next tick)."""
+    seen = 0
+    while True:
+        evs = watcher.poll(batch)
+        yield from evs
+        seen += len(evs)
+        if len(evs) < batch or seen >= limit:
+            return
+
+
 def drain_events_light(watcher, batch: int = 10000, limit: int = 200_000):
     """Yield ``(type, key, value, mod_revision)`` tuples (type 0=PUT,
     1=DELETE) from a watcher until its queue momentarily empties or
@@ -577,6 +643,11 @@ class MemStore:
         ok, rev, _ = self._set(key, value, False, False, 0, lease)
         assert ok
         return rev
+
+    def delete(self, key: bytes) -> tuple[int, bool]:
+        """Returns (revision, deleted); the revision is 0 when nothing existed."""
+        _ok, rev, _ = self._set(key, None, False, False, 0, 0)
+        return rev, rev > 0
 
     def put_batch(
         self,
@@ -836,3 +907,22 @@ class WireFront:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def wire_stress_put(host: str, port: int, count: int, concurrency: int = 64,
+                    prefix: str = "/registry/leases/stress/", key_count: int = 10000,
+                    val_len: int = 256) -> tuple[int, float]:
+    """Pipelined per-RPC Put load from the native client
+    (``wf_stress_put``, ``native/wirefront``) over the standard etcd wire:
+    ``concurrency`` requests in flight on one connection, keys cycled over
+    ``key_count``.  Returns (completed puts, elapsed seconds).  The client
+    is C++ because a Python client saturates one core long before the
+    server does."""
+    elapsed = ctypes.c_double()
+    n = _lib().wf_stress_put(
+        host.encode(), port, count, concurrency, prefix.encode(), key_count,
+        val_len, ctypes.byref(elapsed),
+    )
+    if n < 0:
+        raise RuntimeError(f"wf_stress_put failed rc={n}")
+    return int(n), float(elapsed.value)

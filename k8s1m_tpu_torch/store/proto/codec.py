@@ -314,6 +314,13 @@ TxnResponse = _message(
 CompactionRequest = _message(
     "CompactionRequest", _f(1, "revision", "int64"), _f(2, "physical", "bool"))
 CompactionResponse = _message("CompactionResponse", _f(1, "header", "msg", ResponseHeader))
+LeaseGrantRequest = _message(
+    "LeaseGrantRequest", _f(1, "TTL", "int64"), _f(2, "ID", "int64"))
+LeaseGrantResponse = _message(
+    "LeaseGrantResponse", _f(1, "header", "msg", ResponseHeader), _f(2, "ID", "int64"),
+    _f(3, "TTL", "int64"), _f(4, "error", "string"))
+LeaseRevokeRequest = _message("LeaseRevokeRequest", _f(1, "ID", "int64"))
+LeaseRevokeResponse = _message("LeaseRevokeResponse", _f(1, "header", "msg", ResponseHeader))
 StatusRequest = _message("StatusRequest")
 StatusResponse = _message(
     "StatusResponse", _f(1, "header", "msg", ResponseHeader), _f(2, "version", "string"),

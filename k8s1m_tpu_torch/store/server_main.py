@@ -4,20 +4,22 @@
 Mirrors the reference's flags (reference mem_etcd/src/main.rs:60-81):
 
     python -m k8s1m_tpu_torch.store.server_main \\
-        --port 2379 --wal-dir /var/lib/memstore --wal-default buffered \\
+        --port 2379 --metrics-port 9000 \\
+        --wal-dir /var/lib/memstore --wal-default buffered \\
         --wal-no-write-prefix /registry/leases/
 
 The server is the native front-end (``--wire native``, ``WireFront``:
 HTTP/2, HPACK and the etcd protobuf subset in C++) over the port's
 ``MemStore``.  The first line on stdout is the bound port, so a caller can
 pass ``--port 0`` and read it back.  SIGTERM or SIGINT stops the server and
-closes the store (its write-ahead log flushed).
+closes the store (its write-ahead log flushed).  ``--metrics-port N``
+(not 0) serves the process's metrics registry as Prometheus text on
+``http://127.0.0.1:N/metrics`` (``obs/http.py``); the port's default is 0,
+off.
 
-Two flags of the JAX server name modules the port does not carry:
-``--wire asyncio`` (the asyncio gRPC server, ``store/etcd_server.py``,
-which needs a gRPC server library) and ``--metrics-port`` other than 0
-(the Prometheus endpoint, ``obs/http.py``).  Each exits with a message
-that says so.
+``--wire asyncio`` names the JAX package's asyncio gRPC server
+(``store/etcd_server.py``, which needs a gRPC server library); the port
+does not carry it, and the flag exits with a message that says so.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import subprocess
 import sys
 import threading
 
+from k8s1m_tpu_torch.obs.http import start_metrics_server
 from k8s1m_tpu_torch.store.native import MemStore, WireFront
 
 
@@ -40,8 +43,7 @@ def parse_args(argv=None):
     ap.add_argument("--port", type=int, default=2379)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--metrics-port", type=int, default=0,
-                    help="Prometheus endpoint port; the port has no obs/http.py yet, so "
-                    "only 0 (off) is accepted")
+                    help="serve /metrics on 127.0.0.1:PORT (0 = off)")
     ap.add_argument("--wal-dir", default=None)
     ap.add_argument("--wal-default", choices=["none", "buffered", "fsync"],
                     default="buffered")
@@ -57,9 +59,6 @@ def parse_args(argv=None):
         ap.exit(2, "server_main: --wire asyncio needs the asyncio gRPC server "
                 "(k8s1m_tpu/store/etcd_server.py), which the port does not carry; "
                 "use --wire native\n")
-    if args.metrics_port:
-        ap.exit(2, "server_main: --metrics-port needs the metrics endpoint "
-                "(k8s1m_tpu/obs/http.py), which the port does not carry; pass 0\n")
     return args
 
 
@@ -71,15 +70,22 @@ def main(argv=None) -> None:
         signal.signal(sig, lambda *_: stop.set())
     store = MemStore(wal_dir=args.wal_dir, wal_mode=args.wal_default,
                      no_write_prefixes=tuple(args.wal_no_write_prefix))
+    metrics = None
     try:
         wf = WireFront(store, host=args.host, port=args.port, threads=args.wire_threads)
         try:
+            if args.metrics_port:
+                metrics = start_metrics_server(args.metrics_port)
             print(wf.port, flush=True)
-            logging.info("memstore serving etcd API on :%d via native wirefront", wf.port)
+            logging.info("memstore serving etcd API on :%d via native wirefront "
+                         "(metrics :%d)", wf.port, args.metrics_port)
             # The C++ loops serve; this thread only waits for the signal.
             while not stop.wait(1.0):
                 pass
         finally:
+            if metrics is not None:
+                metrics.shutdown()
+                metrics.server_close()
             wf.close()
     finally:
         store.close()
@@ -97,16 +103,17 @@ def child_env() -> tuple[str, dict]:
 
 
 @contextlib.contextmanager
-def serve_subprocess():
-    """Run this server in a child process on a free port of 127.0.0.1;
-    yields ``(process, "127.0.0.1:port")``.  A server that does not report
+def serve_subprocess(*extra_args: str):
+    """Run this server in a child process on a free port of 127.0.0.1, with
+    ``extra_args`` appended to its command line (``"--metrics-port",
+    "9000"``); yields ``(process, "127.0.0.1:port")``.  A server that does not report
     its port within two minutes (a first run builds ``libmemstore.so``)
     fails the caller; on every exit path the child is terminated (killed
     if it lingers) and reaped."""
     root, env = child_env()
     proc = subprocess.Popen(
         [sys.executable, "-m", "k8s1m_tpu_torch.store.server_main", "--port", "0",
-         "--host", "127.0.0.1", "--wal-default", "none"],
+         "--host", "127.0.0.1", "--wal-default", "none", *extra_args],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, env=env, cwd=root)
     try:
         ready, _, _ = select.select([proc.stdout], [], [], 120.0)

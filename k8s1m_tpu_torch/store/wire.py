@@ -20,8 +20,12 @@ the JAX package's ``store/remote.py``:
   ``te: trailers``, the 5-byte length prefix, a 64 MiB receive cap, the
   status from the trailers or from a trailers-only response, and errors as
   one ``WireError(code, details)`` with gRPC's status numbers.
-- **Calls**: unary, and bidirectional streams (each its own HTTP/2 stream
-  on the shared connection; ``cancel`` sends ``RST_STREAM(CANCEL)``).
+- **Calls**: unary, blocking (``unary``) or awaited on an asyncio loop
+  (``unary_async``: the reader thread resolves the call's future through
+  ``loop.call_soon_threadsafe``, so one loop keeps any number of calls in
+  flight with no thread per call), and bidirectional streams (each its own
+  HTTP/2 stream on the shared connection; ``cancel`` sends
+  ``RST_STREAM(CANCEL)``).
 - **TLS** through ``ssl`` (a context trusting ``ca_pem``, ALPN ``h2``) and
   ``authorization: Bearer <token>`` on every call.
 
@@ -32,6 +36,7 @@ reconnects.  A connection is safe to share between threads.
 
 from __future__ import annotations
 
+import asyncio
 import collections
 import enum
 import logging
@@ -487,12 +492,38 @@ class H2Connection:
                 raise
             # The server answered (an error) before the request was sent.
         s.done.wait()
-        if s.status != StatusCode.OK:
-            raise WireError(s.status, s.details)
-        if len(s.messages) != 1:
-            raise WireError(StatusCode.INTERNAL,
-                            f"unary response held {len(s.messages)} messages")
-        return s.messages[0]
+        return _unary_result(s)
+
+    async def unary_async(self, path: bytes, request: bytes, metadata=()) -> bytes:
+        """``unary`` awaited on the running event loop: the loop is free
+        while the server answers, and the reader thread wakes the caller
+        through ``call_soon_threadsafe``.  Cancelling the caller resets the
+        stream."""
+        loop = asyncio.get_running_loop()
+        done = loop.create_future()
+
+        def wake() -> None:
+            if not done.done():
+                done.set_result(None)
+
+        def on_close(_code, _details) -> None:
+            try:
+                loop.call_soon_threadsafe(wake)
+            except RuntimeError:
+                pass        # the loop is closed: no caller waits any more
+
+        s = self.open_stream(path, metadata, on_close=on_close)
+        try:
+            s.send(request, end_stream=True)
+        except WireError:
+            if s.status is None:
+                raise
+        try:
+            await done
+        except asyncio.CancelledError:
+            s.cancel()
+            raise
+        return _unary_result(s)
 
     # ---- receiving -------------------------------------------------------------
 
@@ -704,6 +735,14 @@ class H2Connection:
         self._sock.close()
 
 
+def _unary_result(s: Stream) -> bytes:
+    if s.status != StatusCode.OK:
+        raise WireError(s.status, s.details)
+    if len(s.messages) != 1:
+        raise WireError(StatusCode.INTERNAL, f"unary response held {len(s.messages)} messages")
+    return s.messages[0]
+
+
 def _grpc_status(headers) -> tuple[StatusCode, str]:
     d = dict(headers)
     gs = d.get(b"grpc-status")
@@ -767,6 +806,9 @@ class Channel:
 
     def unary(self, path: str, request: bytes) -> bytes:
         return self.connection().unary(path.encode(), request, self.metadata)
+
+    async def unary_async(self, path: str, request: bytes) -> bytes:
+        return await self.connection().unary_async(path.encode(), request, self.metadata)
 
     def stream(self, path: str, on_message, on_close) -> Stream:
         return self.connection().open_stream(path.encode(), self.metadata, on_message,

@@ -1058,3 +1058,78 @@ def test_shard_bench_two_workers_on_card(cuda):
         node = pod["spec"]["nodeName"]
         key = f"{pod['metadata']['namespace']}/{pod['metadata']['name']}"
         assert asg.groups[group_of(node)] == pod_shard(key, 2)
+
+
+# ---- the reference's experiment through the load tools ---------------------------
+
+
+def _tools_flow(device: str, nodes: int = 64, pods: int = 96) -> list:
+    """make_nodes -> 10 KWOK controllers -> make_pods -> a coordinator on
+    ``device`` -> two ticks -> delete_pods, all over the wire against the
+    port's ``WireFront`` with one client at a time (revisions comparable);
+    the stored pods and leases after each step."""
+    import asyncio
+
+    from k8s1m_tpu_torch.cluster.kwok_controller import KwokController
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
+    from k8s1m_tpu_torch.ops import fused_topk as ft
+    from k8s1m_tpu_torch.store.native import MemStore, WireFront, prefix_end
+    from k8s1m_tpu_torch.store.remote import RemoteStore
+    from k8s1m_tpu_torch.tools import delete_pods, make_nodes, make_pods
+
+    def dump():
+        out = []
+        for p in (b"/registry/pods/", b"/registry/leases/kube-node-lease/"):
+            out.append([(kv.key, kv.value, kv.mod_revision)
+                        for kv in local.range(p, prefix_end(p)).kvs])
+        return out
+
+    snaps = []
+    with MemStore() as local, WireFront(local) as wf:
+        target = f"127.0.0.1:{wf.port}"
+        base = ["--target", target, "--quiet", "--concurrency", "1", "--clients", "1"]
+
+        def tool(mod, argv):
+            out = asyncio.run(mod.amain(mod.parse_args(base + argv)))
+            assert out["errors"] == 0
+            snaps.append((mod.__name__, out["count"], dump()))
+
+        with RemoteStore(target) as store:
+            tool(make_nodes, ["--count", str(nodes), "--bulk", "16"])
+            controllers = [KwokController(store, g) for g in range(10)]
+            for c in controllers:
+                c.bootstrap(now=0.0)
+            tool(make_pods, ["--count", str(pods)])
+            coord = Coordinator(store, TableSpec(max_nodes=nodes), PodSpec(batch=32), BASE,
+                                chunk=32, k=4, with_constraints=False, packing="packed",
+                                device=device)
+            ft.reset_launches()
+            coord.bootstrap()
+            snaps.append(("bound", coord.run_until_idle(), dump()))
+            if device == "cuda":
+                assert ft.fused_topk.launches_by_stage["base"] > 0
+            for t in (10.0, 20.0):
+                for c in controllers:
+                    c._pods_watch.progress()
+                    c.tick(now=t)
+                snaps.append((f"tick {t}", sum(len(c.running_pods) for c in controllers),
+                              dump()))
+            coord.close()
+            for c in controllers:
+                c.close()
+            tool(delete_pods, ["--prefix", "bench-pod"])
+    return snaps
+
+
+@pytest.mark.gpu
+def test_tools_flow_on_card_equals_cpu(cuda):
+    """The reference's experiment in miniature with the coordinator on the
+    card: every pod bound and Running, every node's lease written, and the
+    stored pods and leases after every step equal to the CPU run's, bytes
+    and revisions."""
+    card, cpu = _tools_flow("cuda"), _tools_flow("cpu")
+    assert card == cpu
+    by = {s[0]: s for s in card}
+    assert by["bound"][1] == 96 and by["tick 20.0"][1] == 96
+    assert len(by["tick 20.0"][2][1]) == 64
+    assert by["k8s1m_tpu_torch.tools.delete_pods"][2][0] == []
