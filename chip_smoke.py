@@ -29,7 +29,10 @@ processes sharing the card (18) and three ``ShardMember``s with the
 ``Rebalancer`` in one process, card vs CPU (18a) — and the reference's own
 experiment through the load tools over the wire: make_nodes, make_pods, a
 coordinator, KWOK controllers, the lease flood and store stress,
-verify_cluster, /metrics and delete_pods (19), card vs CPU (19a).
+verify_cluster, /metrics and delete_pods (19), card vs CPU (19a) — and the
+dp x sp mesh (``parallel/``): the sharded waves against the single device
+(20), ``Coordinator(mesh=)`` card vs CPU (20a) and ``sched_bench --mesh``
+(20b).
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device  — the card's name, and its name and power limit as
@@ -82,8 +85,9 @@ Phases (each raises on failure; the script then exits non-zero):
                groups per block, the grouped bound and the per-pair bound
                (``bound_per_pair_ms``) with the kernel's share of each;
   5. path A  — ``node_affinity_pods(4096)``, Profile without constraint
-               plugins; 3 timed waves per layout, one ``aff`` launch per
-               wave; the plain-version re-run and layout checks of phase 4;
+               plugins, on the packed layout (phases 5-7; the plain layout
+               is held to it in phase 4); 3 timed waves, one ``aff`` launch
+               per wave; the plain-version re-run of phase 4;
                every bound pod sits in one of its two zones and outside its
                excluded region;
   6. path B  — 2048 ``bench-spread`` (zone spread) + 2048 ``bench-anti``
@@ -95,14 +99,14 @@ Phases (each raises on failure; the script then exits non-zero):
                Also prints prologue and constraint-commit ms/wave;
   7. path C  — C1 (``uniform_pods(4096)``, one shape) and C2
                (``node_affinity_pods(4096)``, 64 shapes): planes filled in
-               16-shape groups, then 2 + 2 delta waves per layout, each
+               16-shape groups, then 1 warm-up + 2 timed delta waves, each
                after ``scatter_rows`` rewrote ``cpu_req`` of 128 journaled
                rows (its dirty vector) with the previous wave's rows in
                flight; exactly one delta-kernel and no fused-kernel launch
                per wave (counts reset just before, read just after); for
                one wave the full recompute, the plain-tail re-run and a
-               fresh fill of the planes must all agree with it; both
-               layouts bind identically; no node over-committed; binds > 0.
+               fresh fill of the planes must all agree with it; no node
+               over-committed; binds > 0.
                Prints binds/s, p50 wave ms, delta kernel ms/wave, merge,
                greedy-assign and fill ms, plane and table MB.
   8a. coordinator parity — three groups at 65,536 nodes x 8,192 pods
@@ -113,13 +117,14 @@ Phases (each raises on failure; the script then exits non-zero):
                the CPU; with template pods (``--shape-pool 8 --shape-share
                0.9 --seed 3``) on the card and the CPU; and D4's constraint
                construction on the card and the CPU;
-  8. coordinator — at 1,048,576 nodes, packed: D1 (``sched_bench --batch
-               4096 --depth 2 --score-pct 5``, 32,768 pods, the fused kernel
-               on every wave, with ``--encode-profile --delta-profile
-               --stats --kernel-profile`` and the knock-out variants over the
-               live table on both backends), D2 (8,192 pods at the megarow shape:
+  8. coordinator — packed, D1 at 1,048,576 nodes and D2-D5 at 262,144:
+               D1 (``sched_bench --batch 4096 --depth 2 --score-pct 5``,
+               32,768 pods, the fused kernel on every wave, with
+               ``--encode-profile --delta-profile --stats --kernel-profile``
+               and the knock-out variants over the live table on both
+               backends), D2 (8,192 pods at the megarow shape:
                ``--batch 512 --depth 3 --score-pct 100 --deltacache on
-               --delta-index-k 64 --stratum-bits 15``, the delta kernel on
+               --delta-index-k 64 --stratum-bits 13``, the delta kernel on
                the delta waves), D3 (D1 with ``--shape-pool 8 --shape-share
                0.9 --seed 3 --node-churn 4000``, 8,192 pods: the ``aff`` stage, the sync
                stage, no structural or resync quiesce), D4 (path B through a
@@ -149,7 +154,7 @@ Phases (each raises on failure; the script then exits non-zero):
                the launches per kernel;
   10a. composed parity — the drill's tick sequence (steady, overload,
                recover) through ``Coordinator(tenancy=..., pipeline=True,
-               depth=3)`` at 65,536 nodes with the drill's seeded bind-CAS
+               depth=3)`` at 32,768 nodes with the drill's seeded bind-CAS
                conflict plan and zero-delay retries, on the card and on the
                CPU (chunk 4096 both): byte-identical stored pods, the same
                admitted/rejected counts and the same controller state after
@@ -228,7 +233,7 @@ Phases (each raises on failure; the script then exits non-zero):
                deleted stored and bound, the stressor's report with no failed
                stream and every write delivered to every watcher, server and
                stressor reaped.  Prints 17's numbers and the stressor's;
-  18. shard set at scale — ``shard_bench --nodes 1048576 --pods 32768
+  18. shard set at scale — ``shard_bench --nodes 131072 --pods 16384
                --batch 4096 --score-pct 5`` with ``--shards`` 1, 2 and 4, each
                against a fresh ``server_main``, every worker on ``cuda``:
                the workers' binds sum to the pods and each worker binds its
@@ -247,46 +252,75 @@ Phases (each raises on failure; the script then exits non-zero):
                the CPU: after every tick the masks are disjoint and every
                pod the tick bound sits on a row its member owned at launch;
                byte-identical stored pods;
-  19. experiment — the reference's 1M-node procedure against a fresh
+  19. experiment — the reference's 1M-node procedure at 262,144 nodes
+               against a fresh
                ``server_main --metrics-port`` child, each tool a CLI child
                (``python -m k8s1m_tpu_torch.tools.<tool>``, its JSON line
                read, a non-zero exit fails the phase): ``make_nodes --count
-               1048576 --bulk 1024`` (count, 0 errors, ``find_gaps`` none),
-               ``make_pods --count 32768`` (per-put RPCs at the tools'
+               262144 --bulk 1024`` (count, 0 errors, ``find_gaps`` none),
+               ``make_pods --count 8192`` (per-put RPCs at the tools'
                defaults), a ``Coordinator`` on the card over a
                ``RemoteStore`` at D1's shape (every pod bound once, base
                launches), group 0's ``KwokController`` (bootstrap, ticks at
-               10 and 20: its 104,858 nodes adopted, every pod bound to them
+               10 and 20: its 26,215 nodes adopted, every pod bound to them
                started, every lease renewed on each tick and stored, the
                lease-delay histogram rendered), ``lease_flood --nodes
-               1048576 --rounds 1 --batch 1024``, ``store_stress
+               262144 --rounds 1 --batch 1024``, ``store_stress
                --native-client --puts 200000`` and the Python lane at 10,000
                puts and 1,000 ranges (0 errors), ``count_ready`` (nodes sum
-               to 1,048,576, Running = started, none unbound), one ``GET
-               /metrics`` (200), ``delete_pods --prefix bench-pod`` (32,768
+               to 262,144, Running = started, none unbound), one ``GET
+               /metrics`` (200), ``delete_pods --prefix bench-pod`` (8,192
                deleted, the prefix empty).  Prints every tool's rate and
                each step's seconds;
-  19a. experiment parity — 19's flow at 65,536 nodes x 4,096 pods with all
+  19a. experiment parity — 19's flow at 32,768 nodes x 2,048 pods with all
                ten KWOK groups and ``--concurrency 1 --clients 1`` (the
                tools in-process, a fresh server child per pass), the
                coordinator on the card and, concurrently in a child process,
                on the CPU: every check of 19 in both, and the stored pods
                after binding and after the ticks and the lease values
-               byte-identical, revisions included (equal sha256 digests).
+               byte-identical, revisions included (equal sha256 digests);
+  20. mesh   — the sharded waves (``parallel/sharded_cycle.py``) at
+               1,048,576 nodes, B=4096, k=4, chunk 4096, score-pct 100,
+               packed, every cell on the card: the uniform wave (base
+               stage) on the meshes 1x4 and 2x2, path B (cons stage,
+               cross-shard prologue) and C1 (delta planes sharded over sp)
+               on 2x2,
+               1 warm-up + 2 timed waves each: every wave's bound rows, the
+               request columns, the nine count tables and the planes
+               byte-identical to the single-device waves on the same
+               inputs; before the first wave of each path each 2x2 cell's
+               kernel equal to its plain version at the cell's offsets (max
+               |err| 0); dp x sp
+               launches of the path's kernel per wave.  Prints wave ms and
+               within it per-cell kernel, gather, greedy and commit ms (CUDA
+               events), launches per wave and card MB;
+  20a. mesh coordinator parity — 8a's shape over a 2x2 mesh (two host-feed
+               workers): the uniform group and D4's construction on the card
+               and, concurrently in a child process, the CPU, byte-identical
+               per group; on the card also the uniform group at score-pct
+               100 over the mesh and on one device, byte-identical;
+  20b. ``sched_bench --mesh 1x4`` at 262,144 nodes x 8,192 pods, ``--batch
+               4096 --depth 2 --score-pct 5 --stats --kernel-profile``: every
+               pod bound once (phase 8's checks), 4 base launches per wave,
+               ``mesh_exec`` and the shard-local kernel profile.  Prints
+               binds/s, p50/p99, the device stage's share and ``mesh_exec``.
 Phases 5 and 6 print the same group and bound figures as phase 4.  The
-parity phases 8a, 10a, 12a, 18a and 19a run their CPU half in a child
-process beside the card's half; 12a runs right after 10a, and 18a after 19,
-so that the CPU halves of each pair run together.  The
+parity phases 8a, 10a, 12a, 18a, 19a and 20a run their CPU half in a child
+process beside the card's half; 8a's CPU halves start beside phase 3,
+10a's and 12a's beside phase 9 (10a and 12a then run before phase 10);
+18a runs after 19a (the longer card half first), so that the CPU halves
+of each pair run together, and 20a's CPU half runs beside phase 20.  The
 next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
 stage configuration and one for the delta kernel: times, bound, launches;
 the fused entries add ``bound_per_pair_ms``, ``groups`` and
 ``all_distinct_ms``; ``launches`` includes the coordinator's of phases 8,
-10-16a, 17-17b, 18 (each worker's window), 18a, 19 and 19a, which
-``coordinator_launches`` also gives alone, per fused stage);
+10-16a, 17-17b, 18 (each worker's window), 18a, 19, 19a, 20a (card) and
+20b, which ``coordinator_launches`` also gives alone, per fused stage, and
+phase 20's mesh waves, which ``mesh_launches`` gives alone);
 the last is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--steps 4] [--path-steps 3] [--delta-steps 2] [--warmup 1]
-                          [--out results.json] [--worst-case-only]
+                          [--out results.json] [--worst-case-only] [--mesh-only]
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -294,6 +328,7 @@ Needs one CUDA card; without one it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -331,6 +366,9 @@ SCORE_OPS_PER_FEASIBLE_PAIR = 40
 # counts that; the per-pair count above stays as `bound_per_pair_ms`.
 SCAN_OPS_PER_PAIR = 3
 COLUMN_HASH_OPS = 36
+# Timed calls of the host-bound greedy scan (~0.6 s each at 1M nodes) in
+# each per-layer timing, after the warm-up call.
+GREEDY_REPS = 1
 
 
 _T0 = time.perf_counter()
@@ -386,11 +424,18 @@ def phase_device() -> dict:
 def phase_build() -> dict:
     from k8s1m_tpu_torch.ops import _build
 
+    from k8s1m_tpu_torch.store import build as store_build
+
     t0 = time.perf_counter()
-    reports = _build.build_all(_build.LIBRARIES)
-    for name in _build.LIBRARIES:
-        _build.load(name)
-    secs = time.perf_counter() - t0
+    # The store's g++ build (needed from phase 8 on) runs beside the nvcc units.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        store_lib = pool.submit(store_build.ensure_built)
+        reports = _build.build_all(_build.LIBRARIES)
+        for name in _build.LIBRARIES:
+            _build.load(name)
+        secs = time.perf_counter() - t0
+        store_lib.result()
+    store_s = time.perf_counter() - t0
     kernel, frame = "", ""
     registers = {}
     for line in "\n".join(reports.values()).splitlines():
@@ -402,18 +447,19 @@ def phase_build() -> dict:
             registers[kernel] = line.split(":", 1)[-1].strip()
             log(f"[build] {kernel[:72]}: {registers[kernel]}; {frame}")
     log(f"[build] csrc/fused_topk*.cu and csrc/delta_topk.cu built (every unit in parallel) "
-        f"and loaded in {secs:.1f}s")
+        f"and loaded in {secs:.1f}s; the store's library beside them, done at {store_s:.1f}s")
     from k8s1m_tpu_torch.ops import delta_topk, fused_topk
 
     if not hasattr(fused_topk, "blocks_per_sm"):     # a tree from before the query
-        return {"build_s": secs, "registers": registers}
+        return {"build_s": secs, "store_build_s": store_s, "registers": registers}
     occupancy = {f"fused_topk[{stage}] {layout}": fused_topk.blocks_per_sm(
         stage, packed=layout == "packed", k=K)
         for stage in fused_topk.STAGES for layout in ("plain", "packed")}
     occupancy["delta_plane_topk"] = delta_topk.blocks_per_sm(K)
     log(f"[build] resident 128-thread blocks per SM at k={K}: "
         + ", ".join(f"{name} {n}" for name, n in occupancy.items()))
-    return {"build_s": secs, "registers": registers, "blocks_per_sm": occupancy}
+    return {"build_s": secs, "store_build_s": store_s, "registers": registers,
+            "blocks_per_sm": occupancy}
 
 
 # ---- phase 3 -------------------------------------------------------------
@@ -888,7 +934,7 @@ def phase_main_path(device, *, steps: int, warmup: int) -> dict:
         cand = candidates(view, batch, seed, profile, chunk=CHUNK, k=K)
         greedy_ms = cuda_ms(lambda: greedy_assign(
             cand.idx, cand.prio, cand.cpu, cand.mem, cand.pods,
-            batch.cpu, batch.mem, batch.valid), 3)
+            batch.cpu, batch.mem, batch.valid), GREEDY_REPS)
         gs = _group_stats(batch)
         prep_ms = cuda_ms(lambda: group_order(group_key(batch)), 20)
         bound_ms, bound_by, bound_detail = _grouped_bound(_bound, view, batch, K, gs["reps"])
@@ -1171,7 +1217,7 @@ def _stage_bound(view, batch, k: int, *, vcons=None, stats=None) -> tuple[float,
 def phase_path(device, path: str, *, steps: int, warmup: int) -> dict:
     """Path A (``bench.py --affinity``, BASELINE config 2) or path B
     (``bench.py --constraints``, configs 3-4) at 1,048,576 KWOK nodes,
-    both layouts, through ``schedule_batch_packed``."""
+    packed, through ``schedule_batch_packed``."""
     import torch
 
     from k8s1m_tpu_torch.cluster import (
@@ -1254,13 +1300,14 @@ def phase_path(device, path: str, *, steps: int, warmup: int) -> dict:
     seeds = [int(s) for s in np.random.default_rng(1 if path == "A" else 2).integers(
         -(1 << 31), 1 << 31, size=warmup + steps)]
     ref_wave = warmup - 1
+    # The packed layout only (the coordinator's), for the 1,200 s limit: phase
+    # 4 holds the plain layout to it at 1M, phase 3 each stage's plain layout
+    # to its plain version.
     layouts = {
-        "plain": lambda: host.to_device(device),
         "packed": lambda: pack_table_host(host, build_packing_spec(spec, host.vocab), device),
     }
     results: dict = {}
     states: dict = {}
-    first_rows: list = []
     reset_launches()                   # this path's launch counts start here
     for layout, make in layouts.items():
         table = make()
@@ -1300,10 +1347,6 @@ def phase_path(device, path: str, *, steps: int, warmup: int) -> dict:
                       f"{tag} wave {i}: an anti-affinity pod bound next to a matching pod")
                 kind_binds[0] += bound[:half].sum()
                 kind_binds[1] += anti.sum()
-            if layout == "plain":
-                first_rows.append(rows.clone())
-            else:
-                check(torch.equal(rows, first_rows[i]), f"{tag} packed wave {i} differs from plain")
             if ref is not None:
                 rtable, rcons = ref
                 rtable, _ra, ref_rows = schedule_batch_packed(
@@ -1346,8 +1389,9 @@ def phase_path(device, path: str, *, steps: int, warmup: int) -> dict:
         results[layout] = res
         states[layout] = (table, cons)
     by_stage = dict(fused_topk.launches_by_stage)     # read just after the path
-    check(by_stage[stage] == 2 * (warmup + steps) == sum(by_stage.values()),
-          f"{tag} launched {by_stage} for {2 * (warmup + steps)} waves")
+    waves = len(layouts) * (warmup + steps)
+    check(by_stage[stage] == waves == sum(by_stage.values()),
+          f"{tag} launched {by_stage} for {waves} waves")
     results["launches"] = by_stage[stage]
 
     # Per-layer times at the path's shape (launches here are not counted).
@@ -1373,7 +1417,7 @@ def phase_path(device, path: str, *, steps: int, warmup: int) -> dict:
         cand = candidates(view, batch, seed, profile, chunk=CHUNK, **kw)
         greedy_ms = cuda_ms(lambda: greedy_assign(
             cand.idx, cand.prio, cand.cpu, cand.mem, cand.pods,
-            batch.cpu, batch.mem, batch.valid), 3)
+            batch.cpu, batch.mem, batch.valid), GREEDY_REPS)
         cons_in = _cons_pod_inputs(batch, stats) if cons is not None else None
         gkw = dict(with_affinity=path == "A", cons_inputs=cons_in)
         gs = _group_stats(batch, **gkw)
@@ -1434,8 +1478,8 @@ def _delta_bound(s: int, n: int, b: int, k: int) -> tuple[float, str, dict]:
 def phase_delta_path(device, config: str, *, steps: int, warmup: int) -> dict:
     """Path C: the deltasched wave of ``bench.py --deltacache`` (C1, uniform
     pods, one shape) or ``bench.py --affinity --deltacache`` (C2,
-    ``node_affinity_pods``, 64 shapes) at 1,048,576 KWOK nodes, both
-    layouts, through ``fill_shape_planes`` and ``schedule_batch_delta``.
+    ``node_affinity_pods``, 64 shapes) at 1,048,576 KWOK nodes, packed,
+    through ``fill_shape_planes`` and ``schedule_batch_delta``.
     Each wave first rewrites ``cpu_req`` of 128 journaled rows through
     ``scatter_rows`` (its dirty vector) and passes the previous wave's bound
     rows in flight."""
@@ -1494,8 +1538,10 @@ def phase_delta_path(device, config: str, *, steps: int, warmup: int) -> dict:
     seeds = [int(x) for x in np.random.default_rng(3 if config == "C1" else 4).integers(
         -(1 << 31), 1 << 31, size=total)]
     ref_wave = warmup - 1
+    # The packed layout only (the coordinator's), for the 1,200 s limit: phase
+    # 4 holds the plain layout to it at 1M, phase 3 each stage's plain layout
+    # to its plain version.
     layouts = {
-        "plain": lambda: host.to_device(device),
         "packed": lambda: pack_table_host(host, build_packing_spec(spec, host.vocab), device),
     }
     kw = dict(profile=profile, slot_ids=slot_ids, chunk=CHUNK, k=K)
@@ -1515,7 +1561,6 @@ def phase_delta_path(device, config: str, *, steps: int, warmup: int) -> dict:
                 torch.zeros((nslots, NODES), dtype=torch.int32, device=device))
 
     results: dict = {}
-    first_rows: list = []
     launches = 0
     for layout, make in layouts.items():
         table = make()
@@ -1542,10 +1587,6 @@ def phase_delta_path(device, config: str, *, steps: int, warmup: int) -> dict:
             check(n_delta == 1 and n_fused == 0,
                   f"{tag} wave {i}: {n_delta} delta and {n_fused} fused launches")
             launches += n_delta
-            if layout == "plain":
-                first_rows.append(rows.clone())
-            else:
-                check(torch.equal(rows, first_rows[i]), f"{tag} packed wave {i} differs from plain")
             if pre is not None:
                 _delta_wave_checks(tag, layout, i, pre, table, _asg, rows, planes, packed,
                                    seeds[i], dirtys[i], inflight, fills, kw, new_planes)
@@ -1581,7 +1622,7 @@ def phase_delta_path(device, config: str, *, steps: int, warmup: int) -> dict:
         cand = dc.attach_payload(table, got)
         greedy_ms = cuda_ms(lambda: greedy_assign(
             cand.idx, cand.prio, cand.cpu, cand.mem, cand.pods,
-            batch.cpu, batch.mem, batch.valid), 3)
+            batch.cpu, batch.mem, batch.valid), GREEDY_REPS)
         bound_ms, bound_by, bound_detail = _delta_bound(nslots, NODES, int(batch.valid.sum()), K)
         res = results[layout] = {
             "binds_per_s": n_binds / (sum(wave_ms) / 1e3),
@@ -1610,7 +1651,8 @@ def phase_delta_path(device, config: str, *, steps: int, warmup: int) -> dict:
             f"plane_MB={res['plane_mb']:.1f} table_MB={res['table_mb']:.1f}")
         del planes, table
     results["launches"] = launches
-    check(launches == 2 * total, f"{tag}: {launches} delta launches for {2 * total} waves")
+    check(launches == len(layouts) * total,
+          f"{tag}: {launches} delta launches for {len(layouts) * total} waves")
     return results
 
 
@@ -1663,6 +1705,11 @@ def _delta_wave_checks(tag, layout, i, pre, table, asg, rows, planes, packed, se
 # for phases 17-17b, D5 to 8,192; for phases 18-18a, D2 and D3 to 8,192 and
 # the parity runs of 8a, 11a and 17a from 16,384 pods to 8,192.
 COORD_PODS = {"D1": 32768, "D2": 8192, "D3": 8192}
+# D1 keeps the full fleet; D2-D5 run at a quarter of it (the script's
+# 1,200 s limit; each paid ~16 s of node write and cold build at 1M).
+COORD_NODES = {"D1": NODES, "D2": NODES // 4, "D3": NODES // 4, "D4": NODES // 4,
+               "D5": NODES // 4}
+D2_STRATUM_BITS = 13                # ~32 tied rows per class at 262,144 nodes
 PARITY_NODES, PARITY_PODS = 65536, 8192
 D4_WAVES, D4_PER = 4, 2048          # 4 waves of 2048 spread + 2048 anti pods
 D5_RATE, D5_PODS = 2000, 8192
@@ -1724,8 +1771,9 @@ def _store_checks(tag: str, coord, store, total: int, *, alloc: bool = False,
     cols = ["cpu_req", "mem_req", "pods_req"]
     if alloc:
         cols += ["cpu_alloc", "mem_alloc", "pods_alloc"]
+    table = coord.table.gather() if coord.mesh is not None else coord.table
     for col in cols:
-        dev = getattr(coord.table, col).cpu().numpy()
+        dev = getattr(table, col).cpu().numpy()
         check(np.array_equal(dev, getattr(host, col)),
               f"[{tag}] device {col} != host mirror after flush")
     for req, cap in (("cpu_req", "cpu_alloc"), ("mem_req", "mem_alloc"),
@@ -1777,7 +1825,7 @@ def _recount_constraints(coord, stored) -> None:
     from k8s1m_tpu_torch.control.objects import decode_pod
     from k8s1m_tpu_torch.snapshot.constraints import FIELDS
 
-    cons = coord.constraints
+    cons = coord.constraints.gather() if coord.mesh is not None else coord.constraints
     want = {f: np.zeros(tuple(getattr(cons, f).shape), np.int64) for f in FIELDS}
     host = coord.host
     suffix = {TOPO_HOSTNAME: "node", TOPO_ZONE: "zone", TOPO_REGION: "region"}
@@ -1907,18 +1955,20 @@ def _parity_members(device: str, groups=tuple(PARITY_GROUPS)) -> dict:
     return out
 
 
-def phase_coordinator_parity() -> tuple[dict, dict]:
+def phase_coordinator_parity(cpu_half=None) -> tuple[dict, dict]:
     """8a: three groups of the same run, each at 65,536 nodes x 8,192
     pods, 5% window, packed, chunk 4096, zero-delay retries — uniform pods
     on the card's kernels, on the card's scan path (``backend="xla"``) and
     on the CPU; template pods (``--shape-pool 8 --shape-share 0.9 --seed
     3``) on the card and the CPU; D4's constraint construction on the card
-    and the CPU (each group's CPU member in a child process of its own, while
-    the card's run here).  Each group must leave byte-identical pod values.  Returns the
-    reports and the uniform card run's stored pod values as their digest
-    (11a's untraced run)."""
+    and the CPU (each group's CPU member in a child process of its own,
+    ``cpu_half`` when started ahead, while the card's run here).  Each group
+    must leave byte-identical pod values.  Returns the reports and the
+    uniform card run's stored pod values as their digest (11a's untraced
+    run)."""
     card, cpu = _card_and_cpu("8a", "_parity_members",
-                              cpu_calls=[((group,),) for group in PARITY_GROUPS])
+                              cpu_calls=[((group,),) for group in PARITY_GROUPS],
+                              children=cpu_half)
     out = {}
     for group in PARITY_GROUPS:
         runs = [(tag, res[f"stored {tag}"], r) for res in (card, cpu)
@@ -1954,25 +2004,26 @@ def phase_coordinator(config: str) -> dict:
     over a 5% window at depth 2, the fused kernel on every wave, with the
     encode, delta and kernel profiles), D2 (the megarow shape of
     ``artifacts/megarow_cpu.json``: 512-pod waves at depth 3, full scan,
-    deltacache with a 64-deep candidate index and 15 stratum bits, the
-    delta kernel on the delta waves), D3 (D1 with template pods under
-    4,000 capacity-only node updates/s: the ``aff`` stage and the sync
+    deltacache with a 64-deep candidate index and ~32 rows per stratum
+    class, the delta kernel on the delta waves), D3 (D1 with template pods
+    under 4,000 capacity-only node updates/s: the ``aff`` stage and the sync
     stage) or D5 (D1 at an offered 2,000 pods/s: adaptive buckets);
-    1,048,576 nodes, packed, pipelined.  D4 is ``phase_constraints``."""
+    ``COORD_NODES`` nodes (D1 1,048,576, the others 262,144), packed,
+    pipelined.  D4 is ``phase_constraints``."""
     from k8s1m_tpu_torch.tools import sched_bench
     from k8s1m_tpu_torch.tools.kernel_probe import profile_stages
 
-    over = dict(nodes=NODES, pods=COORD_PODS.get(config), packing="packed")
+    over = dict(nodes=COORD_NODES[config], pods=COORD_PODS.get(config), packing="packed")
     d1 = dict(batch=BATCH, depth=2, score_pct=SCORE_PCT)
     if config == "D1":
         over.update(d1, encode_profile=True, delta_profile=True, stats=True,
                     kernel_profile=True)
     elif config == "D2":
-        # 15 stratum bits leave ~32 tied rows per class, ~3,500 pods of
-        # room per wave: the megarow drill's 512-pod batch fits it, a
+        # ~32 tied rows per stratum class (15 bits at 1M nodes, 13 at
+        # 262,144) leave room for the megarow drill's 512-pod batch; a
         # 4096-pod batch would park pods as unschedulable.
         over.update(batch=512, depth=3, score_pct=100, deltacache="on",
-                    delta_index_k=64, stratum_bits=15, encode_profile=True,
+                    delta_index_k=64, stratum_bits=D2_STRATUM_BITS, encode_profile=True,
                     delta_profile=True, stats=True)
     elif config == "D3":
         over.update(d1, node_churn=4000.0, **SHAPE_POOL)
@@ -2009,10 +2060,12 @@ def phase_coordinator(config: str) -> dict:
         log(f"[D1] relist of {NODES:,} nodes in-process: {report['relist_s']:.3f} s")
         # The knock-out variants over the live table on both backends
         # (sched_bench's --kernel-profile ran the kernels; one block of
-        # one call per variant on the scan path).
+        # one call per variant on the scan path: the full profile and the
+        # filter-only floor, to keep the script inside its 1,200 s limit).
         prof = {"pallas": d["kernel_profile"],
                 "xla": profile_stages(coord.table, coord.encoder, chunk=CHUNK, k=coord.k,
-                                      steps=1, repeats=1, backend="xla")}
+                                      steps=1, repeats=1, backend="xla",
+                                      only={"full", "filter-only"})}
         for backend, res in prof.items():
             log(f"[D1] kernel profile over the live table, {backend} (repeats "
                 f"{res['repeats']}): ms per batch {res['ms_per_batch']}, stages {res['stages']}")
@@ -2023,12 +2076,13 @@ def phase_coordinator(config: str) -> dict:
 
 
 def phase_constraints() -> dict:
-    """8, D4: path B through the coordinator at 1,048,576 nodes, 8 waves
+    """8, D4: path B through the coordinator at 262,144 nodes, 4 waves
     of 2048 spread + 2048 anti pods: the ``cons`` stage launched, no node
     holding anti pods of two waves, and the device count tables equal to
     the host recount from the stored binds."""
     t0 = time.perf_counter()
-    report, coord, store = _constraint_run("cuda", nodes=NODES, waves=D4_WAVES, per=D4_PER)
+    report, coord, store = _constraint_run("cuda", nodes=COORD_NODES["D4"], waves=D4_WAVES,
+                                           per=D4_PER)
     pods = D4_WAVES * 2 * D4_PER + 1
     stored = _coordinator_checks("D4", report, coord, store, pods)
     d = report["detail"]
@@ -2155,8 +2209,9 @@ def _portable(run: dict) -> dict:
 _CPU_CHILD = ("import json, sys, chip_smoke as cs, k8s1m_tpu_torch.tools.sched_bench; "
               "func, args = json.loads(sys.stdin.readline()); "
               "print(json.dumps(cs._portable(getattr(cs, func)('cpu', *args))), flush=True)")
-_CPU_THREADS = [2, 2, 2, 4, 4, 4, 4]
+_CPU_THREADS = [2, 2, 2, 4, 4, 4, 4, 4]
 _WARM: list = []
+_HANDED: list = []      # children given their work; reaped by _card_and_cpu or at exit
 
 
 def _warm_cpu_children(n: int) -> None:
@@ -2177,6 +2232,11 @@ def _stop_cpu_children() -> None:
         child = _WARM.pop()
         child.kill()
         child.communicate()
+    while _HANDED:
+        child = _HANDED.pop()
+        if child.poll() is None:
+            child.kill()
+            child.wait()
 
 
 def _start_cpu_half(func: str, cpu_calls=((),)) -> list:
@@ -2185,6 +2245,7 @@ def _start_cpu_half(func: str, cpu_calls=((),)) -> list:
     if len(_WARM) < len(cpu_calls):
         _warm_cpu_children(len(cpu_calls) - len(_WARM))
     children = [_WARM.pop(0) for _ in cpu_calls]
+    _HANDED.extend(children)
     for child, args in zip(children, cpu_calls):
         child.stdin.write(json.dumps([func, list(args)]) + "\n")
         child.stdin.close()
@@ -2224,10 +2285,11 @@ def _card_and_cpu(tag: str, func: str, cpu_calls=((),), children=None) -> tuple[
 
 # ---- phase 10: the megarow drill, composed parity, breaker ---------------------
 
-COMPOSED_NODES = 65536
+COMPOSED_NODES = 32768
 # 10a runs the drill's tick sequence (steady, overload, recover) at the
-# drill's batch; 10b's oracle fallback costs ~60 us per (pod, node) on the
-# host, so its open-state wave takes 2 pods.
+# drill's batch, at 32,768 nodes for the 1,200 s limit (the same load-shed
+# walk as at 65,536); 10b's oracle fallback costs ~60 us per (pod, node) on
+# the host, so its open-state wave takes 2 pods.
 BREAKER_NODES, BREAKER_FALLBACK = 65536, 2
 
 
@@ -2375,15 +2437,15 @@ def _composed_run(device: str) -> dict:
         store.close()
 
 
-def phase_composed_parity() -> dict:
+def phase_composed_parity(cpu_half=None) -> dict:
     """10a: ``_composed_run`` on the card and, concurrently in a child
-    process, on the CPU must leave
+    process (``cpu_half``, from ``_start_cpu_half``), on the CPU must leave
     byte-identical stored pods, the same admitted / rejected counts and
     per-tenant ledger, and the same controller state after every tick,
     walking through SHEDDING and back to HEALTHY."""
     from k8s1m_tpu_torch.loadshed import HEALTHY, SHEDDING, STATE_NAMES
 
-    card, cpu = _card_and_cpu("10a", "_composed_run")
+    card, cpu = _card_and_cpu("10a", "_composed_run", children=cpu_half)
     runs = {"cuda": card, "cpu": cpu}
     _same_stored("10a", "card and CPU stored pod values", card["stored"], cpu["stored"])
     for key in ("admitted", "rejected", "states", "counters", "overcommitted_nodes",
@@ -3132,39 +3194,56 @@ def phase_failover() -> dict:
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
+# 16a's card half: the drill's CLI entry in a fresh process, as the CPU half
+# runs, its launch counts set to 0 just before and read just after; its last
+# stdout line is {"report": ..., "launches": ...}.
+_CARD_DRILL = "\n".join((
+    "import contextlib, json, sys",
+    "import chip_smoke as cs",
+    "from k8s1m_tpu_torch.tools import failover_drill",
+    "cs._reset_launches()",
+    "with contextlib.redirect_stdout(sys.stderr):",
+    "    report = failover_drill.main(sys.argv[1:])",
+    "print(json.dumps({'report': report, 'launches': cs._launch_counts()}), flush=True)",
+))
+
+
 def phase_failover_parity() -> dict:
     """16a: ``failover_drill`` at its default shape (2,048 nodes, chunk 256)
-    on the card (in this process, launches counted) and with ``--device
-    cpu`` (a parallel subprocess): both pass every gate, the evidence is
-    equal once the wall-clock and device keys are removed, and each
-    scenario leaves the same stored pod bytes (``pods_sha256``)."""
-    import contextlib
-    import io
-
-    from k8s1m_tpu_torch.tools import failover_drill
-
+    on the card and with ``--device cpu``, each in a fresh process of its own
+    (its ``warm < cold`` gate compares a few milliseconds of host clock, which
+    the long-lived smoke process's heap and state can swing), at the same time: both
+    pass every gate, the evidence is equal once the wall-clock and device
+    keys are removed, and each scenario leaves the same stored pod bytes
+    (``pods_sha256``).  The card's launches are counted in its process."""
     t0 = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p))
-    with open(os.path.join(OUT_DIR, "failover_drill_cpu.log"), "w") as err:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "k8s1m_tpu_torch.tools.failover_drill", "--device", "cpu",
-             "--out", os.path.join(OUT_DIR, "failover_drill_cpu.json")],
-            stdout=subprocess.PIPE, stderr=err, text=True, env=env, cwd=root)
+    procs = {}
+    for dev, cmd, threads in (
+        ("cuda", ["-c", _CARD_DRILL], {}),
+        ("cpu", ["-m", "k8s1m_tpu_torch.tools.failover_drill", "--device", "cpu"],
+         {"OMP_NUM_THREADS": "1"}),
+    ):
+        with open(os.path.join(OUT_DIR, f"failover_drill_{dev}.log"), "w") as err:
+            procs[dev] = subprocess.Popen(
+                [sys.executable, *cmd, "--out",
+                 os.path.join(OUT_DIR, f"failover_drill_{dev}.json")],
+                stdout=subprocess.PIPE, stderr=err, text=True, env={**env, **threads}, cwd=root)
     try:
-        _reset_launches()
-        with contextlib.redirect_stdout(io.StringIO()):
-            card = failover_drill.main(
-                ["--out", os.path.join(OUT_DIR, "failover_drill_cuda.json")])
-        launches = _launch_counts()
-        stdout, _ = proc.communicate(timeout=600)
+        outs = {dev: proc.communicate(timeout=600)[0] for dev, proc in procs.items()}
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    check(proc.returncode == 0, f"[16a] failover_drill --device cpu exited {proc.returncode}")
-    cpu = json.loads(stdout.strip().splitlines()[-1])
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for dev, proc in procs.items():
+        check(proc.returncode == 0 and outs[dev].strip(),
+              f"[16a] failover_drill on {dev} exited {proc.returncode} (failover_drill_{dev}.log)")
+    card_out = json.loads(outs["cuda"].strip().splitlines()[-1])
+    card, launches = card_out["report"], card_out["launches"]
+    cpu = json.loads(outs["cpu"].strip().splitlines()[-1])
     _failover_gates("16a card", card)
     _failover_gates("16a cpu", cpu)
     check(card["device"] == "cuda" and cpu["device"] == "cpu", "[16a] devices")
@@ -3192,13 +3271,16 @@ WIRE_CONFIG5_NODES = 1 << 18
 
 
 def _time_relist(store, nodes: int) -> float:
-    """Seconds for the coordinator's node relist (``list_prefix_values``, the
-    light parse) of the whole fleet of ``nodes`` from ``store``."""
-    from k8s1m_tpu_torch.control.coordinator import NODES_PREFIX
-    from k8s1m_tpu_torch.store.native import list_prefix_values
+    """Seconds for the coordinator's node relist of the whole fleet of
+    ``nodes`` from ``store`` (``Coordinator._relist_nodes``: the values-only
+    light parse in-process; over the wire ``list_prefix_sharded``, 8
+    key-range shards fetched at once)."""
+    from types import SimpleNamespace
+
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
 
     t0 = time.perf_counter()
-    values, _rev = list_prefix_values(store, NODES_PREFIX)
+    values, _rev = Coordinator._relist_nodes(SimpleNamespace(store=store))
     seconds = time.perf_counter() - t0
     check(len(values) == nodes, f"relist returned {len(values)} nodes, want {nodes}")
     return round(seconds, 3)
@@ -3341,10 +3423,10 @@ def phase_wire_parity() -> dict:
 # ---- phases 18, 18a: the shard set --------------------------------------------
 
 # 18: shard_bench with 1, 2 and 4 worker processes, each on the card
-# (BASELINE config 1's shape: D1's batch and 5% window), at 1,048,576 nodes
-# (no other phase runs the FNV intake split and mask_rows at 1M rows) and
-# D1's 32,768 pods (65,536 before phases 19-19a).
-SHARD_NODES, SHARD_PODS, SHARD_COUNTS = NODES, 32768, (1, 2, 4)
+# (BASELINE config 1's shape: D1's batch and 5% window), at 131,072 nodes
+# x 16,384 pods: cut from 1,048,576 x 32,768, then from 262,144 nodes, to
+# keep the script, phases 20-20b included, well inside its 1,200 s limit.
+SHARD_NODES, SHARD_PODS, SHARD_COUNTS = NODES // 8, 16384, (1, 2, 4)
 # 18a: three ShardMembers on one in-process store at 8a's node count; 4,096
 # pods in 4 rounds of 1,024, the Rebalancer run after round 2 over a skewed
 # start (groups by g % 8: 0-4 on shard 0, 5-6 on shard 1, 7 on shard 2).
@@ -3368,7 +3450,7 @@ def _shard_ownership(tag: str, kvs, asg, shards: int) -> int:
 
 
 def phase_shards() -> dict:
-    """18: ``tools/shard_bench.py --nodes 1048576 --pods 32768 --batch 4096
+    """18: ``tools/shard_bench.py --nodes 262144 --pods 16384 --batch 4096
     --score-pct 5`` with 1, 2 and 4 worker processes, each on ``cuda``, each
     count against a fresh ``python -m k8s1m_tpu_torch.store.server_main``.
     Every pod bound exactly once (the workers' binds sum to the pods, each
@@ -3526,11 +3608,11 @@ def _shard_parity_run(device: str) -> dict:
             "owned_before": owned0, "owned_after": owned}
 
 
-def phase_shard_parity() -> dict:
+def phase_shard_parity(cpu_half=None) -> dict:
     """18a: ``_shard_parity_run`` on the card and, concurrently in a child
-    process, on the CPU: both pass their checks, and the stored pods are
-    byte-identical."""
-    card, cpu = _card_and_cpu("18a", "_shard_parity_run")
+    process (``cpu_half``, from ``_start_cpu_half``, or a new one), on the
+    CPU: both pass their checks, and the stored pods are byte-identical."""
+    card, cpu = _card_and_cpu("18a", "_shard_parity_run", children=cpu_half)
     _same_stored("18a", "card and CPU stored pod values", card["stored"], cpu["stored"])
     check(card["launches"]["fused_topk_by_stage"]["base"] > 0,
           f"[18a] no base launch: {card['launches']}")
@@ -3547,17 +3629,18 @@ def phase_shard_parity() -> dict:
 # ---- phases 19, 19a: the reference's experiment through the load tools -------
 
 # 19: the reference's 1M-node experiment (SURVEY §3.5; reference README's
-# make_nodes / make_pods procedure) over the wire: make_nodes at 1,048,576
-# nodes in 1,024-node PutFrames, make_pods at D1's 32,768 per-put RPCs (the
-# tools' defaults, --concurrency 100 --clients 4), a coordinator at D1's shape
+# make_nodes / make_pods procedure) over the wire, cut to 262,144 nodes for
+# the 1,200 s limit: make_nodes in 1,024-node PutFrames, make_pods at 8,192
+# per-put RPCs (cut from D1's 32,768 for the same limit; the tools' defaults,
+# --concurrency 100 --clients 4), a coordinator at D1's batch and window
 # binding them, the KWOK controller of group 0, the lease flood and the store
 # stress (native and Python lanes), count-ready, a /metrics scrape and
-# delete_pods.  19a: the same flow at 8a's 65,536 nodes with 4,096 pods, all
+# delete_pods.  19a: the same flow at 32,768 nodes with 2,048 pods, all
 # ten KWOK groups and one client at a time, coordinator on the card and on
 # the CPU.
-EXP_NODES, EXP_PODS, EXP_BULK = NODES, COORD_PODS["D1"], 1024
+EXP_NODES, EXP_PODS, EXP_BULK = NODES // 4, COORD_PODS["D1"] // 4, 1024
 EXP_NATIVE_PUTS, EXP_PY_PUTS, EXP_PY_RANGES = 200_000, 10_000, 1_000
-EXP_PARITY_NODES, EXP_PARITY_PODS = PARITY_NODES, 4096
+EXP_PARITY_NODES, EXP_PARITY_PODS = PARITY_NODES // 2, 2048
 EXP_TICKS = (10.0, 20.0)
 EXP_LEASES = b"/registry/leases/kube-node-lease/"
 
@@ -3765,7 +3848,7 @@ def _free_port() -> int:
 
 
 def phase_experiment() -> dict:
-    """19: the reference's experiment at 1,048,576 nodes: a fresh
+    """19: the reference's experiment at 262,144 nodes: a fresh
     ``server_main --metrics-port`` child; every tool a CLI child whose JSON
     line is read (a non-zero exit fails the phase); group 0's controller;
     the server reaped."""
@@ -3806,7 +3889,7 @@ def _parity_pass(device: str) -> dict:
 
 
 def phase_experiment_parity(cpu_half=None) -> dict:
-    """19a: the experiment at 65,536 nodes x 4,096 pods, all ten KWOK groups,
+    """19a: the experiment at 32,768 nodes x 2,048 pods, all ten KWOK groups,
     one client at a time (``--concurrency 1 --clients 1``), each pass against
     a fresh server child with the tools in its own process: the coordinator
     on the card here and, at the same time, on the CPU in a child process
@@ -3824,6 +3907,436 @@ def phase_experiment_parity(cpu_half=None) -> dict:
     return {"cuda": _without_keys(card), "cpu": _without_keys(cpu)}
 
 
+# ---- phases 20-20b: the dp x sp mesh ----------------------------------------------
+
+# 20: sharded waves at 1,048,576 nodes (JAX parallel/sharded_cycle.py:1-21: the
+# table's rows over sp, the wave's pods over dp; the reference splits its 1M
+# nodes over 256 scheduler shards, SURVEY §1), every cell on the one card:
+# the uniform wave (base stage) on the meshes 1x4 and 2x2, path B (cons stage
+# and the cross-shard prologue) and C1 (delta planes sharded over sp) on 2x2,
+# at score-pct 100 against the single-device wave on the same inputs.  20a:
+# 8a's coordinator shape over a 2x2 mesh (two host-feed workers), card vs
+# CPU.  20b: D1's batch and window through ``sched_bench --mesh 1x4`` at
+# 262,144 nodes x 8,192 pods (JAX multihost.py:1-27: sp over the local
+# cards; 16,384 pods cut to 8,192 for the 1,200 s limit).
+# The uniform path on both meshes; B and C1 on 2x2 only (the 1,200 s limit).
+MESH_SHAPES = {"uniform": ((1, 4), (2, 2)), "B": ((2, 2),), "C1": ((2, 2),)}
+MESH_CELL_CHECK = (2, 2)
+MESH_PATHS = ("uniform", "B", "C1")
+MESH_PARITY = "2x2"
+MESH_BENCH, MESH_BENCH_NODES, MESH_BENCH_PODS = "1x4", 1 << 18, 8192
+CONS_FIELDS = ("spread_node", "spread_zone", "spread_region", "tgt_node", "tgt_zone",
+               "tgt_region", "own_node", "own_zone", "own_region")
+
+
+class _EventTimer:
+    """The sharded wave's ``timer=``: a CUDA event pair around each named
+    stage on the current stream; ``ms()`` sums them by name once the wave
+    has synced, and starts over."""
+
+    def __init__(self):
+        self.spans: list = []
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end.record()
+            self.spans.append((name, start, end))
+
+    def ms(self) -> dict:
+        out: dict = {}
+        for name, start, end in self.spans:
+            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+        self.spans.clear()
+        return out
+
+
+def _mesh_world(path: str, cache: dict) -> dict:
+    """Phase 20's inputs at 1,048,576 nodes: phase 4's fleet and uniform
+    batch (shared by the uniform path and C1), or path B's TableSpec,
+    fleet and spread + anti batch; and a fill batch of one representative
+    (C1's one shape)."""
+    from k8s1m_tpu_torch.cluster import (
+        affinity_deployment,
+        populate_kwok_nodes,
+        spread_deployment,
+        uniform_pods,
+    )
+    from k8s1m_tpu_torch.config import TOPO_ZONE, PodSpec, TableSpec
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.snapshot.constraints import ConstraintTracker
+    from k8s1m_tpu_torch.snapshot.node_table import NodeTableHost
+    from k8s1m_tpu_torch.snapshot.pod_encoding import PodBatchHost
+
+    key = "B" if path == "B" else "uniform"
+    if key in cache:
+        return cache[key]
+    t0 = time.perf_counter()
+    if key == "B":
+        spec = TableSpec(max_nodes=NODES, max_zones=128, max_regions=16)
+        tracker = ConstraintTracker(spec)
+        half = BATCH // 2
+        pods = (spread_deployment(tracker, "bench-spread", half, topo=TOPO_ZONE)
+                + affinity_deployment(tracker, "bench-anti", BATCH - half, anti=True))
+        pod_spec = PodSpec(batch=BATCH, spread_refs=1, affinity_refs=1, spread_incs=1,
+                           ipa_incs=1)
+        profile = Profile()
+    else:
+        spec = TableSpec(max_nodes=NODES)
+        pods = uniform_pods(BATCH)
+        pod_spec = PodSpec(batch=BATCH)
+        profile = Profile(node_affinity=0, topology_spread=0, interpod_affinity=0)
+    host = NodeTableHost(spec)
+    populate_kwok_nodes(host, NODES)
+    fill = PodBatchHost(dataclasses.replace(pod_spec, batch=FILL_BATCH), spec, host.vocab)
+    cache[key] = {"spec": spec, "host": host, "profile": profile,
+                  "packed": PodBatchHost(pod_spec, spec, host.vocab).encode_packed(pods),
+                  "fill": fill.encode_packed(pods[:1])}
+    log(f"[20] {key}: populated {NODES} KWOK nodes in {time.perf_counter() - t0:.1f}s")
+    return cache[key]
+
+
+def _mesh_cells_vs_plain(mesh, path: str, world: dict, table, cons, planes, seed) -> int:
+    """Each cell's kernel against its plain version at the cell's offsets
+    on the state before the first wave: ``fused_topk`` vs
+    ``fused_topk_reference`` (the cons stage with the cross-shard
+    prologue's stats) or ``delta_plane_topk`` vs ``plane_topk``; the
+    largest |difference| of idx and prio over every cell."""
+    import torch
+
+    from k8s1m_tpu_torch import parallel as par
+    from k8s1m_tpu_torch.engine.deltacache import plane_topk
+    from k8s1m_tpu_torch.ops.delta_topk import delta_plane_topk
+    from k8s1m_tpu_torch.ops.fused_topk import fused_topk, fused_topk_reference
+    from k8s1m_tpu_torch.parallel import sharded_cycle as sc
+
+    b_local = BATCH // mesh.shape["dp"]
+    rows = table.rows_per_shard
+    batches = sc._full_batches(mesh, world["packed"])
+    stats = sc.sharded_prologue(table, cons) if cons is not None else None
+    err = 0
+    for d, s in mesh.cells():
+        dev = mesh.device(d, s)
+        pod_off, row_off = sc.mesh_offsets(d, s, rows, b_local)
+        if path == "C1":
+            ids = torch.zeros(b_local, dtype=torch.int32, device=dev)
+            kw = dict(chunk=CHUNK, k=K, row_offset=row_off, pod_offset=pod_off)
+            got = delta_plane_topk(planes[0].part(d, s), planes[1].part(d, s), ids, seed, **kw)
+            want = plane_topk(planes[0].part(d, s), planes[1].part(d, s), ids, seed, **kw)
+            e = _compare(got.idx, got.prio, want.idx, want.prio)
+        else:
+            batch = par.slice_batch(batches[dev], d, b_local)
+            kw = dict(k=K, row_base=pod_off, col_base=row_off, stratum_bits=0,
+                      with_affinity=False, stats=stats,
+                      constraints=None if cons is None else cons.part(d, s))
+            idx, prio = fused_topk(table.part(d, s), batch, seed, world["profile"], **kw)
+            ridx, rprio = fused_topk_reference(table.part(d, s), batch, seed,
+                                               world["profile"], chunk=CHUNK, **kw)
+            e = _compare(idx, prio, ridx, rprio)
+        err = max(err, e)
+    return err
+
+
+def _mesh_run(device, path: str, world: dict, seeds, mesh=None, *, dirtys=None, churn=None,
+              timer=None, cells: bool = False) -> dict:
+    """``len(seeds)`` waves of ``path`` over a fresh packed table, on one
+    device (``mesh`` None) or over ``mesh``: each wave's bound rows,
+    seconds, stage ms (``timer``) and launches, and the final request
+    columns, count tables and planes on the CPU.  With ``cells``, first each
+    cell's kernel against its plain version (``cells_err``)."""
+    import torch
+
+    from k8s1m_tpu_torch import parallel as par
+    from k8s1m_tpu_torch.engine.cycle import (
+        fill_shape_planes,
+        schedule_batch_delta,
+        schedule_batch_packed,
+    )
+    from k8s1m_tpu_torch.ops import delta_topk, fused_topk
+    from k8s1m_tpu_torch.parallel import sharded_cycle as sc
+    from k8s1m_tpu_torch.snapshot.constraints import empty_constraints
+    from k8s1m_tpu_torch.snapshot.node_table import scatter_rows
+    from k8s1m_tpu_torch.snapshot.packing import build_packing_spec, pack_table_host, table_bytes
+
+    spec, host, packed, profile = world["spec"], world["host"], world["packed"], world["profile"]
+    pspec = build_packing_spec(spec, host.vocab)
+    if mesh is None:
+        table = pack_table_host(host, pspec, device)
+        cons = empty_constraints(spec, device) if path == "B" else None
+    else:
+        table = par.shard_table(pack_table_host(host, pspec, "cpu"), mesh)
+        cons = (par.shard_constraints(empty_constraints(spec, "cpu"), mesh)
+                if path == "B" else None)
+    planes = None
+    slot_ids = np.zeros(BATCH, np.int32)
+    if path == "C1":
+        fs = np.full(FILL_BATCH, 1, np.int32)
+        fs[0] = 0
+        planes = ((torch.zeros((1, NODES), dtype=torch.bool, device=device),
+                   torch.zeros((1, NODES), dtype=torch.int32, device=device)) if mesh is None
+                  else (par.mesh.zeros_planes(mesh, 1, NODES, torch.bool),
+                        par.mesh.zeros_planes(mesh, 1, NODES, torch.int32)))
+        fill_shape_planes(table, world["fill"], fs, planes, profile=profile, chunk=CHUNK,
+                          mesh=mesh)
+    out: dict = {"rows": [], "wave_ms": [], "stage_ms": [], "launches": []}
+    if cells:
+        out["cells_err"] = _mesh_cells_vs_plain(mesh, path, world, table, cons, planes,
+                                                seeds[0])
+    prev = None
+    for i, seed in enumerate(seeds):
+        if path == "C1":
+            if mesh is None:
+                scatter_rows(table, dirtys[i], {"cpu_req": churn[i]})
+            else:
+                sc.sharded_scatter(table, dirtys[i], {"cpu_req": churn[i]})
+        ft, dt = fused_topk.fused_topk, delta_topk.delta_plane_topk
+        before = (ft.launches, dt.launches, dict(ft.launches_by_stage))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inflight = () if prev is None else (prev,)
+        if path == "C1" and mesh is None:
+            table, _asg, rows, planes = schedule_batch_delta(
+                table, packed, seed, profile=profile, slot_ids=slot_ids, planes=planes,
+                dirty=dirtys[i], inflight_rows=inflight, chunk=CHUNK, k=K)
+        elif path == "C1":
+            table, _asg, rows, planes = sc.sharded_delta_wave(
+                mesh, table, packed, seed, profile, slot_ids=slot_ids, planes=planes,
+                dirty=dirtys[i], inflight_rows=inflight, chunk=CHUNK, k=K, timer=timer)
+        elif mesh is None:
+            table, _asg, rows = schedule_batch_packed(table, packed, seed, profile=profile,
+                                                      constraints=cons, chunk=CHUNK, k=K)
+        else:
+            table, cons, _asg, rows = sc.sharded_packed_wave(
+                mesh, table, packed, seed, profile, chunk=CHUNK, k=K, constraints=cons,
+                timer=timer)
+        torch.cuda.synchronize()
+        out["wave_ms"].append(1e3 * (time.perf_counter() - t0))
+        if timer is not None:
+            out["stage_ms"].append(timer.ms())
+        out["launches"].append({
+            "fused_topk": ft.launches - before[0], "delta_plane_topk": dt.launches - before[1],
+            **{st: ft.launches_by_stage[st] - before[2].get(st, 0) for st in ("base", "cons")},
+        })
+        out["rows"].append(rows.cpu())
+        prev = rows
+    out["table_mb"] = table_bytes(table) / 2**20
+    out["card_mb"] = torch.cuda.memory_allocated() / 2**20
+    full = table.gather() if mesh is not None else table
+    out["req"] = {c: getattr(full, c).cpu() for c in ("cpu_req", "mem_req", "pods_req")}
+    if cons is not None:
+        g = cons.gather() if mesh is not None else cons
+        out["cons"] = {f: getattr(g, f).cpu() for f in CONS_FIELDS}
+    if planes is not None:
+        out["planes"] = [p.gather() if mesh is not None else p.cpu() for p in planes]
+    return out
+
+
+def _mean(xs) -> float:
+    return float(sum(xs) / len(xs)) if xs else 0.0
+
+
+def phase_mesh(device, *, steps: int, warmup: int) -> dict:
+    """20: the sharded waves at 1,048,576 nodes, B=4096, k=4, chunk 4096,
+    score-pct 100, packed, ``warmup`` + ``steps`` waves per mesh and path:
+    the bound rows of every wave, the request columns, the nine count
+    tables (B) and the planes (C1) byte-identical to the single-device
+    waves on the same inputs; each 2x2 cell's kernel equal to its plain
+    version at its offsets before the path's first wave; dp x sp launches of the path's
+    kernel per wave.  Prints wave ms and within it the per-cell kernel,
+    gather, greedy and commit ms (CUDA events), launches per wave and card
+    MB.  Returns the results and the launches of every mesh wave."""
+    import torch
+
+    from k8s1m_tpu_torch import parallel as par
+
+    cache: dict = {}
+    total = warmup + steps
+    results: dict = {}
+    launches = {"base": 0, "cons": 0, "delta_plane_topk": 0}
+    for pi, path in enumerate(MESH_PATHS):
+        world = _mesh_world(path, cache)
+        seeds = [int(s) for s in np.random.default_rng(20 + pi).integers(
+            -(1 << 31), 1 << 31, size=total)]
+        dirtys = churn = None
+        if path == "C1":
+            rng = np.random.default_rng(0)
+            dirtys = [np.sort(rng.choice(NODES, DELTA_DIRTY, replace=False)).astype(np.int32)
+                      for _ in range(total)]
+            churn = [rng.integers(0, world["host"].cpu_alloc[d] // 2).astype(np.int32)
+                     for d in dirtys]
+        kw = dict(dirtys=dirtys, churn=churn)
+        single = _mesh_run(device, path, world, seeds, **kw)
+        single_ms = single["wave_ms"][warmup:]
+        results[path] = {"single_wave_ms": single_ms}
+        for dp, sp in MESH_SHAPES[path]:
+            tag = f"20 {path} {dp}x{sp}"
+            mesh = par.make_mesh(dp, sp, device=device)
+            # The cells against their plain versions once per path, on the
+            # 2x2 mesh (every cell but (0, 0) at a nonzero pod or row offset).
+            cells = (dp, sp) == MESH_CELL_CHECK
+            run = _mesh_run(device, path, world, seeds, mesh, timer=_EventTimer(),
+                            cells=cells, **kw)
+            check(not cells or run["cells_err"] == 0,
+                  f"[{tag}] a cell's kernel != its plain version (max |err| {run.get('cells_err')})")
+            for i in range(total):
+                check(torch.equal(run["rows"][i], single["rows"][i]),
+                      f"[{tag}] wave {i}: bound rows differ from the single device")
+            for c, col in run["req"].items():
+                check(torch.equal(col, single["req"][c]), f"[{tag}] {c} differs after commit")
+            for f, tab in run.get("cons", {}).items():
+                check(torch.equal(tab, single["cons"][f]), f"[{tag}] count table {f} differs")
+            for j, pl in enumerate(run.get("planes", ())):
+                check(torch.equal(pl, single["planes"][j]), f"[{tag}] plane {j} differs")
+            kernel = "delta_plane_topk" if path == "C1" else "fused_topk"
+            stage = {"uniform": "base", "B": "cons", "C1": None}[path]
+            for i, n in enumerate(run["launches"]):
+                check(n[kernel] == dp * sp, f"[{tag}] wave {i} launched {kernel} {n} times")
+                if stage:
+                    check(n[stage] == dp * sp and n["delta_plane_topk"] == 0,
+                          f"[{tag}] wave {i}: launches {n}")
+                else:
+                    check(n["fused_topk"] == 0, f"[{tag}] wave {i}: launches {n}")
+            launches[stage or "delta_plane_topk"] += sum(n[kernel] for n in run["launches"])
+            timed = run["stage_ms"][warmup:]
+            cells = {f"{d}x{s}": _mean([t[f"kernel:{d}x{s}"] for t in timed])
+                     for d in range(dp) for s in range(sp)}
+            res = {
+                "wave_ms": run["wave_ms"][warmup:],
+                "p50_wave_ms": float(np.percentile(run["wave_ms"][warmup:], 50)),
+                "cell_kernel_ms": cells,
+                **{f"{st}_ms": _mean([t.get(st, 0.0) for t in timed])
+                   for st in ("gather", "greedy", "commit", "prologue", "merge", "unpack")},
+                "launches_per_wave": dp * sp,
+                "launches": sum(n[kernel] for n in run["launches"]),
+                "binds": int(sum(int((r >= 0).sum()) for r in run["rows"][warmup:])),
+                "table_mb": run["table_mb"], "card_mb": run["card_mb"],
+                "cells_max_abs_err": run.get("cells_err"),
+            }
+            results[path][f"{dp}x{sp}"] = res
+            log(f"[{tag}] byte-identical to the single device over {total} waves; "
+                f"wave ms {res['p50_wave_ms']:.1f} (single {np.percentile(single_ms, 50):.1f}): "
+                f"kernel/cell ms {', '.join(f'{k} {v:.3f}' for k, v in cells.items())}, "
+                f"gather {res['gather_ms']:.3f}, greedy {res['greedy_ms']:.3f}, commit "
+                f"{res['commit_ms']:.3f}, prologue {res['prologue_ms']:.3f}, merge "
+                f"{res['merge_ms']:.3f}; {dp * sp} {kernel} launches/wave; "
+                + ("cells vs plain max |err| 0; " if cells else "")
+                + f"table {res['table_mb']:.1f} MB, card {res['card_mb']:.0f} MB")
+            del run
+        del single
+        torch.cuda.empty_cache()
+    results["launches"] = launches
+    return results
+
+
+def _mesh_parity_members(device: str) -> dict:
+    """20a's members on ``device``: 8a's uniform ``sched_bench`` run and
+    D4's constraint construction at 65,536 nodes x 8,192 pods, 5%, chunk
+    4096, zero-delay retries, over a 2x2 mesh (two host-feed workers); on
+    the card also the uniform run at score-pct 100 over the mesh and on one
+    device.  Each passes ``_coordinator_checks`` (and the count-table
+    recount); its stored pod values under ``stored <tag>``."""
+    from k8s1m_tpu_torch.faultline import RetryPolicy
+    from k8s1m_tpu_torch.snapshot.hotfeed import ShardedHostFeed
+    from k8s1m_tpu_torch.tools import sched_bench
+
+    policy = RetryPolicy(**_ZERO_DELAY)
+    out: dict = {"runs": {}}
+    members = [("uniform", MESH_PARITY, SCORE_PCT), ("constraints", MESH_PARITY, SCORE_PCT)]
+    if device == "cuda":
+        members += [("pct100", MESH_PARITY, 100), ("pct100", "none", 100)]
+    for group, mesh, pct in members:
+        t0 = time.perf_counter()
+        if group == "constraints":
+            report, coord, store = _constraint_run(
+                device, nodes=PARITY_NODES, waves=PARITY_PODS // 4096, per=2048,
+                retry_policy=policy, mesh=mesh)
+            pods = PARITY_PODS + 1
+        else:
+            report, coord, store = sched_bench.run(_bench_args(
+                nodes=PARITY_NODES, pods=PARITY_PODS, score_pct=pct, packing="packed",
+                chunk=CHUNK, device=device, mesh=mesh), retry_policy=policy)
+            pods = PARITY_PODS
+        tag = f"20a {group} {mesh} {device}"
+        if mesh != "none":
+            check(coord.mesh is not None and coord.mesh.shape == {"dp": 2, "sp": 2},
+                  f"[{tag}] mesh {coord.mesh}")
+            check(isinstance(coord._feed, ShardedHostFeed) and len(coord._feed.feeds) == 2,
+                  f"[{tag}] no feed per dp rank")
+        stored = _coordinator_checks(tag, report, coord, store, pods)
+        if group == "constraints":
+            _recount_constraints(coord, stored)
+        coord.close()
+        store.close()
+        out["runs"][tag] = {"group": group, "report": report,
+                            "seconds": round(time.perf_counter() - t0, 3)}
+        out[f"stored {tag}"] = stored
+    return out
+
+
+def phase_mesh_parity(children=None) -> dict:
+    """20a: ``_mesh_parity_members`` on the card and, concurrently in a
+    child process, on the CPU: the uniform and the constraint group leave
+    byte-identical stored pod values on both, and on the card the mesh at
+    score-pct 100 leaves those of the single device."""
+    card, cpu = _card_and_cpu("20a", "_mesh_parity_members", children=children)
+    for group in ("uniform", "constraints"):
+        a = f"20a {group} {MESH_PARITY} cuda"
+        b = f"20a {group} {MESH_PARITY} cpu"
+        _same_stored("20a", f"stored pod values of [{a}] and [{b}]", card[f"stored {a}"],
+                     cpu[f"stored {b}"])
+    a, b = f"20a pct100 {MESH_PARITY} cuda", "20a pct100 none cuda"
+    _same_stored("20a", f"stored pod values of [{a}] and [{b}]", card[f"stored {a}"],
+                 card[f"stored {b}"])
+    runs = {**card["runs"], **cpu["runs"]}
+    log("[20a] mesh 2x2 at 65,536 nodes x 8,192 pods: " + ", ".join(
+        f"{t} ({r['seconds']:.1f}s, {r['report']['value']} binds/s)" for t, r in runs.items())
+        + "; byte-identical card/CPU per group, and mesh/single at score-pct 100")
+    return {"runs": {t: {"seconds": r["seconds"], "report": r["report"]}
+                     for t, r in runs.items()}}
+
+
+def phase_mesh_bench() -> dict:
+    """20b: ``sched_bench --mesh 1x4`` at 262,144 nodes x 8,192 pods,
+    ``--batch 4096 --depth 2 --score-pct 5 --stats --kernel-profile``,
+    packed: every pod bound once (phase 8's checks), 4 base launches per
+    wave, the report's ``mesh_exec`` and the shard-local kernel profile."""
+    from k8s1m_tpu_torch.tools import sched_bench
+
+    t0 = time.perf_counter()
+    report, coord, store = sched_bench.run(_bench_args(
+        nodes=MESH_BENCH_NODES, pods=MESH_BENCH_PODS, batch=BATCH, depth=2,
+        score_pct=SCORE_PCT, packing="packed", stats=True, kernel_profile=True,
+        mesh=MESH_BENCH))
+    try:
+        _coordinator_checks("20b", report, coord, store, MESH_BENCH_PODS)
+    finally:
+        coord.close()
+        store.close()
+    d = report["detail"]
+    me = d["mesh_exec"]
+    check((me["dp"], me["sp"]) == (1, 4), f"[20b] mesh_exec {me}")
+    n = d["launches"]["fused_topk_by_stage"]["base"]
+    check(n == 4 * d["waves"]["full"] and n > 0, f"[20b] {n} base launches for "
+          f"{d['waves']['full']} waves")
+    check(d["kernel_profile"]["mesh"] == {"dp": 1, "sp": 4,
+                                          "rows_per_shard": MESH_BENCH_NODES // 4},
+          f"[20b] kernel_profile.mesh {d['kernel_profile'].get('mesh')}")
+    log(f"[20b] sched_bench --mesh {MESH_BENCH} at {MESH_BENCH_NODES:,} nodes x "
+        f"{MESH_BENCH_PODS:,} pods: {report['value']} binds/s, p50/p99 "
+        f"{d['p50_ms']}/{d['p99_ms']} ms, device share {d['device_share']}, stage means "
+        f"{d['stage_means_ms']}, mesh_exec {me}, base launches {n}, shard-local kernel "
+        f"ms/batch {d['kernel_profile']['ms_per_batch'].get('full')} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="timed waves per layout (phase 4)")
@@ -3836,6 +4349,9 @@ def main(argv=None) -> int:
     ap.add_argument("--worst-case-only", action="store_true",
                     help="run only the device, build and all-distinct phases (3e) and print "
                          "their times; run from another tree's root it times that tree's kernel")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run only the device, build and mesh phases (20-20b) and print "
+                         "their results")
     args = ap.parse_args(argv)
     if min(args.steps, args.path_steps, args.delta_steps, args.warmup) < 1:
         ap.error("--steps, --path-steps, --delta-steps and --warmup must be >= 1")
@@ -3855,7 +4371,17 @@ def main(argv=None) -> int:
     if args.worst_case_only:
         print(json.dumps({"worst_case": phase_worst_case(device)}), flush=True)
         return 0
-    _warm_cpu_children(len(PARITY_GROUPS))  # 8a's CPU halves
+    if args.mesh_only:
+        mesh_cpu = _start_cpu_half("_mesh_parity_members")
+        mesh = phase_mesh(device, steps=args.delta_steps, warmup=args.warmup)
+        out = {"mesh": mesh, "mesh_parity": phase_mesh_parity(mesh_cpu),
+               "mesh_bench": phase_mesh_bench()}
+        log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
+        print(json.dumps(out, default=str), flush=True)
+        return 0
+    # 8a's CPU halves run beside phase 3 (timed with CUDA events).
+    parity_cpu = _start_cpu_half("_parity_members",
+                                 cpu_calls=[((group,),) for group in PARITY_GROUPS])
     err3 = phase_kernel_vs_plain(device)
     err3b = phase_affinity_vs_plain(device)
     wide = phase_wide_vs_plain(device)
@@ -3867,16 +4393,19 @@ def main(argv=None) -> int:
     path_b = phase_path(device, "B", steps=args.path_steps, warmup=args.warmup)
     path_c = {c: phase_delta_path(device, c, steps=args.delta_steps, warmup=args.warmup)
               for c in ("C1", "C2")}
-    parity, untraced = phase_coordinator_parity()
+    parity, untraced = phase_coordinator_parity(parity_cpu)
     _warm_cpu_children(2)  # 10a's and 12a's CPU halves
     coord = {c: phase_coordinator(c) for c in ("D1", "D2", "D3")}
     coord["D4"] = phase_constraints()
     coord["D5"] = phase_coordinator("D5")
+    # 10a's and 12a's CPU halves start beside phase 9; phase 10 runs after
+    # both, on a quiet host (the drill's gates read its clock).
+    composed_cpu = _start_cpu_half("_composed_run")
+    webhook_cpu = _start_cpu_half("_webhook_parity_run")
     probe = phase_probe()
-    megarow = phase_megarow()
-    webhook_cpu = _start_cpu_half("_webhook_parity_run")  # 12a's, beside 10a's
-    composed = phase_composed_parity()
+    composed = phase_composed_parity(composed_cpu)
     webhook_parity = phase_webhook_parity(webhook_cpu)
+    megarow = phase_megarow()
     _warm_cpu_children(2)  # 18a's and 19a's CPU halves
     breaker = phase_breaker()
     trace = phase_trace()
@@ -3893,9 +4422,16 @@ def main(argv=None) -> int:
     wire["17b"] = phase_wire("17b")
     shards = phase_shards()
     experiment = phase_experiment()
-    experiment_cpu = _start_cpu_half("_parity_pass")  # 19a's, beside 18a's
-    shard_parity = phase_shard_parity()
+    # 19a's and 18a's CPU halves both start now; 19a's longer card half runs
+    # first, so 18a's card half does not wait on a CPU half.
+    experiment_cpu = _start_cpu_half("_parity_pass")
+    shard_cpu = _start_cpu_half("_shard_parity_run")
     experiment_parity = phase_experiment_parity(experiment_cpu)
+    shard_parity = phase_shard_parity(shard_cpu)
+    mesh_cpu = _start_cpu_half("_mesh_parity_members")  # 20a's, beside 20
+    mesh = phase_mesh(device, steps=args.delta_steps, warmup=args.warmup)
+    mesh_parity = phase_mesh_parity(mesh_cpu)
+    mesh_bench = phase_mesh_bench()
     log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
 
     # Launches of the coordinator's paths (phases 8, 10-16a, 17-17b, 18a, 19
@@ -3912,12 +4448,17 @@ def main(argv=None) -> int:
             + [wire_parity[tag]["launches"] for tag in ("cuda wire", "cuda in-process")]
             + [w["launches"] for r in shards.values() for w in r["per_worker"]]
             + [shard_parity["cuda"]["launches"], experiment["launches"],
-               experiment_parity["cuda"]["launches"]])
+               experiment_parity["cuda"]["launches"]]
+            + [r["report"]["detail"]["launches"] for t, r in mesh_parity["runs"].items()
+               if t.endswith(" cuda")]
+            + [mesh_bench["detail"]["launches"]])
     coord_launches = {
         stage: sum(r["fused_topk_by_stage"][stage] for r in runs)
         for stage in ("base", "aff", "cons")
     }
     coord_launches["delta_plane_topk"] = sum(r.get("delta_plane_topk", 0) for r in runs)
+
+    mesh_launches = mesh["launches"]
 
     def entry(stage, replaces, res, err):
         prod = res["packed"]
@@ -3927,10 +4468,11 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "k8s1m_tpu_torch/csrc/fused_topk.cuh",
             "replaces": replaces,
-            "launches": res["launches"] + extra,
+            "launches": res["launches"] + extra + mesh_launches.get(stage, 0),
             "coordinator_launches": extra,
-            "max_abs_err": max(err, float(res["plain"]["max_abs_err"]),
-                               float(prod["max_abs_err"])),
+            "mesh_launches": mesh_launches.get(stage, 0),
+            "max_abs_err": max([err] + [float(res[lay]["max_abs_err"])
+                                        for lay in ("plain", "packed") if lay in res]),
             "ms": prod["kernel_ms_per_wave"],
             "plain_ms": prod["plain_ms_per_wave"],
             "bound_ms": prod["bound_ms"],
@@ -3954,11 +4496,13 @@ def main(argv=None) -> int:
             "source": "k8s1m_tpu_torch/csrc/delta_topk.cu",
             "replaces": "k8s1m_tpu/ops/pallas_topk.py:1041",
             "launches": sum(r["launches"] for r in path_c.values())
-                        + coord_launches["delta_plane_topk"],
+                        + coord_launches["delta_plane_topk"]
+                        + mesh_launches["delta_plane_topk"],
             "coordinator_launches": coord_launches["delta_plane_topk"],
+            "mesh_launches": mesh_launches["delta_plane_topk"],
             "max_abs_err": max([err3d] + [float(r[lay]["max_abs_err"])
                                           for r in path_c.values()
-                                          for lay in ("plain", "packed")]),
+                                          for lay in ("plain", "packed") if lay in r]),
             "ms": c2["kernel_ms_per_wave"],
             "plain_ms": c2["plain_ms_per_wave"],
             "bound_ms": c2["bound_ms"],
@@ -3983,7 +4527,8 @@ def main(argv=None) -> int:
                        "failover": failover, "failover_parity": failover_parity,
                        "wire": wire, "wire_parity": wire_parity, "shards": shards,
                        "shard_parity": shard_parity, "experiment": experiment,
-                       "experiment_parity": experiment_parity, **kernels},
+                       "experiment_parity": experiment_parity, "mesh": mesh,
+                       "mesh_parity": mesh_parity, "mesh_bench": mesh_bench, **kernels},
                       f, indent=1, default=str)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -74,10 +74,17 @@ retired wave and dumps its ring on a slow cycle or a slow traced pod; a
 ``SamplingProfiler`` (``profiler=``) is dumped beside a slow cycle.  With
 none of them every hook is one ``enabled`` read (the null tracer).
 
+**Mesh** (``parallel/``, ``mesh=``): the node table's rows split over the
+``sp`` shards of a dp x sp mesh and each wave's pods over ``dp``; the wave
+runs the sharded step (``parallel/sharded_cycle.py``), byte-identical to
+the single-device wave at score-pct 100, with percentageOfNodesToScore
+windows rotating shard-locally.  Dirty-row scatters and count-table
+corrections take each storage once; a feed per dp rank encodes the wave's
+slices (``ShardedHostFeed``).  ``mesh`` is a built ``parallel.Mesh``, a
+spec string ("2x2", "auto", "none") or None (then ``K8S1M_MESH``).
+
 Entry points run on ``device="cuda"`` unless the caller asks for
-``device="cpu"`` (the plain versions of the kernels).  The JAX
-coordinator's mesh, lease fencing and warm standby are not part of the
-port: passing them raises ``NotImplementedError``.
+``device="cpu"`` (the plain versions of the kernels).
 """
 
 from __future__ import annotations
@@ -149,6 +156,7 @@ from k8s1m_tpu_torch.snapshot.hotfeed import (
     EncodeCache,
     HostFeed,
     HotPodBatchHost,
+    ShardedHostFeed,
     cache_counts,
     encode_batch,
     shape_key,
@@ -192,6 +200,7 @@ from k8s1m_tpu_torch.store.native import (
     drain_events_light,
     list_prefix,
     list_prefix_items,
+    list_prefix_sharded,
     list_prefix_values,
     prefix_end,
 )
@@ -274,6 +283,38 @@ _PACKING_FALLBACK = Counter(
     "device_packing_fallback_total",
     "Fail-closed packed-layout rebuilds, by reason (the field that "
     "overflowed its bit budget, or 'taint_slots')", ("reason",),
+)
+# ---- mesh execution (parallel/): the dp x sp sharded wave ----------------
+_MESH_DEVICES = Gauge(
+    "mesh_devices",
+    "Devices along each mesh axis across live mesh coordinators "
+    "(0 = every coordinator runs single-device)",
+    ("axis",),
+)
+for _axis in ("dp", "sp"):
+    _MESH_DEVICES.set_function(
+        lambda _a=_axis: sum(c.mesh.shape[_a] for c in list(_LIVE) if c.mesh is not None),
+        axis=_axis,
+    )
+_MESH_SCATTER = Counter(
+    "mesh_sharded_scatter_total",
+    "Dirty-row scatters dispatched against the sp-sharded device table, "
+    "by column class (full = host-authoritative row re-upload, cap = "
+    "capacity/feature columns only) — each lands mid-flight with no "
+    "quiesce, into every storage once",
+    ("cols",),
+)
+_MESH_FEED_DEPTH = Gauge(
+    "mesh_feed_staged_depth",
+    "Batches staged or encoding across per-dp-shard host feeds "
+    "(snapshot/hotfeed.ShardedHostFeed; up to dp per mesh coordinator)",
+    (),
+)
+_MESH_FEED_DEPTH.set_function(
+    lambda: sum(
+        racy_read(c, "_feed").depth() for c in list(_LIVE)
+        if isinstance(racy_read(c, "_feed"), ShardedHostFeed)
+    )
 )
 # ---- failover: fencing and warm-standby evidence -------------------------
 _FENCE_REJECTED = Counter(
@@ -441,7 +482,8 @@ class _VictimRows:
     __hash__ = None
 
 
-_NOT_PORTED = ("mesh",)
+# Options of the JAX coordinator the port leaves out (none since the mesh).
+_NOT_PORTED = ()
 
 
 @guarded_by(
@@ -532,6 +574,9 @@ class Coordinator:
         # waves drain to requeue, never to the store.  None (standalone
         # coordinators, tests) = writes always admitted.
         fence=None,
+        # dp x sp mesh (parallel/): a parallel.Mesh, a spec string
+        # ("2x2", "auto", "none") or None, which defers to K8S1M_MESH.
+        mesh=None,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -580,7 +625,30 @@ class Coordinator:
         # chunk-aligned window of the table.
         if not 1 <= score_pct <= 100:
             raise ValueError(f"score_pct must be in [1, 100], got {score_pct}")
-        self._window_nodes = table_spec.max_nodes
+        # Mesh scale-out: rows split over sp, pods over dp; windows rotate
+        # SHARD-LOCALLY (each shard samples its own rows, as each
+        # dist-scheduler replica samples the nodes it owns).
+        from k8s1m_tpu_torch.parallel.mesh import resolve_mesh
+
+        mesh = resolve_mesh(mesh, batch=pod_spec.batch, max_nodes=table_spec.max_nodes,
+                            chunk=chunk, device=self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            dp_size, sp_size = mesh.shape["dp"], mesh.shape["sp"]
+            local_rows = table_spec.max_nodes // sp_size
+            if local_rows * sp_size != table_spec.max_nodes:
+                raise ValueError(
+                    f"max_nodes {table_spec.max_nodes} not divisible by sp={sp_size}"
+                )
+            if local_rows % chunk:
+                raise ValueError(
+                    f"rows-per-shard {local_rows} not divisible by chunk {chunk}"
+                )
+            if pod_spec.batch % dp_size:
+                raise ValueError(f"batch {pod_spec.batch} not divisible by dp={dp_size}")
+            self._window_nodes = local_rows
+        else:
+            self._window_nodes = table_spec.max_nodes
         self._sample_rows = sample_rows_for(self._window_nodes, score_pct, chunk)
         self._window_i = 0
         # Overload control: the degraded knobs are precomputed, so the
@@ -642,13 +710,25 @@ class Coordinator:
         self._encoders = {pod_spec.batch: self.encoder}
         if hotfeed is None:
             hotfeed = pipeline
-        self._feed = (
-            HostFeed(HotPodBatchHost(
+        dp_shards = mesh.shape["dp"] if mesh is not None else 1
+        if not hotfeed:
+            self._feed = None
+        elif dp_shards > 1:
+            # One feed per dp rank: dp workers encode the wave's contiguous
+            # slices concurrently (sharing the template cache) and claim()
+            # merges them byte-identically to the inline encode.
+            self._feed = ShardedHostFeed([
+                HotPodBatchHost(
+                    dataclasses.replace(pod_spec, batch=pod_spec.batch // dp_shards),
+                    table_spec, self.host.vocab, cache=self.encode_cache, path="feed",
+                )
+                for _ in range(dp_shards)
+            ])
+        else:
+            self._feed = HostFeed(HotPodBatchHost(
                 pod_spec, table_spec, self.host.vocab,
                 cache=self.encode_cache, path="feed",
             ))
-            if hotfeed else None
-        )
         if self._feed is not None:
             # A coordinator dropped without close() must not leak the
             # parked worker thread.
@@ -659,6 +739,26 @@ class Coordinator:
         self.constraints = (
             empty_constraints(table_spec, self.device) if with_constraints else None
         )
+        # Dirty-row scatters and count-table corrections, in place; the
+        # mesh forms take each storage once.
+        self._scatter = scatter_rows
+        self._adjust = adjust_constraints
+        if mesh is not None:
+            from k8s1m_tpu_torch.parallel.mesh import shard_constraints
+            from k8s1m_tpu_torch.parallel.sharded_cycle import (
+                make_sharded_scatter,
+                sharded_adjust,
+            )
+
+            if adaptive_batch and self.min_batch % mesh.shape["dp"]:
+                raise ValueError(
+                    f"adaptive min batch {self.min_batch} not divisible "
+                    f"by dp={mesh.shape['dp']}"
+                )
+            self._scatter = make_sharded_scatter(mesh)
+            self._adjust = sharded_adjust
+            if self.constraints is not None:
+                self.constraints = shard_constraints(self.constraints, mesh)
         self._delta: DeltaPlaneCache | None = None
         self._delta_fill_enc: HotPodBatchHost | None = None
         if resolve_deltasched(deltacache) == "on":
@@ -666,6 +766,7 @@ class Coordinator:
                 table_spec.max_nodes, slots=delta_slots,
                 index_k=delta_index_k, stratum_bits=stratum_bits,
                 index_dirty_cap=delta_index_dirty_cap, device=self.device,
+                sharding=mesh,
             )
             self._delta_fill_enc = HotPodBatchHost(
                 dataclasses.replace(pod_spec, batch=self._delta.fill_batch),
@@ -762,6 +863,12 @@ class Coordinator:
     def set_row_mask(self, mask: np.ndarray | None) -> None:
         """Install (or clear) the owned-node mask for sharded scheduling:
         bool[max_nodes], candidate selection only."""
+        if self.mesh is not None and mask is not None:
+            raise ValueError(
+                "row masks (process-level node sharding) and a device "
+                "mesh are different scale-out axes; compose them across "
+                "processes, not inside one coordinator"
+            )
         # The fallback node list bakes the mask in.
         self._fallback_cache = None
         if mask is None:
@@ -778,6 +885,17 @@ class Coordinator:
 
     # ---- bootstrap -----------------------------------------------------
 
+    def _relist_nodes(self) -> tuple[list, int]:
+        """Full node relist for bootstrap and resync: ``(values,
+        revision)``.  The in-process store takes the values-only light
+        parse serially (its page parse holds the GIL: sharding buys
+        nothing); a wire store fans the value fetch over 8 key-range
+        shards so round trips and decodes overlap
+        (``store/native.list_prefix_sharded``)."""
+        if isinstance(self.store, MemStore):
+            return list_prefix_values(self.store, NODES_PREFIX)
+        return list_prefix_sharded(self.store, NODES_PREFIX, shards=8, values_only=True)
+
     def bootstrap(self) -> None:
         """List+watch: load current state, then stream deltas from there.
 
@@ -787,7 +905,7 @@ class Coordinator:
         ``megarow_cold_build_seconds``."""
         t_cold = time.perf_counter()
         with _CYCLE_TIME.time(stage="bootstrap"):
-            values, rev = list_prefix_values(self.store, NODES_PREFIX)
+            values, rev = self._relist_nodes()
             self._bulk.ingest(values)
             del values
             self._nodes_watch = self.store.watch(
@@ -1203,7 +1321,7 @@ class Coordinator:
         with _CYCLE_TIME.time(stage="resync"):
             self._nodes_watch.cancel()
             self._pods_watch.cancel()
-            values, rev = list_prefix_values(self.store, NODES_PREFIX)
+            values, rev = self._relist_nodes()
             rows = self._bulk.ingest(values)
             del values
             self._dirty_rows.update(rows.tolist())
@@ -1322,7 +1440,7 @@ class Coordinator:
             profile=self.profile, constraints=cons,
             chunk=self.chunk, k=self.k, backend=self.backend,
             sample_rows=self._sample_rows, sample_offset=0,
-            row_mask=self._row_mask_dev,
+            row_mask=self._row_mask_dev, mesh=self.mesh,
         )
         if rows_dev.is_cuda:
             torch.cuda.synchronize(rows_dev.device)
@@ -1612,7 +1730,9 @@ class Coordinator:
                 if self._inflights:
                     self._midflight_rows.update(self._dirty_rows)
                 self._dirty_rows.clear()
-                scatter_rows(self.table, rows, delta)
+                self._scatter(self.table, rows, delta)
+                if self.mesh is not None:
+                    _MESH_SCATTER.inc(cols="full")
             if self._dirty_caps:
                 rows = self._pad_rows(np.fromiter(self._dirty_caps, np.int32))
                 try:
@@ -1621,10 +1741,22 @@ class Coordinator:
                     self._packing_rebuild(e)
                     return
                 self._dirty_caps.clear()
-                scatter_rows(self.table, rows, delta)
+                self._scatter(self.table, rows, delta)
+                if self.mesh is not None:
+                    _MESH_SCATTER.inc(cols="cap")
 
     def _table_to_device(self):
-        """Build (or rebuild) the device table under the active layout."""
+        """Build (or rebuild) the device table under the active layout; on
+        a mesh it is built on the host and cut into its sp shards."""
+        if self.mesh is None:
+            return self._build_table(self.device)
+        from k8s1m_tpu_torch.parallel.mesh import shard_table
+
+        table = shard_table(self._build_table(torch.device("cpu")), self.mesh)
+        self._note_table_bytes(table)
+        return table
+
+    def _build_table(self, device):
         if self._packing_mode == "packed":
             if self._packing_spec is None:
                 self._packing_spec = build_packing_spec(self.table_spec, self.host.vocab)
@@ -1634,7 +1766,7 @@ class Coordinator:
                     self._packing_mode = "off"
             if self._packing_spec is not None:
                 try:
-                    table = pack_table_host(self.host, self._packing_spec, self.device)
+                    table = pack_table_host(self.host, self._packing_spec, device)
                     self._note_table_bytes(table)
                     return table
                 except PackingOverflow as e:
@@ -1644,13 +1776,13 @@ class Coordinator:
                         # overflow fails closed to unpacked.
                         try:
                             table = pack_table_host(
-                                self.host, self._packing_spec, self.device
+                                self.host, self._packing_spec, device
                             )
                             self._note_table_bytes(table)
                             return table
                         except PackingOverflow as e2:
                             self._packing_fallback(e2)
-        table = self.host.to_device(self.device)
+        table = self.host.to_device(device)
         self._note_table_bytes(table)
         return table
 
@@ -1664,8 +1796,14 @@ class Coordinator:
     def delta_enabled(self) -> bool:
         return self._delta is not None
 
+    @staticmethod
+    def _layout_of(table):
+        """A table of the live layout: a mesh table's first storage."""
+        parts = getattr(table, "parts", None)
+        return table if parts is None else parts[0]
+
     def _note_table_bytes(self, table) -> None:
-        layout = "packed" if is_packed(table) else "unpacked"
+        layout = "packed" if is_packed(self._layout_of(table)) else "unpacked"
         other = "unpacked" if layout == "packed" else "packed"
         _TABLE_BYTES.set(hbm_bytes(table), layout=layout)
         _TABLE_BYTES.set(0, layout=other)
@@ -1673,8 +1811,9 @@ class Coordinator:
     def _row_delta(self, rows, columns) -> dict:
         """Dirty-row scatter payload under the live table's layout; raises
         PackingOverflow when a packed width no longer fits."""
-        if is_packed(self.table):
-            return pack_row_delta(self.host, rows, self.table.spec, columns)
+        layout = self._layout_of(self.table)
+        if is_packed(layout):
+            return pack_row_delta(self.host, rows, layout.spec, columns)
         return {c: getattr(self.host, c)[rows] for c in columns}
 
     def _packing_fallback(self, e: PackingOverflow) -> None:
@@ -1703,6 +1842,11 @@ class Coordinator:
             self._quiesce("packing")
         finally:
             self._packing_rebuilding = False
+        if self.mesh is not None:
+            # Cross-shard widening: the decision was made once, here on
+            # the host; every shard's queued work settles before the
+            # wholesale re-upload replaces them.
+            self.mesh.synchronize()
         self._dirty_rows.clear()
         self._dirty_caps.clear()
         if self._delta is not None:
@@ -1745,7 +1889,7 @@ class Coordinator:
                         scr["mask_node"][i] = True
                     scr["zone"][i], scr["region"][i] = z, r
                     scr["mask_dom"][i] = True
-                adjust_constraints(
+                self._adjust(
                     self.constraints, fields,
                     *(to_tensor(scr[n], dev) for n in (
                         "node_row", "zone", "region", "mask_node", "mask_dom")),
@@ -2295,7 +2439,7 @@ class Coordinator:
             try:
                 planes = fill_shape_planes(
                     self.table, fill_pb, fs, cache.planes(gen),
-                    profile=self.profile, chunk=self.chunk,
+                    profile=self.profile, chunk=self.chunk, mesh=self.mesh,
                 )
             except Exception:
                 # The planes are in an unknown state: drop them and
@@ -2347,6 +2491,7 @@ class Coordinator:
                 rep_idx=plan.rep_idx if index is not None else None,
                 rebuild_slots=plan.rebuild_slots if index is not None else None,
                 index_dirty_cap=cache.index_dirty_cap,
+                mesh=self.mesh,
                 backend=self.backend,
             )
         except Exception:
@@ -2415,6 +2560,7 @@ class Coordinator:
                     sample_offset=self._next_window(sample_rows) if sample_rows else 0,
                     stratum_bits=self.stratum_bits,
                     row_mask=self._row_mask_dev,
+                    mesh=self.mesh,
                 )
         if probe is not None:
             self._donation_inplace = donation_inplace(self.table, probe)
@@ -2425,8 +2571,10 @@ class Coordinator:
             # retire waits on the event before it reads the bytes.
             rows_host = torch.empty(rows_dev.shape, dtype=rows_dev.dtype, pin_memory=True)
             rows_host.copy_(rows_dev, non_blocking=True)
+            # The event belongs to the card holding rows_dev (a mesh's
+            # first device), recorded on that card's current stream.
             copied = torch.cuda.Event()
-            copied.record()
+            copied.record(torch.cuda.current_stream(rows_dev.device))
         path = "delta" if delta_plan is not None else "full"
         self.waves[path] += 1
         tracer = self._tracer
@@ -2821,7 +2969,7 @@ class Coordinator:
             # Roll back the wave's optimistic count-table commit for the
             # pods whose bind did not stick.
             m = to_tensor(failed, self.device)
-            adjust_constraints(
+            self._adjust(
                 self.constraints, commit_fields_np(batch.fields, self.device),
                 asg.node_row, asg.zone, asg.region, m, m, sign=-1,
             )

@@ -3,22 +3,30 @@
 // topk_common.cuh's merge_splits_kernel.
 //
 // The kernel itself, its design and what it replaces are described in
-// fused_topk.cuh.  Each stage configuration is instantiated in its own
-// translation unit (fused_topk_base.cu, _aff.cu, _cons.cu, _affcons.cu),
-// so nvcc builds them in parallel.
+// fused_topk.cuh.  Each stage configuration and layout is instantiated in
+// its own translation unit (fused_topk_<base|aff|cons|affcons>_<plain|packed>.cu),
+// so nvcc builds the eight in parallel.
 
 #include "fused_topk.cuh"
 
 namespace k8s {
 
-extern template cudaError_t launch_stage<false, false>(const Args&, bool, int, int, cudaStream_t,
-                                                         int*);
-extern template cudaError_t launch_stage<true, false>(const Args&, bool, int, int, cudaStream_t,
-                                                         int*);
-extern template cudaError_t launch_stage<false, true>(const Args&, bool, int, int, cudaStream_t,
-                                                         int*);
-extern template cudaError_t launch_stage<true, true>(const Args&, bool, int, int, cudaStream_t,
-                                                         int*);
+extern template cudaError_t launch_layout<false, false, false>(const Args&, dim3, int,
+                                                            cudaStream_t, int*);
+extern template cudaError_t launch_layout<false, true, false>(const Args&, dim3, int,
+                                                            cudaStream_t, int*);
+extern template cudaError_t launch_layout<false, false, true>(const Args&, dim3, int,
+                                                            cudaStream_t, int*);
+extern template cudaError_t launch_layout<false, true, true>(const Args&, dim3, int,
+                                                            cudaStream_t, int*);
+extern template cudaError_t launch_layout<true, false, false>(const Args&, dim3, int,
+                                                            cudaStream_t, int*);
+extern template cudaError_t launch_layout<true, true, false>(const Args&, dim3, int,
+                                                            cudaStream_t, int*);
+extern template cudaError_t launch_layout<true, false, true>(const Args&, dim3, int,
+                                                            cudaStream_t, int*);
+extern template cudaError_t launch_layout<true, true, true>(const Args&, dim3, int,
+                                                            cudaStream_t, int*);
 
 namespace {
 

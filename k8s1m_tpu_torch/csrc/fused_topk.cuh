@@ -1006,30 +1006,32 @@ cudaError_t launch_one(const Args& a, dim3 grid, cudaStream_t stream, int* block
   return cudaGetLastError();
 }
 
-template <bool WITH_AFF, bool WITH_CONS, int KMAX>
-cudaError_t launch_kernel(const Args& a, bool packed, dim3 grid, cudaStream_t stream,
+// One stage configuration in one layout, every K bucket; each of the eight
+// is instantiated in its own translation unit (fused_topk_<stage>_<layout>.cu)
+// so the builds run in parallel.
+template <bool PACKED, bool WITH_AFF, bool WITH_CONS>
+cudaError_t launch_layout(const Args& a, dim3 grid, int kmax, cudaStream_t stream,
                           int* blocks) {
-  return packed ? launch_one<true, WITH_AFF, WITH_CONS, KMAX>(a, grid, stream, blocks)
-                : launch_one<false, WITH_AFF, WITH_CONS, KMAX>(a, grid, stream, blocks);
+  switch (kmax) {
+    case 4: return launch_one<PACKED, WITH_AFF, WITH_CONS, 4>(a, grid, stream, blocks);
+    case 8: return launch_one<PACKED, WITH_AFF, WITH_CONS, 8>(a, grid, stream, blocks);
+    case 16: return launch_one<PACKED, WITH_AFF, WITH_CONS, 16>(a, grid, stream, blocks);
+    case 32: return launch_one<PACKED, WITH_AFF, WITH_CONS, 32>(a, grid, stream, blocks);
+    case 64: return launch_one<PACKED, WITH_AFF, WITH_CONS, 64>(a, grid, stream, blocks);
+    case 128: return launch_one<PACKED, WITH_AFF, WITH_CONS, 128>(a, grid, stream, blocks);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-// One stage configuration, every K bucket; each is instantiated in its own
-// translation unit (fused_topk_<stage>.cu) so the builds run in parallel.
-// With splits == 0 it launches nothing and writes the resident blocks per
-// SM of the instantiation to *blocks.
+// One stage configuration, either layout.  With splits == 0 it launches
+// nothing and writes the resident blocks per SM of the instantiation to
+// *blocks.
 template <bool WITH_AFF, bool WITH_CONS>
 cudaError_t launch_stage(const Args& a, bool packed, int splits, int kmax, cudaStream_t stream,
                          int* blocks) {
   const dim3 grid(splits ? (a.b + kPods - 1) / kPods : 0, splits ? splits : 1);
-  switch (kmax) {
-    case 4: return launch_kernel<WITH_AFF, WITH_CONS, 4>(a, packed, grid, stream, blocks);
-    case 8: return launch_kernel<WITH_AFF, WITH_CONS, 8>(a, packed, grid, stream, blocks);
-    case 16: return launch_kernel<WITH_AFF, WITH_CONS, 16>(a, packed, grid, stream, blocks);
-    case 32: return launch_kernel<WITH_AFF, WITH_CONS, 32>(a, packed, grid, stream, blocks);
-    case 64: return launch_kernel<WITH_AFF, WITH_CONS, 64>(a, packed, grid, stream, blocks);
-    case 128: return launch_kernel<WITH_AFF, WITH_CONS, 128>(a, packed, grid, stream, blocks);
-    default: return cudaErrorInvalidValue;
-  }
+  return packed ? launch_layout<true, WITH_AFF, WITH_CONS>(a, grid, kmax, stream, blocks)
+                : launch_layout<false, WITH_AFF, WITH_CONS>(a, grid, kmax, stream, blocks);
 }
 
 }  // namespace k8s

@@ -1,0 +1,10 @@
+// Stage configuration WITH_AFF=true, WITH_CONS=true of the fused kernel
+// (fused_topk.cuh) in the plain table layout, every K bucket; its own
+// translation unit so the builds run in parallel.
+
+#include "fused_topk.cuh"
+
+namespace k8s {
+template cudaError_t launch_layout<false, true, true>(const Args&, dim3, int, cudaStream_t,
+                                                    int*);
+}  // namespace k8s

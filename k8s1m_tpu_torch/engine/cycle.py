@@ -34,9 +34,10 @@ in-flight wave, ``mask_rows`` the ownership view ``row_mask=`` selects
 candidates from, ``commit_fields_np`` and ``adjust_constraints`` the
 signed count-table correction of CAS rollbacks and pod deletions.
 
-The mesh is a later slice and is refused with ``NotImplementedError`` —
-a wave the port cannot compute exactly fails loudly, never
-approximately.
+``mesh=`` (a ``parallel.Mesh``) routes each wave through the dp x sp
+sharded wave (``parallel/sharded_cycle.py``) over a ShardedTable, as the
+JAX package routes it through ``make_sharded_packed_step``.  ``mesh`` and
+``row_mask`` are exclusive, and the candidate index stays single-device.
 """
 
 from __future__ import annotations
@@ -413,17 +414,20 @@ def sample_offset_for(i: int, nodes: int, rows: int) -> int:
 
 def _wave_candidates(backend: str, src, batch, seed: int, profile: Profile, *, chunk: int,
                      k: int, constraints, stats, stratum_bits: int, with_affinity: bool,
-                     groups, reference: bool) -> Candidates:
+                     groups, reference: bool, row_offset: int = 0,
+                     pod_offset: int = 0) -> Candidates:
     """Candidates from one backend over ``src`` (the table or a window
     view); ``constraints`` cover the same rows, ``stats`` the whole
-    table."""
+    table.  ``row_offset``/``pod_offset`` globalize the hash coordinates
+    and the emitted rows (a mesh cell's offsets)."""
     if backend == "xla":
         return filter_score_topk(src, batch, seed, profile, chunk=chunk, k=k,
                                  constraints=constraints, stats=stats,
-                                 stratum_bits=stratum_bits, groups=groups)
+                                 stratum_bits=stratum_bits, groups=groups,
+                                 row_offset=row_offset, pod_offset=pod_offset)
     return candidates(src, batch, seed, profile, chunk=chunk, k=k, constraints=constraints,
                       stats=stats, stratum_bits=stratum_bits, with_affinity=with_affinity,
-                      reference=reference)
+                      reference=reference, row_offset=row_offset, pod_offset=pod_offset)
 
 
 def _check_backend(backend: str, device, profile: Profile, constraints) -> str:
@@ -516,10 +520,25 @@ def schedule_batch_packed(
     commit into the unmasked table.  ``reference=True`` runs the kernel's
     top-K through its plain version (the comparison path).
 
+    ``mesh`` (a ``parallel.Mesh``) runs the wave over the dp x sp mesh
+    (``parallel.sharded_cycle.sharded_packed_wave``): ``table`` must be a
+    ShardedTable on that mesh (and ``constraints`` ShardedConstraints),
+    and ``sample_rows``/``sample_offset`` become SHARD-LOCAL (each shard
+    scores a window of its own rows).  Exclusive with ``row_mask``.
+
     Returns (table, Assignment, rows i32[B] — bound row per pod, -1 unbound).
     """
     if mesh is not None:
-        raise NotImplementedError("the sharded mesh step is not ported yet")
+        if row_mask is not None:
+            raise ValueError("mesh and row_mask are mutually exclusive")
+        from k8s1m_tpu_torch.parallel.sharded_cycle import sharded_packed_wave
+
+        table, _cons, asg, rows = sharded_packed_wave(
+            mesh, table, packed, seed, profile, chunk=chunk, k=k, constraints=constraints,
+            backend=backend, sample_rows=sample_rows, sample_offset=sample_offset,
+            stratum_bits=stratum_bits, reference=reference,
+        )
+        return table, asg, rows
     device = table.cpu_req.device
     backend = _check_backend(backend, device, profile, constraints)
     batch = unpack_pod_batch(
@@ -609,12 +628,24 @@ def schedule_batch_delta(
     The table, both planes and the index buffers are updated IN PLACE.
     Returns (table, Assignment, rows, (pmask, pscore)), plus ((idx_row,
     idx_class, idx_floor), flag) with ``index`` — ``flag`` an i32 scalar
-    tensor, 1 when the index tail ran.  ``mesh=`` is not ported yet."""
+    tensor, 1 when the index tail ran.
+
+    Under ``mesh`` the table is a ShardedTable and the planes are sharded
+    over sp (``DeltaPlaneCache(sharding=mesh)``); the dirty gather stays
+    shard-local and the candidate index is refused (plane tail only)."""
     from k8s1m_tpu_torch.engine import deltacache as dc
     from k8s1m_tpu_torch.ops.delta_topk import delta_plane_topk
 
     if mesh is not None:
-        raise NotImplementedError("the sharded delta step is not ported yet")
+        if index is not None:
+            raise ValueError("the candidate index does not compose with mesh sharding")
+        from k8s1m_tpu_torch.parallel.sharded_cycle import sharded_delta_wave
+
+        return sharded_delta_wave(
+            mesh, table, packed, seed, profile, slot_ids=slot_ids, planes=planes,
+            dirty=dirty, inflight_rows=inflight_rows, chunk=chunk, k=k, backend=backend,
+            stratum_bits=stratum_bits,
+        )
     pmask, pscore = planes
     device = table.cpu_req.device
     backend = resolve_backend(backend, device)
@@ -669,11 +700,15 @@ def fill_shape_planes(table, packed, fill_slots, planes, *, profile: Profile,
     """Populate the plane slots in ``fill_slots`` (sentinel >= S: skip)
     from a full filter+score pass for the representative pods in
     ``packed`` (the cold-shape / refresh path of deltasched).  The planes
-    are written IN PLACE and returned; the table is read only."""
+    are written IN PLACE and returned; the table is read only.  Under
+    ``mesh`` each shard fills its own plane slices from its own rows."""
     from k8s1m_tpu_torch.engine.deltacache import fill_planes_scan
 
     if mesh is not None:
-        raise NotImplementedError("the sharded plane fill is not ported yet")
+        from k8s1m_tpu_torch.parallel.sharded_cycle import sharded_plane_fill
+
+        return sharded_plane_fill(mesh, table, packed, fill_slots, planes, profile=profile,
+                                  chunk=chunk)
     pmask, pscore = planes
     device = table.cpu_req.device
     batch = unpack_pod_batch(

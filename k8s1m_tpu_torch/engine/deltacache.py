@@ -440,8 +440,10 @@ class DeltaPlaneCache:
     ``device``), the shape key -> slot map with LRU eviction, the per-slot
     freshness stamps and the row-version journal.  ``planes(gen)`` and
     ``index_state(gen)`` are the only read paths, checked against the
-    vocab generation the planes were computed at.  ``sharding=`` (planes
-    sharded over a mesh) is not ported yet and raises."""
+    vocab generation the planes were computed at.  ``sharding=`` (a
+    ``parallel.Mesh``) splits the planes over its sp axis, [S, N/sp] per
+    shard (the JAX ``PLANE_SPEC``); the candidate index is single-device
+    and refused there."""
 
     def __init__(
         self,
@@ -458,8 +460,19 @@ class DeltaPlaneCache:
         index_dirty_cap: int | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
+        if index_k and sharding is not None:
+            # Under a mesh the delta wave always runs the shard-local plane
+            # tail; an index flag there would report waves that never ran.
+            raise ValueError(
+                "the candidate index does not compose with sharded "
+                "planes; run index_k=0 under a mesh"
+            )
         if sharding is not None:
-            raise NotImplementedError("sharded delta planes are not ported yet")
+            from k8s1m_tpu_torch.parallel.mesh import Mesh
+
+            if not isinstance(sharding, Mesh):
+                raise TypeError(f"sharding must be a parallel.Mesh, got {sharding!r}")
+        self._sharding = sharding
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if index_k < 0:
@@ -505,6 +518,12 @@ class DeltaPlaneCache:
         if self._mask is not None:
             return
         s, n, dev = self.slots, self.num_rows, self.device
+        if self._sharding is not None:
+            from k8s1m_tpu_torch.parallel.mesh import zeros_planes
+
+            self._mask = zeros_planes(self._sharding, s, n, torch.bool)
+            self._score = zeros_planes(self._sharding, s, n, torch.int32)
+            return
         self._mask = torch.zeros((s, n), dtype=torch.bool, device=dev)
         self._score = torch.zeros((s, n), dtype=torch.int32, device=dev)
         if self.index_k:

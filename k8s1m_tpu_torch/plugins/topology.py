@@ -62,44 +62,73 @@ def _masked_max(tab, present):
     return torch.where(present[None, :] > 0, tab, 0).amax(dim=1)
 
 
-def prologue(table, cons: ConstraintState) -> TopoStats:
-    """Global reductions before the chunk scan.  ``table`` is a NodeTable
-    or a DomainView (``valid``, ``zone``, ``region`` as full columns)."""
-    i32 = torch.int32
-    node_present = table.valid[None, :]
-    zone = table.zone.to(i32)
-    region = table.region.to(i32)
+class _OneShard:
+    """The reductions of a single device: one part, nothing to cross."""
 
-    def node_min(tab):
-        m = torch.where(node_present, tab, _BIG).amin(dim=1)
+    def __init__(self, device):
+        self.device = device
+
+    @staticmethod
+    def pmin(parts):
+        return parts[0]
+
+    pmax = psum = pmin
+
+
+def prologue(table, cons: ConstraintState, *, axis=None) -> TopoStats:
+    """Global reductions before the chunk scan.  ``table`` is a NodeTable
+    or a DomainView (``valid``, ``zone``, ``region`` as full columns).
+
+    ``axis`` is a mesh's sp axis (``parallel.sharded_cycle.SpAxis``) where
+    the JAX prologue takes ``axis_name="sp"``: ``table`` and ``cons`` are
+    then the per-shard lists, each shard reduces its own node columns, and
+    the axis's ``pmax`` (domain presence, maxima), ``pmin`` (spread minima)
+    and ``psum`` (matching-pod totals) cross the shards; the stats land on
+    ``axis.device``."""
+    if axis is None:
+        table, cons, axis = [table], [cons], _OneShard(table.valid.device)
+    i32 = torch.int32
+    views, parts = list(table), list(cons)
+    first = parts[0]
+
+    def node_min(name):
+        m = axis.pmin([torch.where(v.valid[None, :], getattr(c, name), _BIG).amin(dim=1)
+                       for v, c in zip(views, parts)])
         return torch.where(m == _BIG, 0, m)
 
-    def node_max(tab):
-        return torch.where(node_present, tab, 0).amax(dim=1)
+    def node_max(name):
+        return axis.pmax([torch.where(v.valid[None, :], getattr(c, name), 0).amax(dim=1)
+                          for v, c in zip(views, parts)])
 
-    zone_present = _domain_presence(table.valid, cons.spread_zone.shape[1], zone)
-    region_present = _domain_presence(table.valid, cons.spread_region.shape[1], region)
+    def presence(field, size):
+        return axis.pmax([_domain_presence(v.valid, size, getattr(v, field).to(i32))
+                          for v in views])
+
+    zone_present = presence("zone", first.spread_zone.shape[1])
+    region_present = presence("region", first.spread_region.shape[1])
+    whole = {f: getattr(first, f).to(axis.device) for f in (
+        "spread_zone", "spread_region", "tgt_zone", "tgt_region")}
     spread_min = torch.stack([
-        node_min(cons.spread_node),
-        _masked_min(cons.spread_zone, zone_present),
-        _masked_min(cons.spread_region, region_present),
+        node_min("spread_node"),
+        _masked_min(whole["spread_zone"], zone_present),
+        _masked_min(whole["spread_region"], region_present),
     ])
     spread_max = torch.stack([
-        node_max(cons.spread_node),
-        _masked_max(cons.spread_zone, zone_present),
-        _masked_max(cons.spread_region, region_present),
+        node_max("spread_node"),
+        _masked_max(whole["spread_zone"], zone_present),
+        _masked_max(whole["spread_region"], region_present),
     ])
     tgt_max = torch.maximum(
-        node_max(cons.tgt_node),
+        node_max("tgt_node"),
         torch.maximum(
-            _masked_max(cons.tgt_zone, zone_present),
-            _masked_max(cons.tgt_region, region_present),
+            _masked_max(whole["tgt_zone"], zone_present),
+            _masked_max(whole["tgt_region"], region_present),
         ),
     )
     tgt_total = (
-        cons.tgt_node.sum(dim=1, dtype=i32)
-        + cons.tgt_zone.sum(dim=1, dtype=i32)
-        + cons.tgt_region.sum(dim=1, dtype=i32)
+        axis.psum([c.tgt_node.sum(dim=1, dtype=i32) for c in parts])
+        + whole["tgt_zone"].sum(dim=1, dtype=i32)
+        + whole["tgt_region"].sum(dim=1, dtype=i32)
     )
     return TopoStats(
         spread_min=spread_min.to(i32), spread_max=spread_max.to(i32),

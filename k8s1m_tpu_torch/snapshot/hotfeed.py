@@ -808,7 +808,11 @@ class HostFeed:
         unless a full batch is available and the feed is idle."""
         if len(queue) < batch:
             return False
-        pods = list(itertools.islice(queue, batch))
+        return self.stage_pods(list(itertools.islice(queue, batch)))
+
+    def stage_pods(self, pods: list) -> bool:
+        """Submit an already-peeked pod list (``ShardedHostFeed`` hands
+        each dp rank's slice this way); no-op unless the feed is idle."""
         with self._lock:
             if (
                 self._closed
@@ -887,3 +891,66 @@ class HostFeed:
             self._closed = True
             self._cond.notify_all()
         self._thread.join(timeout=5.0)
+
+
+class ShardedHostFeed:
+    """One ``HostFeed`` per dp rank: the mesh coordinator's overlapped
+    encode, split the way the device work is.
+
+    It peeks the same full-batch queue prefix a single feed would, splits
+    it into dp contiguous slices, and dp workers (each with its own arena,
+    all sharing the coordinator's EncodeCache) encode them concurrently.
+    ``claim`` checks every slice exactly as the single feed does (prefix
+    identity, vocab generation; fail closed) and merges the sub-batches
+    into one full-batch PackedPodBatch byte-identical to the inline encode
+    (``merge_packed``).  A merge that cannot be trusted — query keys
+    overflowing across slices, mixed generations — counts
+    ``hotfeed_stale_batches_total{reason="merge"}`` and the caller encodes
+    inline.  No locked state of its own: the sub-feeds carry the lock
+    discipline, and this wrapper runs only on the cycle thread."""
+
+    def __init__(self, encoders: list, name: str = "hotfeed"):
+        if not encoders:
+            raise ValueError("ShardedHostFeed needs >= 1 encoder")
+        self._b_local = encoders[0].spec.batch
+        self.feeds = [HostFeed(enc, name=f"{name}-dp{i}") for i, enc in enumerate(encoders)]
+
+    def depth(self) -> int:
+        return sum(f.depth() for f in self.feeds)
+
+    def depths(self) -> list[int]:
+        """Per-dp-rank staged depth (sched_bench's mesh report)."""
+        return [f.depth() for f in self.feeds]
+
+    def ready(self) -> bool:
+        return all(f.ready() for f in self.feeds)
+
+    def stage(self, queue, batch: int) -> bool:
+        if batch != self._b_local * len(self.feeds) or len(queue) < batch:
+            return False
+        if any(f.depth() for f in self.feeds):
+            return False
+        peeked = list(itertools.islice(queue, batch))
+        b = self._b_local
+        for i, f in enumerate(self.feeds):
+            f.stage_pods(peeked[i * b:(i + 1) * b])
+        return True
+
+    def claim(self, batch_pods: list, generation: int):
+        """The merged staged batch for exactly ``batch_pods``, or None.
+        Every sub-feed is claimed regardless (staged state must drain even
+        when one slice went stale, or the feeds would wedge)."""
+        b = self._b_local
+        parts = [f.claim(batch_pods[i * b:(i + 1) * b], generation)
+                 for i, f in enumerate(self.feeds)]
+        if any(p is None for p in parts):
+            return None
+        merged = merge_packed(parts)
+        if merged is None:
+            _STALE.inc(reason="merge")
+            return None
+        return merged
+
+    def close(self) -> None:
+        for f in self.feeds:
+            f.close()

@@ -191,7 +191,11 @@ def is_packed(table) -> bool:
 
 
 def table_bytes(table) -> int:
-    """Total device bytes of a NodeTable or PackedNodeTable."""
+    """Total device bytes of a NodeTable or PackedNodeTable (of every
+    storage of a mesh's ShardedTable)."""
+    parts = getattr(table, "parts", None)
+    if parts is not None:
+        return sum(table_bytes(p) for p in parts)
     return sum(
         t.numel() * t.element_size()
         for t in vars(table).values() if isinstance(t, torch.Tensor)
@@ -365,7 +369,11 @@ _HOT_PLANES = (
 
 def donation_probe(table) -> frozenset:
     """Storage pointers of the table's hot planes, read before a wave:
-    the port's counterpart of the JAX package's buffer-donation probe."""
+    the port's counterpart of the JAX package's buffer-donation probe
+    (over every storage of a mesh's ShardedTable)."""
+    parts = getattr(table, "parts", None)
+    if parts is not None:
+        return frozenset().union(*(donation_probe(p) for p in parts))
     return frozenset(getattr(table, c).data_ptr() for c in _HOT_PLANES)
 
 
@@ -373,6 +381,9 @@ def donation_inplace(table, probe: frozenset) -> bool:
     """True when the post-wave table still holds every probed plane (the
     wave committed in place, as ``commit_binds`` and ``scatter_rows``
     do); False would mean a plane was reallocated."""
+    parts = getattr(table, "parts", None)
+    if parts is not None:
+        return all(donation_inplace(p, probe) for p in parts)
     return all(getattr(table, c).data_ptr() in probe for c in _HOT_PLANES)
 
 
@@ -410,10 +421,13 @@ def bytes_report(table, table_spec: TableSpec | None = None) -> dict:
     bytes/node and (given the TableSpec) the cold-column reduction
     against the plain layout."""
     n = max(table.num_rows, 1)
+    # A mesh's ShardedTable: the layout of its shards, the bytes of every
+    # storage over the global rows.
+    layout = getattr(table, "parts", [table])[0]
     out = {
-        "layout": "packed" if is_packed(table) else "unpacked",
+        "layout": "packed" if is_packed(layout) else "unpacked",
         "hbm_bytes_per_node": round(hbm_bytes(table) / n, 2),
-        "cold_bytes_per_node": round(cold_bytes_per_node(table), 3),
+        "cold_bytes_per_node": round(cold_bytes_per_node(layout), 3),
     }
     if table_spec is not None:
         out["cold_bytes_reduction"] = round(

@@ -46,8 +46,18 @@ the report.  ``--trace N`` traces 1-in-N pods through their lifecycle
 (``obs/podtrace.py``; the waterfall lands in ``latency_attribution``,
 ``--trace-out`` writes the Perfetto export) and ``--profile PATH`` samples
 the measured window (``obs/profiler.py``).  With nothing to compile,
-``--churn`` skips the JAX tool's warm-up wave of 4096 throwaway pods.  The
-JAX tool's mesh is not part of the port; ``--mesh`` is unknown here.
+``--churn`` skips the JAX tool's warm-up wave of 4096 throwaway pods.
+
+``--mesh DPxSP`` (or ``auto``; unset defers to ``K8S1M_MESH``) runs every
+wave over a dp x sp mesh (``parallel/``): the table's rows split over sp
+shards, each wave's pods over dp ranks, several shards per card when the
+mesh has more cells than the machine has cards.  The report's
+``mesh_exec`` carries the axes, the sharded dirty-row scatters and the
+per-dp-rank staged feed depth; ``--kernel-profile`` then times the
+shard-local candidate step (``kernel_profile.mesh``).
+
+    python -m k8s1m_tpu_torch.tools.sched_bench --nodes 4096 --pods 8192 \
+        --mesh 2x2 --device cpu
 
 The store is in-process by default (store and scheduler colocated, like
 the reference's mem_etcd benchmarks).  ``--target host:port`` drives a
@@ -94,7 +104,9 @@ from k8s1m_tpu_torch.engine import deltacache
 from k8s1m_tpu_torch.engine.cycle import BACKENDS, resolve_backend
 from k8s1m_tpu_torch.obs.metrics import REGISTRY, quantile_report_ms
 from k8s1m_tpu_torch.ops import delta_topk, fused_topk
+from k8s1m_tpu_torch.parallel.mesh import resolve_mesh
 from k8s1m_tpu_torch.plugins.registry import Profile
+from k8s1m_tpu_torch.snapshot.hotfeed import ShardedHostFeed
 from k8s1m_tpu_torch.snapshot.packing import FALLBACK_REASONS, bytes_report
 from k8s1m_tpu_torch.snapshot.pod_encoding import PodInfo
 from k8s1m_tpu_torch.store.native import MemStore
@@ -209,6 +221,12 @@ def parse_args(argv=None):
     ap.add_argument("--stress-write-concurrency", type=int, default=1,
                     help="stressor's concurrent writers (keep low, or the stressor "
                     "starves the scheduler it is stressing)")
+    ap.add_argument("--mesh", default=None, metavar="DPxSP",
+                    help="run the waves over a dp x sp mesh (parallel/sharded_cycle.py): "
+                    "DPxSP or DP,SP (cells go round-robin over the visible cards), or "
+                    "'auto' (largest workload-valid split of the cards); unset defers to "
+                    "K8S1M_MESH, 'none' opts out.  Byte-identical to one device at "
+                    "score-pct 100")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--out", default=None, metavar="PATH",
                     help="also write the report JSON to PATH")
@@ -372,8 +390,37 @@ class _Window:
         self.encode = _encode_counts()
         self.delta = copy.deepcopy(deltacache.COUNTERS)
         self.depth_samples: list[int] = []
+        # Per-dp-rank staged feed depth, sampled with depth_samples.
+        self.feed_depth_samples: list[list[int]] = []
         self.node_churn = (_NodeChurn(store, args.nodes, args.node_churn)
                            if args.node_churn else None)
+
+    def sample(self, coord) -> None:
+        """One depth sample (after a step while the producer is live)."""
+        self.depth_samples.append(len(coord._inflights))
+        feed = getattr(coord, "_feed", None)
+        if isinstance(feed, ShardedHostFeed):
+            self.feed_depth_samples.append(feed.depths())
+
+    def mesh_detail(self, coord) -> dict:
+        """dp x sp execution evidence (empty on a single device): the
+        axes, the sharded dirty-row scatters, and the per-dp-rank staged
+        feed depth sampled while the producer was live."""
+        if coord.mesh is None:
+            return {}
+        sc = REGISTRY.get("mesh_sharded_scatter_total")
+        detail = {
+            "dp": int(coord.mesh.shape["dp"]),
+            "sp": int(coord.mesh.shape["sp"]),
+            "sharded_scatters": {c: int(sc.value(cols=c)) for c in ("full", "cap")},
+        }
+        if self.feed_depth_samples:
+            per_shard = np.asarray(self.feed_depth_samples)      # [samples, dp]
+            detail["feed_staged_depth_per_shard"] = {
+                "max": per_shard.max(axis=0).tolist(),
+                "mean": [round(float(v), 3) for v in per_shard.mean(axis=0)],
+            }
+        return {"mesh_exec": detail}
 
     def pipeline_detail(self, coord) -> dict:
         """Quiesce / in-flight-depth / overlap evidence for the report."""
@@ -587,14 +634,24 @@ def _device_state_detail(coord) -> dict:
 
 def _kernel_profile_detail(args, coord) -> dict:
     """Plugin-knockout decomposition of the candidate step over the
-    coordinator's live table (empty unless --kernel-profile)."""
+    coordinator's live table (empty unless --kernel-profile).  Under
+    --mesh it times the SHARD-LOCAL step over the first sp shard (the live
+    layout, read only) and records dp/sp and rows_per_shard, so the
+    ms/batch numbers read as one cell's cost at the full batch."""
     if not args.kernel_profile:
         return {}
     from k8s1m_tpu_torch.tools.kernel_probe import profile_stages
 
-    prof = profile_stages(coord.table, coord.encoder, chunk=args.chunk, k=coord.k,
+    table = coord.table if coord.mesh is None else coord.table.shard(0)
+    prof = profile_stages(table, coord.encoder, chunk=args.chunk, k=coord.k,
                           steps=3, backend=args.backend)
-    prof["bytes_per_node"] = bytes_report(coord.table, coord.table_spec)
+    if coord.mesh is not None:
+        prof["mesh"] = {
+            "dp": int(coord.mesh.shape["dp"]),
+            "sp": int(coord.mesh.shape["sp"]),
+            "rows_per_shard": int(table.num_rows),
+        }
+    prof["bytes_per_node"] = bytes_report(table, coord.table_spec)
     prof["batch"] = coord.pod_spec.batch
     return {"kernel_profile": prof}
 
@@ -713,7 +770,7 @@ def _paced_window(args, coord, store, values, keys, key_strs):
                 deleted += len(dels)
         bound += coord.step()
         if emitted < args.pods:
-            win.depth_samples.append(len(coord._inflights))
+            win.sample(coord)
         if (emitted >= args.pods and not coord.queue and not coord._inflights
                 and not coord._backoff):
             _settle(coord)
@@ -748,7 +805,7 @@ def _closed_window(args, coord, store, values, keys, key_strs):
         off += wave
         bound += coord.step()
         if off < args.pods:
-            win.depth_samples.append(len(coord._inflights))
+            win.sample(coord)
     _settle(coord)
     bound += coord.run_until_idle()
     seconds = time.perf_counter() - t0
@@ -800,6 +857,14 @@ def run(args, **coord_kw):
     cap = 1 << max(10, (args.nodes - 1).bit_length())
     # The chunked scan needs chunk <= table rows (both powers of two).
     args.chunk = min(args.chunk, cap)
+    # One resolve here (explicit --mesh, or K8S1M_MESH when unset) so the
+    # chunk clamp applies however the mesh was selected, and `--mesh none`
+    # opts out even where the environment sets K8S1M_MESH.
+    mesh = resolve_mesh(args.mesh, batch=args.batch, max_nodes=cap, chunk=args.chunk,
+                        device=device)
+    if mesh is not None:
+        # The chunked scan runs per shard; clamp to the shard's rows.
+        args.chunk = min(args.chunk, cap // mesh.shape["sp"])
     # Template-shaped pods do per-(pod, node) selector work, so the
     # affinity plugin is on for them; plain pods keep it off.
     profile = (
@@ -818,7 +883,8 @@ def run(args, **coord_kw):
         score_pct=args.score_pct, adaptive_batch=bool(args.rate),
         packing=args.packing, deltacache=args.deltacache,
         delta_index_k=args.delta_index_k, stratum_bits=args.stratum_bits,
-        device=device, tracer=tracer, **coord_kw,
+        device=device, tracer=tracer, mesh=mesh if mesh is not None else "none",
+        **coord_kw,
     )
     t0 = time.perf_counter()
     coord.bootstrap()
@@ -868,6 +934,8 @@ def run(args, **coord_kw):
         "delta_enabled": coord.delta_enabled,
         "target": args.target,
         "stress_watchers": args.stress_watchers,
+        "mesh": args.mesh,
+        **win.mesh_detail(coord),
         **stress,
         **win.pipeline_detail(coord),
         **_tenant_detail(args),

@@ -52,8 +52,9 @@ def test_rebuild_when_any_input_is_newer(tmp_path):
 
 def test_package_library_inputs():
     names = {p.name for p in _build.inputs("fused_topk")}
-    assert {"fused_topk.cu", "fused_topk.cuh", "fused_topk_base.cu", "fused_topk_aff.cu",
-            "fused_topk_cons.cu", "fused_topk_affcons.cu", "topk_common.cuh"} == names
+    units = {f"fused_topk_{stage}_{layout}.cu" for stage in ("base", "aff", "cons", "affcons")
+             for layout in ("plain", "packed")}
+    assert {"fused_topk.cu", "fused_topk.cuh", "topk_common.cuh", *units} == names
     assert {p.name for p in _build.inputs("delta_topk")} == {"delta_topk.cu", "topk_common.cuh"}
     assert set(_build.LIBRARIES) == {"fused_topk", "delta_topk"}
 

@@ -304,18 +304,23 @@ def test_row_mask_half(pair_factory, pipeline):
 
 
 def test_unported_options_raise(tmp_path):
-    """The mesh stays refused; lease fencing, tracing, the flight recorder
-    and the profiler are ported and run."""
+    """Nothing of the JAX coordinator's options stays refused: the mesh,
+    lease fencing, tracing, the flight recorder and the profiler are
+    ported and run; an unknown option raises TypeError."""
     from k8s1m_tpu_torch.control.coordinator import _NOT_PORTED
     from k8s1m_tpu_torch.obs.podtrace import PodTracer
     from k8s1m_tpu_torch.obs.profiler import SamplingProfiler
     from k8s1m_tpu_torch.obs.trace import FlightRecorder
 
-    assert _NOT_PORTED == ("mesh",)
+    assert _NOT_PORTED == ()
     with tnative.MemStore() as store:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError):
             Coordinator(store, TableSpec(max_nodes=N), PodSpec(batch=64),
-                        Profile(**BASE), chunk=512, device="cpu", mesh="2x4")
+                        Profile(**BASE), chunk=512, device="cpu", no_such_option=1)
+        meshed = Coordinator(store, TableSpec(max_nodes=N), PodSpec(batch=64),
+                             Profile(**BASE), chunk=512, device="cpu", mesh="2x4")
+        assert meshed.mesh.shape == {"dp": 2, "sp": 4}
+        meshed.close()
         from k8s1m_tpu_torch.control.leader import LeaderElector
 
         fence = LeaderElector(store, "a").fence()

@@ -324,9 +324,10 @@ def _packed_for(selector):
 
 
 @pytest.mark.parametrize("bad, exc", [
-    # Row masks are ported; one that is not a bool[N] tensor raises.
+    # Row masks and the mesh are ported; a mask that is not a bool[N]
+    # tensor, or a mesh that is not a parallel.Mesh, raises.
     pytest.param("row_mask", TypeError, id="row_mask"),
-    pytest.param("mesh", NotImplementedError, id="mesh"),
+    pytest.param("mesh", TypeError, id="mesh"),
 ])
 def test_unsupported_waves_raise(bad, exc):
     th, packed = _packed_for(True)

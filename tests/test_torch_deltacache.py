@@ -451,7 +451,8 @@ def test_resolve_deltasched_and_epoch_checked_accessors(monkeypatch):
         cache.planes(8)
     with pytest.raises(RuntimeError, match="index_k=0"):
         dc.DeltaPlaneCache(16, device="cpu").index_state(-1)
-    with pytest.raises(NotImplementedError):
+    # Sharded planes are a parallel.Mesh's (tests/test_torch_mesh_delta.py).
+    with pytest.raises(TypeError):
         dc.DeltaPlaneCache(16, sharding=object(), device="cpu")
 
 

@@ -1133,3 +1133,159 @@ def test_tools_flow_on_card_equals_cpu(cuda):
     assert by["bound"][1] == 96 and by["tick 20.0"][1] == 96
     assert len(by["tick 20.0"][2][1]) == 64
     assert by["k8s1m_tpu_torch.tools.delete_pods"][2][0] == []
+
+
+# ---- the dp x sp mesh on the card ---------------------------------------------
+
+MESH_N, MESH_B, MESH_CHUNK = 8192, 256, 512
+
+
+def _mesh_stage_state(stage):
+    """(spec, host, packed batch, profile) of one stage at MESH_N x MESH_B."""
+    from k8s1m_tpu_torch.cluster import (
+        affinity_deployment,
+        node_affinity_pods,
+        spread_deployment,
+    )
+    from k8s1m_tpu_torch.config import TOPO_ZONE
+
+    if stage == "cons":
+        spec = TableSpec(max_nodes=MESH_N, max_zones=128, max_regions=16)
+        tracker = ConstraintTracker(spec)
+        half = MESH_B // 2
+        pods = (spread_deployment(tracker, "sp", half, topo=TOPO_ZONE)
+                + affinity_deployment(tracker, "anti", MESH_B - half, anti=True))
+        pod_spec = PodSpec(batch=MESH_B, spread_refs=1, affinity_refs=1, spread_incs=1,
+                           ipa_incs=1)
+        profile = Profile()
+    elif stage == "aff":
+        spec = TableSpec(max_nodes=MESH_N)
+        pods = node_affinity_pods(MESH_B)
+        pod_spec = PodSpec(batch=MESH_B, aff_terms=1, aff_exprs=2, aff_values=2,
+                           pref_terms=1)
+        profile = Profile(topology_spread=0, interpod_affinity=0)
+    else:
+        spec = TableSpec(max_nodes=MESH_N)
+        pods = uniform_pods(MESH_B)
+        pod_spec = PodSpec(batch=MESH_B)
+        profile = BASE
+    host = NodeTableHost(spec)
+    populate_kwok_nodes(host, MESH_N - 64)
+    return spec, host, PodBatchHost(pod_spec, spec, host.vocab).encode_packed(pods), profile
+
+
+def _mesh_waves(device, stage, waves=2):
+    """``waves`` waves of ``stage`` over a 2x2 mesh on ``device``: each
+    wave's rows, then the whole table, count tables and planes on the
+    CPU, and the launches of the path's kernel per wave."""
+    from k8s1m_tpu_torch import parallel as par
+    from k8s1m_tpu_torch.engine.cycle import fill_shape_planes, schedule_batch_delta
+    from k8s1m_tpu_torch.ops import delta_topk
+    from k8s1m_tpu_torch.ops import fused_topk as ft
+    from k8s1m_tpu_torch.parallel.sharded_cycle import sharded_scatter
+
+    spec, host, packed, profile = _mesh_stage_state(stage)
+    mesh = par.make_mesh(2, 2, device=device)
+    pspec = build_packing_spec(spec, host.vocab)
+    table = par.shard_table(pack_table_host(host, pspec, "cpu"), mesh)
+    cons = (par.shard_constraints(empty_constraints(spec, "cpu"), mesh)
+            if stage == "cons" else None)
+    planes = None
+    slot_ids = np.zeros(MESH_B, np.int32)
+    if stage == "delta":
+        planes = (par.mesh.zeros_planes(mesh, 1, MESH_N, torch.bool),
+                  par.mesh.zeros_planes(mesh, 1, MESH_N, torch.int32))
+        fill = PodBatchHost(dataclasses.replace(packed.spec, batch=4), spec,
+                            host.vocab).encode_packed(uniform_pods(1))
+        fill_shape_planes(table, fill, np.array([0, 1, 1, 1], np.int32), planes,
+                          profile=profile, chunk=MESH_CHUNK, mesh=mesh)
+    rng = np.random.default_rng(7)
+    rows_out, launches, prev = [], [], None
+    for i in range(waves):
+        seed = int(rng.integers(-(1 << 31), 1 << 31))
+        before = ft.fused_topk.launches + delta_topk.delta_plane_topk.launches
+        if stage == "delta":
+            dirty = np.sort(rng.choice(MESH_N - 64, 32, replace=False)).astype(np.int32)
+            sharded_scatter(table, dirty, {"cpu_req": rng.integers(0, 500, 32).astype(np.int32)})
+            table, _asg, rows, planes = schedule_batch_delta(
+                table, packed, seed, profile=profile, slot_ids=slot_ids, planes=planes,
+                dirty=dirty, inflight_rows=() if prev is None else (prev,), chunk=MESH_CHUNK,
+                k=4, mesh=mesh)
+        else:
+            table, _asg, rows = schedule_batch_packed(
+                table, packed, seed, profile=profile, constraints=cons, chunk=MESH_CHUNK,
+                k=4, mesh=mesh)
+        launches.append(ft.fused_topk.launches + delta_topk.delta_plane_topk.launches - before)
+        rows_out.append(rows.cpu())
+        prev = rows
+    full = table.gather()
+    state = {f.name: getattr(full, f.name) for f in dataclasses.fields(full)
+             if f.name != "spec"}
+    if cons is not None:
+        g = cons.gather()
+        state.update({f: getattr(g, f) for f in CONSTRAINT_FIELDS})
+    if planes is not None:
+        state.update(pmask=planes[0].gather(), pscore=planes[1].gather())
+    return rows_out, state, launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", ["base", "aff", "cons", "delta"])
+def test_sharded_waves_on_card_equal_cpu(cuda, stage):
+    """The 2x2 mesh on the card (all four cells on it) against the port's
+    CPU run of the same waves: bound rows, every table column, the count
+    tables and the planes; four launches of the stage's kernel per wave."""
+    rows_c, state_c, launches = _mesh_waves(cuda, stage)
+    rows_h, state_h, _ = _mesh_waves(torch.device("cpu"), stage)
+    assert launches == [4, 4]
+    for i, (a, b) in enumerate(zip(rows_c, rows_h)):
+        assert torch.equal(a, b), f"wave {i}"
+        assert bool((a >= 0).any())
+    assert state_c.keys() == state_h.keys()
+    for name in state_c:
+        assert torch.equal(state_c[name], state_h[name]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", ["base", "aff", "cons", "delta"])
+def test_mesh_cells_match_plain_version_at_offsets(cuda, stage):
+    """Each 2x2 cell's kernel against its plain version at the cell's pod
+    and row offsets (the cons stage with the cross-shard prologue)."""
+    from k8s1m_tpu_torch import parallel as par
+    from k8s1m_tpu_torch.engine.deltacache import plane_topk
+    from k8s1m_tpu_torch.ops.delta_topk import delta_plane_topk
+    from k8s1m_tpu_torch.parallel import sharded_cycle as sc
+
+    spec, host, packed, profile = _mesh_stage_state(stage)
+    mesh = par.make_mesh(2, 2, device=cuda)
+    table = par.shard_table(pack_table_host(host, build_packing_spec(spec, host.vocab), "cpu"),
+                            mesh)
+    cons = (par.shard_constraints(empty_constraints(spec, "cpu"), mesh)
+            if stage == "cons" else None)
+    stats = sc.sharded_prologue(table, cons) if cons is not None else None
+    batches = sc._full_batches(mesh, packed)
+    rng = np.random.default_rng(3)
+    b_local = MESH_B // 2
+    for d, s in mesh.cells():
+        pod_off, row_off = sc.mesh_offsets(d, s, table.rows_per_shard, b_local)
+        assert (pod_off, row_off) == (d * b_local, s * (MESH_N // 2))
+        seed = int(rng.integers(-(1 << 31), 1 << 31))
+        if stage == "delta":
+            pm = torch.rand((3, MESH_N // 2), generator=torch.Generator().manual_seed(d * 2 + s))
+            pmask = (pm < 0.7).to(cuda)
+            pscore = (pm * 3000 - 400).to(torch.int32).to(cuda)
+            ids = torch.tensor(rng.integers(0, 3, b_local), dtype=torch.int32, device=cuda)
+            kw = dict(chunk=MESH_CHUNK, k=4, row_offset=row_off, pod_offset=pod_off)
+            got = delta_plane_topk(pmask, pscore, ids, seed, **kw)
+            want = plane_topk(pmask, pscore, ids, seed, **kw)
+            assert torch.equal(got.idx, want.idx) and torch.equal(got.prio, want.prio)
+            continue
+        batch = par.slice_batch(batches[mesh.device(d, s)], d, b_local)
+        kw = dict(k=4, row_base=pod_off, col_base=row_off, stratum_bits=0,
+                  with_affinity=stage == "aff", stats=stats,
+                  constraints=None if cons is None else cons.part(d, s))
+        idx, prio = fused_topk(table.part(d, s), batch, seed, profile, **kw)
+        ridx, rprio = fused_topk_reference(table.part(d, s), batch, seed, profile,
+                                           chunk=MESH_CHUNK, **kw)
+        assert torch.equal(idx, ridx) and torch.equal(prio, rprio), (d, s)
+        assert bool((prio >= 0).any())

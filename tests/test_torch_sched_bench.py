@@ -60,8 +60,9 @@ def test_churn_deletes_bound_pods_and_store_agrees():
 # ---- the lanes of this slice ---------------------------------------------------
 
 SMALL = ["--nodes", "256", "--batch", "128", "--device", "cpu"]
-# Flags of the JAX tool the port leaves out, and the report keys they own.
-JAX_ONLY_KEYS = {"mesh"}
+# Flags of the JAX tool the port leaves out, and the report keys they own
+# (none since the port runs the mesh).
+JAX_ONLY_KEYS: set = set()
 
 
 def _stored(store):
@@ -114,7 +115,8 @@ def _key_sets(report, prefix=""):
      "0.1", "--overload-factor", "3", "--shape-cold", "--deltacache", "on",
      "--delta-profile", "--churn"],
     ["--pods", "1024", "--trace", "4"],
-], ids=["closed", "paced", "trace"])
+    ["--pods", "1024", "--mesh", "2x2", "--kernel-profile"],
+], ids=["closed", "paced", "trace", "mesh"])
 def test_report_keys_match_jax(tmp_path, lane):
     """The port's report carries every key the JAX tool's report carries
     at the same arguments, except those of the JAX-only flags."""
@@ -135,6 +137,10 @@ def test_report_keys_match_jax(tmp_path, lane):
         assert d["overload"] == {"at_s": 0.1, "seconds": 0.1, "factor": 3.0}
         # Every pod its own shape: the plane cache never serves a wave.
         assert d["delta_profile"]["delta_waves"] == 0
+    elif "--mesh" in lane:
+        assert d["mesh"] == "2x2" and d["mesh_exec"].keys() == want["detail"]["mesh_exec"].keys()
+        assert (d["mesh_exec"]["dp"], d["mesh_exec"]["sp"]) == (2, 2)
+        assert d["kernel_profile"]["mesh"] == want["detail"]["kernel_profile"]["mesh"]
     elif "--trace" in lane:
         att, jatt = d["latency_attribution"], want["detail"]["latency_attribution"]
         assert att["pods"] == jatt["pods"] and att["sample_n"] == 4
@@ -192,10 +198,9 @@ def test_offered_pods_at_steps_the_rate():
         100, 200, 600, 700]
     with pytest.raises(SystemExit):
         sched_bench.parse_args(["--overload-at", "2"])
-    # The JAX tool's mesh flag is unknown; its remote-store, fault-plan,
-    # trace and profile flags are the port's too.
-    with pytest.raises(SystemExit):
-        sched_bench.parse_args(["--mesh", "1"])
+    # The JAX tool's mesh, remote-store, fault-plan, trace and profile
+    # flags are the port's too.
+    assert sched_bench.parse_args(["--mesh", "2x2"]).mesh == "2x2"
     args = sched_bench.parse_args(["--target", "h:1", "--ca-pem", "ca.pem", "--token", "t",
                                    "--stress-watchers", "2", "--stress-write-concurrency", "3"])
     assert (args.target, args.ca_pem, args.token, args.stress_watchers,
