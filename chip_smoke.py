@@ -225,7 +225,17 @@ Phases (each raises on failure; the script then exits non-zero):
                ``Coordinator`` over a ``RemoteStore``, a watch progress
                barrier before every ``step()``: on the card over the wire, on
                the card in-process and on the CPU over the wire, each with a
-               fresh server; byte-identical stored pods;
+               fresh server; byte-identical stored pods (the card's wire
+               run also takes 17c's probes of the native wire);
+  17c. the asyncio server — 17a's card run against ``server_main --wire
+               asyncio`` (``store/etcd_server.py`` on ``store/wire_server.py``,
+               gRPC in Python, no grpcio) in a fresh child: stored pod values
+               byte-identical to 17a's card run over the native wire (not
+               run again), every pod bound once, a base launch, the child
+               reaped.  Prints its seconds, and for each wire the relist
+               seconds, the p50/p99 of 2,000 sequential single Puts and the
+               rate of 5,000 pipelined Puts from the native stress client,
+               with the card's name and power limit;
   17b. BASELINE config 5 — 17's shape at 262,144 nodes with ``--churn
                --stress-watchers 100 --stress-write-concurrency 1``
                (``tools/watch_stress.py`` as a
@@ -314,13 +324,14 @@ next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
 stage configuration and one for the delta kernel: times, bound, launches;
 the fused entries add ``bound_per_pair_ms``, ``groups`` and
 ``all_distinct_ms``; ``launches`` includes the coordinator's of phases 8,
-10-16a, 17-17b, 18 (each worker's window), 18a, 19, 19a, 20a (card) and
+10-16a, 17-17c, 18 (each worker's window), 18a, 19, 19a, 20a (card) and
 20b, which ``coordinator_launches`` also gives alone, per fused stage, and
 phase 20's mesh waves, which ``mesh_launches`` gives alone);
 the last is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--steps 4] [--path-steps 3] [--delta-steps 2] [--warmup 1]
                           [--out results.json] [--worst-case-only] [--mesh-only]
+                          [--wire-asyncio-only]
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -405,14 +416,19 @@ def cuda_ms(fn, reps: int) -> float:
 # ---- phase 1 -------------------------------------------------------------
 
 
+def _smi_stamp() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+
 def phase_device() -> dict:
     import torch
 
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
+    smi = _smi_stamp()
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; {name}")
     print(smi, flush=True)       # the line as nvidia-smi gives it, with no prefix
     return {"kind": name, "count": torch.cuda.device_count(), "nvidia_smi": smi}
@@ -3345,13 +3361,80 @@ def phase_wire(config: str) -> dict:
     return report
 
 
-def _wire_parity_run(device: str, wire: bool) -> tuple[dict, float, dict]:
-    """17a member: a ``Coordinator`` driven directly over a ``RemoteStore`` to
-    a fresh server child process (``wire``) or over the in-process store, at
-    8a's uniform shape; pods written one batch at a time, and before every
-    ``step()`` a watch progress barrier (over the wire) puts every event up
-    to the store's revision in the coordinator's queue.  Returns the stored
-    pod values, the seconds and the launches."""
+# 17c: the per-RPC path of each server: sequential single Puts from the
+# Python client, timed one by one, and pipelined Puts from the native stress
+# client (64 in flight on one connection).
+WIRE_PROBE_PUTS, WIRE_STRESS_PUTS = 2000, 5000
+
+
+def _put_probe(store, target: str) -> dict:
+    """``WIRE_PROBE_PUTS`` sequential single ``Put``s of a 256-byte value
+    through ``store`` (a ``RemoteStore``), each timed on the host clock (p50
+    and p99 in ms), then ``WIRE_STRESS_PUTS`` pipelined ones from
+    ``wire_stress_put`` (puts/s)."""
+    from k8s1m_tpu_torch.store.native import wire_stress_put
+
+    lat = []
+    value = b"v" * 256
+    for i in range(WIRE_PROBE_PUTS):
+        t0 = time.perf_counter()
+        store.put(b"/registry/leases/probe/%06d" % i, value)
+        lat.append(time.perf_counter() - t0)
+    lat = np.asarray(lat) * 1e3
+    host, _, port = target.rpartition(":")
+    n, elapsed = wire_stress_put(host, int(port), WIRE_STRESS_PUTS, concurrency=64,
+                                 prefix="/registry/leases/stress/", key_count=1000,
+                                 val_len=256)
+    check(n == WIRE_STRESS_PUTS, f"the stress client completed {n} of {WIRE_STRESS_PUTS} puts")
+    return {"put_p50_ms": round(float(np.percentile(lat, 50)), 4),
+            "put_p99_ms": round(float(np.percentile(lat, 99)), 4),
+            "stress_puts_per_s": round(n / elapsed, 1)}
+
+
+def _range_encode_probe(store) -> dict:
+    """The asyncio server's answer to a relist of the whole fleet as one
+    RangeResponse, encoded both ways on this host from the same KVs:
+    ``etcd_server.range_response_bytes`` (what Range sends: no message per
+    KV) and the codec's messages (``RangeResponse(kvs=[KeyValue(...)])``);
+    the bytes must be equal.  Seconds of each, best of 2."""
+    from k8s1m_tpu_torch.control.coordinator import NODES_PREFIX
+    from k8s1m_tpu_torch.store import etcd_server
+    from k8s1m_tpu_torch.store.native import list_prefix
+    from k8s1m_tpu_torch.store.proto import codec as pb
+
+    kvs, rev = list_prefix(store, NODES_PREFIX)
+    check(len(kvs) == PARITY_NODES, f"[17c] listed {len(kvs)} nodes, want {PARITY_NODES}")
+    header = pb.ResponseHeader(cluster_id=1, member_id=1, revision=rev, raft_term=1)
+    ways = {
+        "composed": lambda: etcd_server.range_response_bytes(header, kvs, False, 0),
+        "messages": lambda: pb.RangeResponse(
+            header=header, kvs=[etcd_server._kv_to_pb(kv) for kv in kvs]).encode(),
+    }
+    got, seconds = {}, {}
+    for name, encode in ways.items():
+        seconds[name] = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got[name] = encode()
+            seconds[name] = min(seconds[name], time.perf_counter() - t0)
+    check(got["composed"] == got["messages"],
+          "[17c] the composed RangeResponse differs from the codec's messages")
+    return {"range_encode_composed_s": round(seconds["composed"], 4),
+            "range_encode_messages_s": round(seconds["messages"], 4),
+            "range_encode_bytes": len(got["composed"])}
+
+
+def _wire_parity_run(device: str, wire: bool, server: str = "native", probe: bool = False
+                     ) -> tuple[dict, float, dict, dict]:
+    """17a / 17c member: a ``Coordinator`` driven directly over a
+    ``RemoteStore`` to a fresh ``server_main --wire <server>`` child process
+    (``wire``) or over the in-process store, at 8a's uniform shape; pods
+    written one batch at a time, and before every ``step()`` a watch
+    progress barrier (over the wire) puts every event up to the store's
+    revision in the coordinator's queue.  Returns the stored pod values, the
+    seconds, the launches and (``probe``, over the wire) the probes: the
+    relist seconds and ``_put_probe``'s figures, and over the asyncio server
+    ``_range_encode_probe``'s."""
     from k8s1m_tpu_torch.faultline import RetryPolicy
     from k8s1m_tpu_torch.config import PodSpec, TableSpec
     from k8s1m_tpu_torch.control.coordinator import Coordinator
@@ -3361,10 +3444,13 @@ def _wire_parity_run(device: str, wire: bool) -> tuple[dict, float, dict]:
     from k8s1m_tpu_torch.store.server_main import serve_subprocess
     from k8s1m_tpu_torch.tools import sched_bench
 
-    tag = f"17a {device} {'wire' if wire else 'in-process'}"
+    tag = (f"17c {device} asyncio wire" if server == "asyncio"
+           else f"17a {device} {'wire' if wire else 'in-process'}")
     t0 = time.perf_counter()
-    server = serve_subprocess() if wire else contextlib.nullcontext((None, None))
-    with server as (proc, target):
+    probes: dict = {}
+    child = (serve_subprocess("--wire", server) if wire
+             else contextlib.nullcontext((None, None)))
+    with child as (proc, target):
         store = RemoteStore(target) if wire else MemStore()
         try:
             sched_bench.write_nodes(store, PARITY_NODES)
@@ -3394,10 +3480,16 @@ def _wire_parity_run(device: str, wire: bool) -> tuple[dict, float, dict]:
             launches = _launch_counts()
             stored = _store_checks(tag, coord, store, PARITY_PODS)
             coord.close()
+            seconds = time.perf_counter() - t0
+            if probe and wire:
+                probes = {"relist_s": _time_relist(store, PARITY_NODES),
+                          **_put_probe(store, target)}
+                if server == "asyncio":
+                    probes.update(_range_encode_probe(store))
         finally:
             store.close()
     check(proc is None or proc.returncode is not None, f"[{tag}] the store server is running")
-    return stored, time.perf_counter() - t0, launches
+    return stored, seconds, launches, probes
 
 
 def phase_wire_parity() -> dict:
@@ -3407,17 +3499,57 @@ def phase_wire_parity() -> dict:
     in-process and on the CPU over the wire: byte-identical stored pods."""
     runs = []
     for device, wire in (("cuda", True), ("cuda", False), ("cpu", True)):
-        stored, seconds, launches = _wire_parity_run(device, wire)
-        runs.append((f"{device} {'wire' if wire else 'in-process'}", stored, seconds, launches))
-    for tag, stored, _s, _l in runs[1:]:
+        stored, seconds, launches, probes = _wire_parity_run(
+            device, wire, probe=device == "cuda")
+        runs.append((f"{device} {'wire' if wire else 'in-process'}", stored, seconds, launches,
+                     probes))
+    for tag, stored, _s, _l, _p in runs[1:]:
         check(stored == runs[0][1], f"[17a] {tag} stored pod values differ from {runs[0][0]}")
     check(runs[0][3]["fused_topk_by_stage"]["base"] > 0, f"[17a] no base launch: {runs[0][3]}")
-    log("[17a] " + ", ".join(f"{t} ({s:.1f}s)" for t, _st, s, _l in runs)
+    log("[17a] " + ", ".join(f"{t} ({s:.1f}s)" for t, _st, s, _l, _p in runs)
         + f" left byte-identical pod values ({len(runs[0][1])} pods); card launches "
         f"wire {runs[0][3]['fused_topk_by_stage']['base']}, in-process "
         f"{runs[1][3]['fused_topk_by_stage']['base']}")
-    return {tag: {"seconds": round(s, 3), "launches": launches}
-            for tag, _st, s, launches in runs}
+    out = {tag: {"seconds": round(s, 3), "launches": launches, **probes}
+           for tag, _st, s, launches, probes in runs}
+    return out, runs[0][1]
+
+
+def phase_wire_asyncio(native_stored: dict) -> dict:
+    """17c: 17a's card run over the port's asyncio etcd server
+    (``server_main --wire asyncio``, gRPC in Python, no grpcio) in a fresh
+    child: the stored pod values byte-identical to 17a's card run over the
+    native wire (``native_stored``, not run again), every pod bound once, at
+    least one base launch, the child gone after close.  Prints the run's
+    seconds, the relist seconds, ``_put_probe``'s and
+    ``_range_encode_probe``'s figures over the asyncio server
+    (``_log_wire_probes`` sets the first two beside the native wire's)."""
+    t0 = time.perf_counter()
+    stored, seconds, launches, probes = _wire_parity_run("cuda", True, "asyncio", probe=True)
+    check(stored == native_stored,
+          "[17c] stored pod values over the asyncio server differ from 17a's native wire")
+    check(launches["fused_topk_by_stage"]["base"] > 0, f"[17c] no base launch: {launches}")
+    log(f"[17c] coordinator on the card over the asyncio server: {seconds:.1f}s, "
+        f"{len(stored)} pods byte-identical to the native wire's, base launches "
+        f"{launches['fused_topk_by_stage']['base']}; relist {probes['relist_s']} s, "
+        f"put p50/p99 {probes['put_p50_ms']}/{probes['put_p99_ms']} ms, pipelined "
+        f"{probes['stress_puts_per_s']} puts/s; the relist's RangeResponse "
+        f"({probes['range_encode_bytes']} bytes) encoded composed in "
+        f"{probes['range_encode_composed_s']} s, as messages in "
+        f"{probes['range_encode_messages_s']} s ({time.perf_counter() - t0:.1f}s)")
+    return {"seconds": round(seconds, 3), "launches": launches, **probes}
+
+
+def _log_wire_probes(runs: dict) -> None:
+    """The per-RPC figures of 17a's native-wire and 17c's asyncio runs side
+    by side, with the card's name and power limit."""
+    native, asy = runs["17a cuda wire"], runs["17c"]
+    log(f"[17c] per-RPC over the wire on this host ({_smi_stamp()}): put p50 native "
+        f"{native['put_p50_ms']} ms, asyncio {asy['put_p50_ms']} ms "
+        f"({asy['put_p50_ms'] / native['put_p50_ms']:.2f}x); pipelined native "
+        f"{native['stress_puts_per_s']} puts/s, asyncio {asy['stress_puts_per_s']} puts/s "
+        f"({native['stress_puts_per_s'] / asy['stress_puts_per_s']:.1f}x); relist of "
+        f"{PARITY_NODES} nodes native {native['relist_s']} s, asyncio {asy['relist_s']} s")
 
 
 # ---- phases 18, 18a: the shard set --------------------------------------------
@@ -4352,6 +4484,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="run only the device, build and mesh phases (20-20b) and print "
                          "their results")
+    ap.add_argument("--wire-asyncio-only", action="store_true",
+                    help="run only the device and build phases, 17a's card run over the "
+                         "native wire and phase 17c, and print their results")
     args = ap.parse_args(argv)
     if min(args.steps, args.path_steps, args.delta_steps, args.warmup) < 1:
         ap.error("--steps, --path-steps, --delta-steps and --warmup must be >= 1")
@@ -4370,6 +4505,15 @@ def main(argv=None) -> int:
     build = phase_build()
     if args.worst_case_only:
         print(json.dumps({"worst_case": phase_worst_case(device)}), flush=True)
+        return 0
+    if args.wire_asyncio_only:
+        stored, seconds, launches, probes = _wire_parity_run("cuda", True, probe=True)
+        out = {"17a cuda wire": {"seconds": round(seconds, 3), "launches": launches,
+                                 **probes},
+               "17c": phase_wire_asyncio(stored)}
+        _log_wire_probes(out)
+        log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
+        print(json.dumps(out, default=str), flush=True)
         return 0
     if args.mesh_only:
         mesh_cpu = _start_cpu_half("_mesh_parity_members")
@@ -4418,7 +4562,10 @@ def main(argv=None) -> int:
     failover = phase_failover()
     failover_parity = phase_failover_parity()
     wire = {"17": phase_wire("17")}
-    wire_parity = phase_wire_parity()
+    wire_parity, wire_stored = phase_wire_parity()
+    wire_parity["17c"] = phase_wire_asyncio(wire_stored)
+    del wire_stored
+    _log_wire_probes({"17a cuda wire": wire_parity["cuda wire"], "17c": wire_parity["17c"]})
     wire["17b"] = phase_wire("17b")
     shards = phase_shards()
     experiment = phase_experiment()
@@ -4434,7 +4581,7 @@ def main(argv=None) -> int:
     mesh_bench = phase_mesh_bench()
     log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
 
-    # Launches of the coordinator's paths (phases 8, 10-16a, 17-17b, 18a, 19
+    # Launches of the coordinator's paths (phases 8, 10-16a, 17-17c, 18a, 19
     # and 19a, counts set to 0 just before each measured run and read just
     # after it; 18's workers set theirs to 0 after their warm-up pod and
     # report them with their final status), per fused stage.
@@ -4445,7 +4592,7 @@ def main(argv=None) -> int:
                hostpath["launches"], curve["launches"], failover["launches"],
                failover_parity["cuda"]["launches"]]
             + [r["detail"]["launches"] for r in wire.values()]
-            + [wire_parity[tag]["launches"] for tag in ("cuda wire", "cuda in-process")]
+            + [wire_parity[tag]["launches"] for tag in ("cuda wire", "cuda in-process", "17c")]
             + [w["launches"] for r in shards.values() for w in r["per_worker"]]
             + [shard_parity["cuda"]["launches"], experiment["launches"],
                experiment_parity["cuda"]["launches"]]

@@ -100,6 +100,9 @@ class Gauge(Metric):
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + n
 
+    def dec(self, n: float = 1.0, **labels) -> None:
+        self.inc(-n, **labels)
+
     def value(self, **labels) -> float:
         key = self._key(labels)
         if key in self._callbacks:

@@ -10,16 +10,19 @@ etcd-wire server over a ``MemStore``) and ``wire_stress_put`` (its
 pipelined native Put client), the paginated relists
 ``list_prefix``/``list_prefix_values`` and the unpinned ``scan_prefix``,
 ``drain_events``/``drain_events_light``, ``prefix_end``, the errors and the
-``POD_*`` flags.  It loads the port's
-own ``libmemstore.so`` (``store/build.py``), built from the C++ sources
-under ``native/``; binary result layouts are defined in
-``native/memstore/memstore.h``.
+``POD_*`` flags; for the asyncio server, ``MemStore.compact``/``wal_sync``/
+``stats`` and the ``progress_revision``/``num_keys``/``db_size`` readings,
+and for the watch tier's frames ``read_varint``/``decode_shared_tail``.
+It loads the port's own ``libmemstore.so`` (``store/build.py``), built
+from the C++ sources under ``native/``; binary result layouts are defined
+in ``native/memstore/memstore.h``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import json
 import struct
 
 from k8s1m_tpu_torch.obs.metrics import Counter
@@ -196,6 +199,63 @@ def _parse_kv(buf: memoryview, off: int) -> tuple[KeyValue, int]:
     return KeyValue(key, val, crev, mrev, ver, lease), off
 
 
+def read_varint(buf: bytes, off: int) -> tuple[int, int]:
+    """(value, next_offset) of the protobuf varint at ``off``."""
+    val = 0
+    shift = 0
+    while True:
+        b = buf[off]
+        off += 1
+        val |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return val, off
+        shift += 7
+
+
+def decode_shared_tail(data: bytes) -> tuple[list[int], int, int]:
+    """Decode the wiretier shared-frame extension of one serialized
+    WatchResponse (``store/wiretier.py``): trailing private fields 100
+    (repeated varint: the EXTRA watch ids sharing this frame's bytes) and
+    101 (varint: a compacted frame's window lower bound).
+
+    Returns ``(extra_wids, from_rev, core_len)``, where ``core_len`` is the
+    byte length of the frame up to the first extension field: the exact
+    unshared single-watch response the primary id would have received.  A
+    frame without the extension returns ``([], 0, len(data))``, so callers
+    can run this unconditionally.  A top-level field scan, not a parse:
+    every other field is skipped by its length."""
+    wids: list[int] = []
+    from_rev = 0
+    core = len(data)
+    off = 0
+    n = len(data)
+    while off < n:
+        at = off
+        key, off = read_varint(data, off)
+        field, wt = key >> 3, key & 7
+        if wt == 0:
+            val, off = read_varint(data, off)
+        elif wt == 2:
+            ln, off = read_varint(data, off)
+            off += ln
+            val = 0
+        elif wt == 5:
+            off += 4
+            val = 0
+        elif wt == 1:
+            off += 8
+            val = 0
+        else:
+            break   # start/end-group or junk: nothing of ours follows
+        if wt == 0 and field == 100:
+            wids.append(val)
+            core = min(core, at)
+        elif wt == 0 and field == 101:
+            from_rev = val
+            core = min(core, at)
+    return wids, from_rev, core
+
+
 def _load_lib():
     lib = ctypes.CDLL(ensure_built())
     c = ctypes
@@ -216,10 +276,13 @@ def _load_lib():
         c.c_int64, c.c_int64, c.c_int, c.c_int,
         c.POINTER(P8), c.POINTER(c.c_size_t),
     ]
-    for name in ("ms_current_revision", "ms_compact_revision"):
+    for name in ("ms_current_revision", "ms_compact_revision",
+                 "ms_progress_revision", "ms_num_keys", "ms_db_size"):
         fn = getattr(lib, name)
         fn.restype = c.c_int64
         fn.argtypes = [c.c_void_p]
+    lib.ms_compact.restype = c.c_int
+    lib.ms_compact.argtypes = [c.c_void_p, c.c_int64]
     lib.ms_watch_create.restype = c.c_int64
     lib.ms_watch_create.argtypes = [
         c.c_void_p, c.c_char_p, c.c_size_t, c.c_char_p, c.c_size_t,
@@ -255,6 +318,10 @@ def _load_lib():
         c.c_char_p, c.c_size_t, c.c_int, c.c_char_p, c.c_size_t,
         c.POINTER(P8), c.POINTER(c.c_size_t),
     ]
+    lib.ms_stats_json.restype = c.c_int
+    lib.ms_stats_json.argtypes = [c.c_void_p, c.POINTER(P8), c.POINTER(c.c_size_t)]
+    lib.ms_wal_sync.restype = c.c_int
+    lib.ms_wal_sync.argtypes = [c.c_void_p]
     lib.wf_start.restype = c.c_void_p
     lib.wf_start.argtypes = [c.c_void_p, c.c_char_p, c.c_int, c.c_int]
     lib.wf_port.restype = c.c_int
@@ -940,6 +1007,26 @@ class MemStore:
 
     # ---- maintenance ---------------------------------------------------
 
+    def compact(self, revision: int) -> None:
+        rc = _lib().ms_compact(self._h, revision)
+        if rc == _ERR_COMPACTED:
+            raise CompactedError(self.compact_revision)
+        if rc == _ERR_FUTURE_REV:
+            raise FutureRevError(f"compact {revision} > current")
+
+    def wal_sync(self) -> None:
+        if _lib().ms_wal_sync(self._h) != 0:
+            raise OSError("WAL sync failed")
+
+    def stats(self) -> dict:
+        """The native store's counters (``ms_stats_json``: lock cells by
+        method, structure and rw; watch pressure; sizes)."""
+        lib = _lib()
+        out = ctypes.POINTER(ctypes.c_uint8)()
+        out_len = ctypes.c_size_t()
+        lib.ms_stats_json(self._h, ctypes.byref(out), ctypes.byref(out_len))
+        return json.loads(_take_buf(lib, out, out_len))
+
     @property
     def current_revision(self) -> int:
         return _lib().ms_current_revision(self._h)
@@ -947,6 +1034,20 @@ class MemStore:
     @property
     def compact_revision(self) -> int:
         return _lib().ms_compact_revision(self._h)
+
+    @property
+    def progress_revision(self) -> int:
+        """The revision through which every watcher queue has been filled
+        (the watch stream's progress barrier reads it)."""
+        return _lib().ms_progress_revision(self._h)
+
+    @property
+    def num_keys(self) -> int:
+        return _lib().ms_num_keys(self._h)
+
+    @property
+    def db_size(self) -> int:
+        return _lib().ms_db_size(self._h)
 
 
 class WireFront:

@@ -1,10 +1,11 @@
-"""Hand codec for the etcd v3 protobuf subset the port's wire client speaks.
+"""Hand codec for the etcd v3 protobuf subset the port's wire speaks.
 
 The schema of record is the ``.proto`` files beside this module (copies of
 the JAX package's ``k8s1m_tpu/store/proto/``).  The port runs where no
-``protobuf`` package is installed, so each message the client sends or
-reads is declared here by its field numbers and encoded and decoded by
-hand, with protobuf's proto3 rules:
+``protobuf`` package is installed, so each message the client or the
+asyncio server (``store/etcd_server.py``) sends or reads is declared here by
+its field numbers and encoded and decoded by hand, with protobuf's proto3
+rules:
 
 - fields go out in field-number order; a scalar at its zero value (0,
   ``b""``, ``""``, ``False``) is omitted, while a member of a ``oneof`` and
@@ -146,6 +147,14 @@ class Message:
                          if getattr(self, f.name) not in (None, [], 0, b"", "", False))
         return f"{type(self).__name__}({set_})"
 
+    def which_oneof(self, group: str) -> str | None:
+        """The name of the member of oneof ``group`` that is set, or None
+        (the generated modules' ``WhichOneof``)."""
+        for f in self.FIELDS:
+            if f.oneof == group and getattr(self, f.name) is not None:
+                return f.name
+        return None
+
     def encode(self) -> bytes:
         out = bytearray()
         self._encode_into(out)
@@ -255,6 +264,31 @@ KeyValue = _message(
     "KeyValue", _f(1, "key", "bytes"), _f(2, "create_revision", "int64"),
     _f(3, "mod_revision", "int64"), _f(4, "version", "int64"), _f(5, "value", "bytes"),
     _f(6, "lease", "int64"))
+
+
+def put_key_value(out: bytearray, kv) -> None:
+    """Append the KeyValue message bytes of ``kv``: a ``KeyValue`` or
+    anything with its six attributes (the store's own KeyValue).  The one
+    encoder of its layout, written out by hand because a relist's
+    RangeResponse holds one per node; ``KeyValue.encode`` goes through it."""
+    if kv.key:
+        out.append(0x0A)
+        put_varint(out, len(kv.key))
+        out += kv.key
+    for tag, v in ((0x10, kv.create_revision), (0x18, kv.mod_revision), (0x20, kv.version)):
+        if v:
+            out.append(tag)
+            put_varint(out, v)
+    if kv.value:
+        out.append(0x2A)
+        put_varint(out, len(kv.value))
+        out += kv.value
+    if kv.lease:
+        out.append(0x30)
+        put_varint(out, kv.lease)
+
+
+KeyValue._encode_into = lambda self, out: put_key_value(out, self)
 Event = _message(
     "Event", _f(1, "type", "enum"), _f(2, "kv", "msg", KeyValue),
     _f(3, "prev_kv", "msg", KeyValue), PUT=0, DELETE=1)
@@ -321,6 +355,39 @@ LeaseGrantResponse = _message(
     _f(3, "TTL", "int64"), _f(4, "error", "string"))
 LeaseRevokeRequest = _message("LeaseRevokeRequest", _f(1, "ID", "int64"))
 LeaseRevokeResponse = _message("LeaseRevokeResponse", _f(1, "header", "msg", ResponseHeader))
+LeaseKeepAliveRequest = _message("LeaseKeepAliveRequest", _f(1, "ID", "int64"))
+LeaseKeepAliveResponse = _message(
+    "LeaseKeepAliveResponse", _f(1, "header", "msg", ResponseHeader), _f(2, "ID", "int64"),
+    _f(3, "TTL", "int64"))
+LeaseTimeToLiveRequest = _message(
+    "LeaseTimeToLiveRequest", _f(1, "ID", "int64"), _f(2, "keys", "bool"))
+LeaseTimeToLiveResponse = _message(
+    "LeaseTimeToLiveResponse", _f(1, "header", "msg", ResponseHeader), _f(2, "ID", "int64"),
+    _f(3, "TTL", "int64"), _f(4, "grantedTTL", "int64"),
+    _f(5, "keys", "bytes", repeated=True))
+LeaseLeasesRequest = _message("LeaseLeasesRequest")
+LeaseStatus = _message("LeaseStatus", _f(1, "ID", "int64"))
+LeaseLeasesResponse = _message(
+    "LeaseLeasesResponse", _f(1, "header", "msg", ResponseHeader),
+    _f(2, "leases", "msg", LeaseStatus, repeated=True))
+AlarmRequest = _message(
+    "AlarmRequest", _f(1, "action", "enum"), _f(2, "memberID", "uint64"),
+    _f(3, "alarm", "enum"), GET=0, ACTIVATE=1, DEACTIVATE=2)
+AlarmMember = _message("AlarmMember", _f(1, "memberID", "uint64"), _f(2, "alarm", "enum"))
+AlarmResponse = _message(
+    "AlarmResponse", _f(1, "header", "msg", ResponseHeader),
+    _f(2, "alarms", "msg", AlarmMember, repeated=True))
+DefragmentRequest = _message("DefragmentRequest")
+DefragmentResponse = _message("DefragmentResponse", _f(1, "header", "msg", ResponseHeader))
+HashRequest = _message("HashRequest")
+HashResponse = _message(
+    "HashResponse", _f(1, "header", "msg", ResponseHeader), _f(2, "hash", "uint32"))
+SnapshotRequest = _message("SnapshotRequest")
+SnapshotResponse = _message(
+    "SnapshotResponse", _f(1, "header", "msg", ResponseHeader),
+    _f(2, "remaining_bytes", "uint64"), _f(3, "blob", "bytes"))
+MoveLeaderRequest = _message("MoveLeaderRequest", _f(1, "targetID", "uint64"))
+MoveLeaderResponse = _message("MoveLeaderResponse", _f(1, "header", "msg", ResponseHeader))
 StatusRequest = _message("StatusRequest")
 StatusResponse = _message(
     "StatusResponse", _f(1, "header", "msg", ResponseHeader), _f(2, "version", "string"),

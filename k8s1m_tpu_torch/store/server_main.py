@@ -8,23 +8,24 @@ Mirrors the reference's flags (reference mem_etcd/src/main.rs:60-81):
         --wal-dir /var/lib/memstore --wal-default buffered \\
         --wal-no-write-prefix /registry/leases/
 
-The server is the native front-end (``--wire native``, ``WireFront``:
-HTTP/2, HPACK and the etcd protobuf subset in C++) over the port's
-``MemStore``.  The first line on stdout is the bound port, so a caller can
-pass ``--port 0`` and read it back.  SIGTERM or SIGINT stops the server and
-closes the store (its write-ahead log flushed).  ``--metrics-port N``
-(not 0) serves the process's metrics registry as Prometheus text on
-``http://127.0.0.1:N/metrics`` (``obs/http.py``); the port's default is 0,
-off.
-
-``--wire asyncio`` names the JAX package's asyncio gRPC server
-(``store/etcd_server.py``, which needs a gRPC server library); the port
-does not carry it, and the flag exits with a message that says so.
+The server is the native front-end (``--wire native``, the default:
+``WireFront``, HTTP/2, HPACK and the etcd protobuf subset in C++) or the
+asyncio etcd server (``--wire asyncio``: ``store/etcd_server.py`` on
+``store/wire_server.py``, gRPC in Python with no ``grpcio``), either over the
+port's ``MemStore``.  Nothing falls back from one wire to the other: a
+server that cannot start exits non-zero.  The first line on stdout is the
+bound port, so a caller can pass ``--port 0`` and read it back.  SIGTERM or
+SIGINT stops the server and closes the store (its write-ahead log flushed).
+``--metrics-port N`` (not 0) serves the process's metrics registry as
+Prometheus text on ``http://127.0.0.1:N/metrics`` (``obs/http.py``; the
+store gauges of ``etcd_server.py`` are registered on either wire, and fed
+on the asyncio one); the port's default is 0, off.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import contextlib
 import logging
 import os
@@ -35,6 +36,7 @@ import sys
 import threading
 
 from k8s1m_tpu_torch.obs.http import start_metrics_server
+from k8s1m_tpu_torch.store.etcd_server import serve
 from k8s1m_tpu_torch.store.native import MemStore, WireFront
 
 
@@ -50,26 +52,45 @@ def parse_args(argv=None):
     ap.add_argument("--wal-no-write-prefix", action="append", default=[],
                     help="prefixes whose writes skip the WAL (e.g. /registry/leases/)")
     ap.add_argument("--wire", choices=["asyncio", "native"], default="native",
-                    help="wire implementation: the C++ front-end (native/wirefront); "
-                    "the asyncio gRPC server is not part of the port")
+                    help="wire implementation: the C++ front-end (native/wirefront) "
+                    "or the asyncio gRPC server (store/wire_server.py)")
     ap.add_argument("--wire-threads", type=int, default=1,
                     help="event-loop threads for --wire native")
-    args = ap.parse_args(argv)
-    if args.wire == "asyncio":
-        ap.exit(2, "server_main: --wire asyncio needs the asyncio gRPC server "
-                "(k8s1m_tpu/store/etcd_server.py), which the port does not carry; "
-                "use --wire native\n")
-    return args
+    return ap.parse_args(argv)
+
+
+async def _serve_asyncio(args, store: MemStore) -> None:
+    """The asyncio lane: serve until SIGTERM or SIGINT."""
+    loop = asyncio.get_running_loop()
+    stop = asyncio.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        loop.add_signal_handler(sig, stop.set)
+    server, port = await serve(store, port=args.port, host=args.host,
+                               metrics_port=args.metrics_port)
+    try:
+        print(port, flush=True)
+        logging.info("memstore serving etcd API on :%d via the asyncio server "
+                     "(metrics :%d)", port, args.metrics_port)
+        await stop.wait()
+    finally:
+        await server.stop()
 
 
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
+    store = MemStore(wal_dir=args.wal_dir, wal_mode=args.wal_default,
+                     no_write_prefixes=tuple(args.wal_no_write_prefix))
+    if args.wire == "asyncio":
+        try:
+            asyncio.run(_serve_asyncio(args, store))
+        finally:
+            store.close()
+        sys.stdout.flush()
+        return
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())
-    store = MemStore(wal_dir=args.wal_dir, wal_mode=args.wal_default,
-                     no_write_prefixes=tuple(args.wal_no_write_prefix))
     metrics = None
     try:
         wf = WireFront(store, host=args.host, port=args.port, threads=args.wire_threads)

@@ -541,17 +541,19 @@ def test_memstore_write_ahead_log_replays_like_jax(tmp_path):
 
 @pytest.mark.parametrize("argv", [["--wire", "asyncio"], ["--metrics-port", "9000"]])
 def test_server_main_refuses_what_the_port_lacks(argv, capsys):
-    """The asyncio wire is not ported and exits; ``--metrics-port`` is
-    (``obs/http.py``) and is kept."""
+    """``--wire asyncio`` (``store/etcd_server.py``) and
+    ``--metrics-port`` (``obs/http.py``) are ported and kept; a wire that
+    neither package offers exits with argparse's status 2."""
     from k8s1m_tpu_torch.store import server_main
 
     if "--metrics-port" in argv:
         assert server_main.parse_args(argv).metrics_port == 9000
     else:
+        assert server_main.parse_args(argv).wire == "asyncio"
         with pytest.raises(SystemExit) as ei:
-            server_main.parse_args(argv)
+            server_main.parse_args(["--wire", "grpcio"])
         assert ei.value.code == 2
-        assert "etcd_server.py" in capsys.readouterr().err
+        assert "invalid choice" in capsys.readouterr().err
     args = server_main.parse_args(["--port", "0", "--wal-no-write-prefix", "/registry/leases/"])
     assert (args.wire, args.metrics_port, args.wal_no_write_prefix) == (
         "native", 0, ["/registry/leases/"])

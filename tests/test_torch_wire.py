@@ -8,14 +8,16 @@ codec (``store/proto/codec.py``), HPACK and the HTTP/2 + gRPC transport
   and the light parsers against the full decode.
 - HPACK against RFC 7541's Appendix C vectors (static and dynamic table,
   size-bounded eviction, Huffman strings).
-- The transport against two independent servers: the native front-end
-  (``WireFront``: 1 GiB windows, literal headers) and grpcio's C-core under
+- The transport against three servers: the native front-end
+  (``WireFront``: 1 GiB windows, literal headers), grpcio's C-core under
   the JAX package's asyncio ``etcd_server`` (small starting windows raised
-  later, Huffman-coded and indexed headers, trailers-only errors) — a
+  later, Huffman-coded and indexed headers, trailers-only errors) and the
+  port's own asyncio ``etcd_server`` on ``store/wire_server.py`` — a
   client window smaller than one response, a request larger than the
   server's starting window, the receive cap, and a stream reset.
 - No module of the port, and not ``chip_smoke.py``, imports ``grpc``,
-  ``google.protobuf``, ``jax`` or ``k8s1m_tpu``.
+  ``google.protobuf``, ``jax`` or ``k8s1m_tpu``; with those blocked, the
+  port's asyncio server starts and answers a Range.
 
 Tolerance: byte identity everywhere.
 """
@@ -32,6 +34,7 @@ import pytest
 from k8s1m_tpu.store.etcd_server import serve
 from k8s1m_tpu.store.native import MemStore as JaxMemStore
 from k8s1m_tpu.store.proto import batch_pb2, mvcc_pb2, rpc_pb2
+from k8s1m_tpu_torch.store import etcd_server as port_etcd_server
 from k8s1m_tpu_torch.store.native import MemStore, WireFront, prefix_end
 from k8s1m_tpu_torch.store.proto import codec
 from k8s1m_tpu_torch.store.wire import (
@@ -85,7 +88,28 @@ class NativeServer:
         self.store.close()
 
 
-SERVERS = {"native": NativeServer, "asyncio": AsyncioServer}
+class PortAsyncioServer(AsyncioServer):
+    """The port's asyncio etcd server (``store/wire_server.py``, no grpcio)
+    over the port's MemStore, on an event loop in a background thread."""
+
+    def __init__(self):
+        self.store = MemStore()
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+        self.server, self.port = self.run(port_etcd_server.serve(self.store, port=0))
+
+    def close(self) -> None:
+        self.run(self.server.stop())
+        self.run(self.loop.shutdown_default_executor())
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=10)
+        assert not self.thread.is_alive()
+        self.loop.close()
+        self.store.close()
+
+
+SERVERS = {"native": NativeServer, "asyncio": AsyncioServer, "port_asyncio": PortAsyncioServer}
 
 
 @pytest.fixture(params=sorted(SERVERS))
@@ -419,6 +443,7 @@ for m in mods:
     importlib.import_module(m)
 sys.path.insert(0, ".")
 import chip_smoke
+print(" ".join(mods))
 print(len(mods))
 """
 
@@ -428,3 +453,40 @@ def test_port_imports_no_grpc_protobuf_or_jax():
                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
     assert int(out.stdout.split()[-1]) > 60
+    mods = set(out.stdout.split("\n")[-3].split())
+    assert {f"k8s1m_tpu_torch.store.{m}" for m in ("wire_server", "etcd_server",
+                                                   "wiretier")} <= mods
+
+
+_SERVE_BLOCKED = r"""
+import asyncio, sys
+for name in ("grpc", "google.protobuf", "jax", "k8s1m_tpu"):
+    sys.modules[name] = None
+from k8s1m_tpu_torch.store import etcd_server
+from k8s1m_tpu_torch.store.etcd_client import EtcdClient
+from k8s1m_tpu_torch.store.native import MemStore
+
+async def main():
+    store = MemStore()
+    server, port = await etcd_server.serve(store, port=0)
+    client = EtcdClient(f"127.0.0.1:{port}")
+    try:
+        await client.put(b"/registry/a", b"v")
+        resp = await client.prefix(b"/registry/")
+        print([(kv.key, kv.value) for kv in resp.kvs], resp.header.revision)
+    finally:
+        await client.close()
+        await server.stop()
+        store.close()
+
+asyncio.run(main())
+"""
+
+
+def test_blocked_child_serves_one_range():
+    """With grpc, protobuf, JAX and the JAX package blocked, the port's
+    asyncio server starts in a child and answers one Range."""
+    out = subprocess.run([sys.executable, "-c", _SERVE_BLOCKED], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split("\n")[0] == "[(b'/registry/a', b'v')] 2"
