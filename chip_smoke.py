@@ -142,10 +142,11 @@ Phases (each raises on failure; the script then exits non-zero):
   9. kernel_probe — ``tools/kernel_probe.py`` at its default shape
                (53,248 rows x 8192 pods, packed) on the fused kernel and on
                the scan path: ms per batch of every knock-out variant;
-  10. megarow — ``megarow_drill.run(parse_args([]))`` on the card at its
-               default shape (1,048,576 nodes, batch 512, chunk 4096, depth
-               3, 4 tenants, deltacache on, index K 64, automatic stratum
-               bits, comparison lane and differential at 131,072): the
+  10. megarow — ``megarow_drill.run(parse_args(["--sat-ticks", "12"]))``
+               on the card at its default shape otherwise (1,048,576 nodes,
+               batch 512, chunk 4096, depth 3, 4 tenants, deltacache on,
+               index K 64, automatic stratum bits, comparison lane and
+               differential at 131,072; 12 saturated ticks, not 24): the
                drill's ``passed`` with every gate, fused base-stage and
                delta-kernel launches counted in the run (counts set to 0
                just before it).  Prints saturated and composed binds/s,
@@ -188,7 +189,8 @@ Phases (each raises on failure; the script then exits non-zero):
                status sequence, the same Retry-After values, byte-identical
                stored pods, no shed pod bound;
   13. drills — ``overload_drill`` and ``tenantfair_drill`` at their default
-               shapes on the card and with ``--device cpu``: both pass, and
+               shapes on the card (tenantfair's in a child beside
+               overload's) and with ``--device cpu``: both pass, and
                the evidence is equal without the ``device`` key (no key of
                either drill holds a host timing);
   14. hostpath — ``hostpath_bench --nodes 131072``: the encode gate
@@ -236,6 +238,20 @@ Phases (each raises on failure; the script then exits non-zero):
                seconds, the p50/p99 of 2,000 sequential single Puts and the
                rate of 5,000 pipelined Puts from the native stress client,
                with the card's name and power limit;
+  17d. the secured watch-cache tier — 17a's card run through ``python -m
+               k8s1m_tpu_torch.store.watch_cache --prefix /registry/
+               --tls-cert --tls-key --auth-token --metrics-port`` in a child
+               in front of ``server_main`` in another, 100 watches on the pods
+               prefix from ``watch_stress --writes 0`` in a third, at
+               ``--lag-budget 65536`` (the deployed default 4,096 and its
+               latest-only coalescing are not run on the card): stored pods
+               byte-identical to 17a's native-wire run, the tier's
+               ``/metrics`` counting each store event once in and once per
+               watch out, every stress watch seeing every pod event, a wrong
+               token ``UNAUTHENTICATED``, a client without the CA refused at
+               its handshake, every child reaped.  Prints the prime s, the
+               relist through the tier beside 17a's, put p50 through the
+               tier, binds/s and the base launches;
   17b. BASELINE config 5 — 17's shape at 262,144 nodes with ``--churn
                --stress-watchers 100 --stress-write-concurrency 1``
                (``tools/watch_stress.py`` as a
@@ -243,7 +259,7 @@ Phases (each raises on failure; the script then exits non-zero):
                deleted stored and bound, the stressor's report with no failed
                stream and every write delivered to every watcher, server and
                stressor reaped.  Prints 17's numbers and the stressor's;
-  18. shard set at scale — ``shard_bench --nodes 131072 --pods 16384
+  18. shard set at scale — ``shard_bench --nodes 65536 --pods 8192
                --batch 4096 --score-pct 5`` with ``--shards`` 1, 2 and 4, each
                against a fresh ``server_main``, every worker on ``cuda``:
                the workers' binds sum to the pods and each worker binds its
@@ -262,23 +278,23 @@ Phases (each raises on failure; the script then exits non-zero):
                the CPU: after every tick the masks are disjoint and every
                pod the tick bound sits on a row its member owned at launch;
                byte-identical stored pods;
-  19. experiment — the reference's 1M-node procedure at 262,144 nodes
+  19. experiment — the reference's 1M-node procedure at 131,072 nodes
                against a fresh
                ``server_main --metrics-port`` child, each tool a CLI child
                (``python -m k8s1m_tpu_torch.tools.<tool>``, its JSON line
                read, a non-zero exit fails the phase): ``make_nodes --count
-               262144 --bulk 1024`` (count, 0 errors, ``find_gaps`` none),
+               131072 --bulk 1024`` (count, 0 errors, ``find_gaps`` none),
                ``make_pods --count 8192`` (per-put RPCs at the tools'
                defaults), a ``Coordinator`` on the card over a
                ``RemoteStore`` at D1's shape (every pod bound once, base
                launches), group 0's ``KwokController`` (bootstrap, ticks at
-               10 and 20: its 26,215 nodes adopted, every pod bound to them
+               10 and 20: its tenth of the nodes adopted, every pod bound to them
                started, every lease renewed on each tick and stored, the
                lease-delay histogram rendered), ``lease_flood --nodes
-               262144 --rounds 1 --batch 1024``, ``store_stress
-               --native-client --puts 200000`` and the Python lane at 10,000
-               puts and 1,000 ranges (0 errors), ``count_ready`` (nodes sum
-               to 262,144, Running = started, none unbound), one ``GET
+               131072 --rounds 1 --batch 1024``, ``store_stress
+               --native-client --puts 200000`` and the Python lane at 5,000
+               puts and 500 ranges (0 errors), ``count_ready`` (nodes sum
+               to 131,072, Running = started, none unbound), one ``GET
                /metrics`` (200), ``delete_pods --prefix bench-pod`` (8,192
                deleted, the prefix empty).  Prints every tool's rate and
                each step's seconds;
@@ -313,7 +329,22 @@ Phases (each raises on failure; the script then exits non-zero):
                4096 --depth 2 --score-pct 5 --stats --kernel-profile``: every
                pod bound once (phase 8's checks), 4 base launches per wave,
                ``mesh_exec`` and the shard-local kernel profile.  Prints
-               binds/s, p50/p99, the device stage's share and ``mesh_exec``.
+               binds/s, p50/p99, the device stage's share and ``mesh_exec``;
+  21. steady drill — ``steady_drill --failover --nodes 262144 --chunk
+               4096`` on the card (1,048,576 nodes cut to 262,144 to fit the
+               limit), every other flag at the JAX defaults: the
+               pipelined coordinator with tenancy, loadshed, a bind-CAS
+               fault plan and node churn, as an HA pair whose leader is
+               SIGKILLed mid-overload, and the watch-cache tier over the same
+               store with one client watch on the pods prefix and an injected
+               upstream break: the drill's gates, 0 lost, the tier resumed
+               once with 0 invalidations and 0 client cancels, base launches
+               counted in the run.  Prints the recovery s, admitted pods, the
+               drill's wall s and its phase times;
+  21a. steady drill parity — ``steady_drill --smoke --failover`` on the card
+               and with ``--device cpu``, each in a fresh process beside 21:
+               both pass 21's gates, and the reports are equal without the
+               host-clock keys and the device.
 Phases 5 and 6 print the same group and bound figures as phase 4.  The
 parity phases 8a, 10a, 12a, 18a, 19a and 20a run their CPU half in a child
 process beside the card's half; 8a's CPU halves start beside phase 3,
@@ -324,14 +355,14 @@ next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
 stage configuration and one for the delta kernel: times, bound, launches;
 the fused entries add ``bound_per_pair_ms``, ``groups`` and
 ``all_distinct_ms``; ``launches`` includes the coordinator's of phases 8,
-10-16a, 17-17c, 18 (each worker's window), 18a, 19, 19a, 20a (card) and
-20b, which ``coordinator_launches`` also gives alone, per fused stage, and
+10-16a, 17-17d, 18 (each worker's window), 18a, 19, 19a, 20a (card), 20b,
+21 and 21a (card), which ``coordinator_launches`` also gives alone, per fused stage, and
 phase 20's mesh waves, which ``mesh_launches`` gives alone);
 the last is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--steps 4] [--path-steps 3] [--delta-steps 2] [--warmup 1]
                           [--out results.json] [--worst-case-only] [--mesh-only]
-                          [--wire-asyncio-only]
+                          [--wire-asyncio-only] [--tier-only]
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -342,6 +373,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -2309,16 +2341,22 @@ COMPOSED_NODES = 32768
 BREAKER_NODES, BREAKER_FALLBACK = 65536, 2
 
 
+# 10's saturated phase cut from 24 ticks to 12 for phases 17d and 21-21a
+# (PERF.md section 4 gives each cut's saving).
+MEGAROW_SAT_TICKS = 12
+
+
 def phase_megarow() -> dict:
-    """10: ``megarow_drill.run(parse_args([]))`` on the card at its default
-    shape — 1,048,576 nodes, batch 512, chunk 4096, depth 3, 4 tenants,
-    deltacache on, index K 64, automatic stratum bits, the comparison lane
-    and the differential at 131,072 — with every gate of the drill.  The
+    """10: ``megarow_drill.run(parse_args(["--sat-ticks", "12"]))`` on the card,
+    otherwise at its default shape — 1,048,576 nodes, batch 512, chunk 4096,
+    depth 3, 4 tenants, deltacache on, index K 64, automatic stratum bits,
+    the comparison lane and the differential at 131,072 — with every gate of
+    the drill (the saturated phase cut from 24 ticks to 12).  The
     launch counts are set to 0 just before the run and read just after."""
     from k8s1m_tpu_torch.ops import delta_topk, fused_topk
     from k8s1m_tpu_torch.tools import megarow_drill
 
-    args = megarow_drill.parse_args([])
+    args = megarow_drill.parse_args(["--sat-ticks", str(MEGAROW_SAT_TICKS)])
     check(args.device == "cuda" and args.nodes == NODES, "[10] the drill's default shape moved")
     fused_topk.reset_launches()
     delta_topk.reset_launches()
@@ -3001,43 +3039,80 @@ def phase_webhook_parity(cpu_half=None) -> dict:
             for dev, r in runs.items()}
 
 
+# A tool's card half in a fresh process: ``python -c _CARD_TOOL <tool> <args>``
+# runs ``k8s1m_tpu_torch.tools.<tool>.main(args)`` with the launch counts set
+# to 0 just before it, and prints its report and the counts as one JSON line.
+_CARD_TOOL = "\n".join((
+    "import contextlib, importlib, json, sys",
+    "import chip_smoke as cs",
+    "tool = importlib.import_module('k8s1m_tpu_torch.tools.' + sys.argv[1])",
+    "cs._reset_launches()",
+    "with contextlib.redirect_stdout(sys.stderr):",
+    "    report = tool.main(sys.argv[2:])",
+    "print(json.dumps({'report': report, 'launches': cs._launch_counts()}), flush=True)",
+))
+
+
+def _child_env(**extra) -> tuple[str, dict]:
+    root = os.path.dirname(os.path.abspath(__file__))
+    return root, dict(os.environ, **extra, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+
+
 def phase_drills() -> dict:
     """13: ``overload_drill`` and ``tenantfair_drill`` at their default
-    shapes on the card (in this process, launches counted) and with
-    ``--device cpu`` (in parallel subprocesses, one torch thread each):
-    every run ``passed``, and each drill's two evidence documents are equal
-    once ``DRILL_DEVICE_KEYS`` are removed."""
+    shapes on the card (overload's in this process, tenantfair's in a child
+    beside it; launches counted in each) and with ``--device cpu`` (in
+    parallel subprocesses, one torch thread each): every run ``passed``, and
+    each drill's two evidence documents are equal once ``DRILL_DEVICE_KEYS``
+    are removed."""
     import contextlib
     import io
 
-    from k8s1m_tpu_torch.tools import overload_drill, tenantfair_drill
+    from k8s1m_tpu_torch.tools import overload_drill
 
     os.makedirs(OUT_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
-        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    root, env = _child_env()
     procs = {}
     for mod in ("overload_drill", "tenantfair_drill"):
         with open(os.path.join(OUT_DIR, f"{mod}_cpu.log"), "w") as err:
-            procs[mod] = subprocess.Popen(
+            procs[mod, "cpu"] = subprocess.Popen(
                 [sys.executable, "-m", f"k8s1m_tpu_torch.tools.{mod}", "--device", "cpu",
                  "--out", os.path.join(OUT_DIR, f"{mod}_cpu.json")],
-                stdout=subprocess.PIPE, stderr=err, text=True, env=env, cwd=root)
+                stdout=subprocess.PIPE, stderr=err, text=True,
+                env={**env, "OMP_NUM_THREADS": "1"}, cwd=root)
+    with open(os.path.join(OUT_DIR, "tenantfair_drill_cuda.log"), "w") as err:
+        procs["tenantfair_drill", "cuda"] = subprocess.Popen(
+            [sys.executable, "-c", _CARD_TOOL, "tenantfair_drill", "--out",
+             os.path.join(OUT_DIR, "tenantfair_drill_cuda.json")],
+            stdout=subprocess.PIPE, stderr=err, text=True, env=env, cwd=root)
+
+    def finish(mod, dev):
+        proc = procs[mod, dev]
+        stdout, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0 and stdout.strip(),
+              f"[13] {mod} on {dev} exited {proc.returncode} ({mod}_{dev}.log)")
+        return json.loads(stdout.strip().splitlines()[-1])
+
     out = {}
     try:
-        for mod, tool in (("overload_drill", overload_drill),
-                          ("tenantfair_drill", tenantfair_drill)):
-            _reset_launches()
+        for mod in ("overload_drill", "tenantfair_drill"):
             t1 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()):
-                card = tool.main(["--out", os.path.join(OUT_DIR, f"{mod}_cuda.json")])
-            card_s = time.perf_counter() - t1
-            launches = _launch_counts()
-            stdout, _ = procs[mod].communicate(timeout=600)
-            check(procs[mod].returncode == 0, f"[13] {mod} --device cpu exited "
-                  f"{procs[mod].returncode}")
-            cpu = json.loads(stdout.strip().splitlines()[-1])
+            if mod == "overload_drill":
+                _reset_launches()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    card = overload_drill.main(
+                        ["--out", os.path.join(OUT_DIR, f"{mod}_cuda.json")])
+                launches = _launch_counts()
+                where = f"in this process, {time.perf_counter() - t1:.1f}s"
+            else:
+                child = finish(mod, "cuda")
+                card, launches = child["report"], child["launches"]
+                where = (f"in a child beside overload_drill's, done "
+                         f"{time.perf_counter() - t1:.1f}s after it")
+            card_s = time.perf_counter() - t1  # running the card half, or waiting on its child
+            cpu = finish(mod, "cpu")
             check(card["passed"] and cpu["passed"],
                   f"[13] {mod} did not pass (card {card['passed']}, cpu {cpu['passed']})")
             check(card["device"] == "cuda" and cpu["device"] == "cpu", f"[13] {mod} devices")
@@ -3046,7 +3121,7 @@ def phase_drills() -> dict:
             check(a == b, f"[13] {mod}: card and CPU evidence differ")
             check(launches["fused_topk"] > 0, f"[13] {mod}: no fused-kernel launch")
             log(f"[13] {mod} at its default shape {json.dumps(card['shape'])}: passed on the "
-                f"card ({card_s:.1f}s) and the CPU, evidence equal without "
+                f"card ({where}) and the CPU, evidence equal without "
                 f"{list(DRILL_DEVICE_KEYS)}; value {card['value']} ({card['unit']}); "
                 f"launches {launches}")
             out[mod] = {"evidence": card, "launches": launches, "card_s": round(card_s, 3)}
@@ -3367,11 +3442,11 @@ def phase_wire(config: str) -> dict:
 WIRE_PROBE_PUTS, WIRE_STRESS_PUTS = 2000, 5000
 
 
-def _put_probe(store, target: str) -> dict:
+def _put_probe(store, target: str, pipelined: bool = True) -> dict:
     """``WIRE_PROBE_PUTS`` sequential single ``Put``s of a 256-byte value
     through ``store`` (a ``RemoteStore``), each timed on the host clock (p50
-    and p99 in ms), then ``WIRE_STRESS_PUTS`` pipelined ones from
-    ``wire_stress_put`` (puts/s)."""
+    and p99 in ms), then (``pipelined``) ``WIRE_STRESS_PUTS`` pipelined ones
+    from ``wire_stress_put`` (puts/s; the native client speaks plaintext)."""
     from k8s1m_tpu_torch.store.native import wire_stress_put
 
     lat = []
@@ -3381,14 +3456,16 @@ def _put_probe(store, target: str) -> dict:
         store.put(b"/registry/leases/probe/%06d" % i, value)
         lat.append(time.perf_counter() - t0)
     lat = np.asarray(lat) * 1e3
+    out = {"put_p50_ms": round(float(np.percentile(lat, 50)), 4),
+           "put_p99_ms": round(float(np.percentile(lat, 99)), 4)}
+    if not pipelined:
+        return out
     host, _, port = target.rpartition(":")
     n, elapsed = wire_stress_put(host, int(port), WIRE_STRESS_PUTS, concurrency=64,
                                  prefix="/registry/leases/stress/", key_count=1000,
                                  val_len=256)
     check(n == WIRE_STRESS_PUTS, f"the stress client completed {n} of {WIRE_STRESS_PUTS} puts")
-    return {"put_p50_ms": round(float(np.percentile(lat, 50)), 4),
-            "put_p99_ms": round(float(np.percentile(lat, 99)), 4),
-            "stress_puts_per_s": round(n / elapsed, 1)}
+    return {**out, "stress_puts_per_s": round(n / elapsed, 1)}
 
 
 def _range_encode_probe(store) -> dict:
@@ -3552,13 +3629,253 @@ def _log_wire_probes(runs: dict) -> None:
         f"{PARITY_NODES} nodes native {native['relist_s']} s, asyncio {asy['relist_s']} s")
 
 
+# ---- phase 17d: the coordinator behind the secured watch-cache tier -----------
+
+# 17d: 100 client watches on the pods prefix through the tier (as 17b's
+# stressor), counting every pod event; the tier's lag budget sized so that
+# 101 watchers' full backlog of 8a's pod events stays FIFO (no latest-only
+# coalescing: the gate counts every event at every watch).  This departs
+# from the deployed tier, which the JAX harness starts at the default of
+# 4,096: the card never runs that setting's latest-only coalescing and its
+# HealthController shedding, which tests/test_torch_watch_cache.py holds
+# against the JAX tier on the CPU.
+TIER_WATCHERS = 100
+TIER_LAG_BUDGET = 1 << 16
+
+
+def _tier_metrics(port: int) -> dict:
+    """The tier's ``watchcache_*`` samples from its ``/metrics``."""
+    import urllib.request
+
+    text = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30).read()
+    out = {}
+    for line in text.decode().splitlines():
+        if line.startswith("watchcache_") and " " in line:
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def _tier_settle(coord, upstream) -> None:
+    """A watch progress barrier at the store's revision: each of the
+    coordinator's watches (through the tier) answers progress until the
+    tier's cache has reached every write the store has taken."""
+    rev = upstream.current_revision
+    for w in (coord._nodes_watch, coord._pods_watch):
+        for _ in range(10000):
+            got = w.progress()
+            check(got is not None, "[17d] a coordinator watch through the tier ended")
+            if got >= rev:
+                break
+            time.sleep(0.001)
+        else:
+            raise AssertionError(f"[17d] the tier never reached revision {rev}")
+
+
+def _tier_auth_checks(target: str, certs, token: str) -> list:
+    """A call with a wrong token ends UNAUTHENTICATED with the tier's
+    message; a client trusting another CA, and a plaintext client, fail
+    before any call."""
+    import tempfile
+
+    from k8s1m_tpu_torch.cluster.certs import provision
+    from k8s1m_tpu_torch.store.proto import codec as pb
+    from k8s1m_tpu_torch.store.wire import Channel, StatusCode, WireError
+
+    rng = pb.RangeRequest(key=b"/registry/pods/", range_end=b"/registry/pods0",
+                          count_only=True)
+    seen = []
+    with tempfile.TemporaryDirectory() as other_dir:
+        for what, kw, want in (
+                ("wrong token", dict(ca_pem=certs.ca_pem, token=token + "x"),
+                 StatusCode.UNAUTHENTICATED),
+                ("another CA", dict(ca_pem=provision(other_dir).ca_pem, token=token),
+                 StatusCode.UNAVAILABLE),
+                ("plaintext", dict(token=token), StatusCode.UNAVAILABLE)):
+            ch = Channel(target, **kw)
+            try:
+                ch.unary("/etcdserverpb.KV/Range", rng.encode())
+                raise AssertionError(f"[17d] a call with {what} went through")
+            except WireError as e:
+                check(e.code == want, f"[17d] {what}: {e}, want {want.name}")
+                if what == "wrong token":
+                    check(e.details == "invalid or missing bearer token", f"[17d] {e}")
+                if what == "another CA":
+                    check("CERTIFICATE_VERIFY_FAILED" in str(e), f"[17d] {what}: {e}")
+                seen.append(f"{what}: {e}")
+            finally:
+                ch.close()
+    return seen
+
+
+def phase_tier(native_stored: dict, native_relist_s: float, device: str = "cuda") -> dict:
+    """17d: D1's deployed topology behind the secured watch-cache tier.
+    ``server_main`` (native wire) in a child; 8a's 65,536 nodes written to
+    it; then ``python -m k8s1m_tpu_torch.store.watch_cache --prefix
+    /registry/ --tls-cert --tls-key --auth-token --metrics-port`` in a
+    second child (it primes the whole ``/registry/`` before its port binds),
+    as the JAX harness deploys it but for ``--lag-budget TIER_LAG_BUDGET``
+    in place of the deployed default (so the deployed latest-only
+    coalescing is not run here); ``TIER_WATCHERS`` watches on
+    ``/registry/pods/`` from ``watch_stress --writes 0 --ca-pem --token`` in
+    a third; and 17a's card run through ``RemoteStore(ca_pem=, token=)`` to
+    the tier, a progress barrier at the store's revision before every step.
+    Gates: stored pods byte-identical to 17a's native-wire run
+    (``native_stored``); the tier takes each store event once
+    (``watchcache_events_in_total`` == the store's revisions in the window)
+    and hands it to every watch (``watchcache_events_delivered_total`` ==
+    events x the stressor's watches + the coordinator's pod watch); every
+    stress watch saw every pod event, 0 stream errors; a wrong token gets
+    ``UNAUTHENTICATED`` and a client without the CA fails its handshake;
+    every child reaped.  Prints the prime s, the relist through the tier
+    against 17a's, put p50 through the tier, binds/s and base launches."""
+    import re
+    import secrets
+    import signal
+    import tempfile
+
+    from k8s1m_tpu_torch.cluster.certs import provision
+    from k8s1m_tpu_torch.config import PodSpec, TableSpec
+    from k8s1m_tpu_torch.control.coordinator import Coordinator
+    from k8s1m_tpu_torch.faultline import RetryPolicy
+    from k8s1m_tpu_torch.plugins.registry import Profile
+    from k8s1m_tpu_torch.store.remote import RemoteStore
+    from k8s1m_tpu_torch.store.server_main import child_env, serve_subprocess
+    from k8s1m_tpu_torch.store.watch_cache import _LAG_BUDGET as deployed_lag_budget
+    from k8s1m_tpu_torch.store.watch_cache import tier_subprocess
+    from k8s1m_tpu_torch.tools import sched_bench
+
+    t0 = time.perf_counter()
+    token = secrets.token_hex(16)
+    mport = _free_port()
+    root, env = child_env()
+    log_path = os.path.join(OUT_DIR, "tier_17d.log")
+    stress = None
+    with tempfile.TemporaryDirectory() as cert_dir, serve_subprocess() as (sproc, upstream):
+        certs = provision(cert_dir)
+        up = RemoteStore(upstream)
+        try:
+            sched_bench.write_nodes(up, PARITY_NODES)
+            with open(log_path, "w") as tier_log, tier_subprocess(
+                    upstream, "--prefix", "/registry/", "--tls-cert", certs.cert_pem,
+                    "--tls-key", certs.key_pem, "--auth-token", token, "--metrics-port",
+                    str(mport), "--lag-budget", str(TIER_LAG_BUDGET), stderr=tier_log,
+                    timeout_s=30.0 + PARITY_NODES / 5000.0) as (tproc, target):
+                # The tier logs its ready line just after its port binds.
+                for _ in range(3000):
+                    with open(log_path) as f:
+                        ready = f.read()
+                    m = re.search(r"primed (\d+) objects at revision (\d+) in ([0-9.]+) s",
+                                  ready)
+                    if m is not None:
+                        break
+                    time.sleep(0.01)
+                check(m is not None and int(m.group(1)) >= PARITY_NODES,
+                      f"[17d] the tier's ready line: {ready[-500:]!r}")
+                prime_s = float(m.group(3))
+                with open(os.path.join(OUT_DIR, "tier_17d_stress.log"), "w") as err:
+                    stress = subprocess.Popen(
+                        [sys.executable, "-m", "k8s1m_tpu_torch.tools.watch_stress", "--target",
+                         target, "--watchers", str(TIER_WATCHERS), "--writes", "0", "--prefix",
+                         "/registry/pods/", "--expect-events", str(2 * PARITY_PODS),
+                         "--ca-pem", certs.ca_pem, "--token", token],
+                        stdout=subprocess.PIPE, stderr=err, text=True, env=env, cwd=root)
+                for _ in range(6000):
+                    if _tier_metrics(mport).get("watchcache_watchers", 0) >= TIER_WATCHERS:
+                        break
+                    check(stress.poll() is None, "[17d] the stressor exited early")
+                    time.sleep(0.01)
+                store = RemoteStore(target, ca_pem=certs.ca_pem, token=token)
+                try:
+                    coord = Coordinator(
+                        store, TableSpec(max_nodes=PARITY_NODES), PodSpec(batch=BATCH),
+                        Profile(node_affinity=0, topology_spread=0, interpod_affinity=0),
+                        chunk=CHUNK, with_constraints=False, pipeline=True, depth=2,
+                        score_pct=SCORE_PCT, packing="packed", device=device,
+                        retry_policy=RetryPolicy(**_ZERO_DELAY))
+                    coord.bootstrap()
+                    values, keys, _strs = sched_bench._pod_values(_bench_args(pods=PARITY_PODS))
+                    _tier_settle(coord, up)
+                    m0, rev0 = _tier_metrics(mport), up.current_revision
+                    _reset_launches()
+                    t_run = time.perf_counter()
+                    for off in range(0, PARITY_PODS, BATCH):
+                        store.put_batch(list(zip(keys[off:off + BATCH], values[off:off + BATCH])))
+                        _tier_settle(coord, up)
+                        coord.step()
+                    idle = 0
+                    for _ in range(1000):
+                        _tier_settle(coord, up)
+                        coord.step()
+                        idle = 0 if coord.queue or coord._inflights or coord._backoff else idle + 1
+                        if idle > 1:
+                            break
+                    run_s = time.perf_counter() - t_run
+                    launches = _launch_counts()
+                    _tier_settle(coord, up)
+                    m1, rev1 = _tier_metrics(mport), up.current_revision
+                    stored = _store_checks("17d", coord, store, PARITY_PODS)
+                    coord.close()
+                    stress.send_signal(signal.SIGTERM)
+                    out, _ = stress.communicate(timeout=120)
+                    ws = json.loads(out.strip().splitlines()[-1])
+                    relist_s = _time_relist(store, PARITY_NODES)
+                    probe = _put_probe(store, target, pipelined=False)
+                finally:
+                    store.close()
+                auth = _tier_auth_checks(target, certs, token)
+        finally:
+            up.close()
+            if stress is not None and stress.poll() is None:
+                stress.kill()
+                stress.wait()
+    check(sproc.returncode is not None and tproc.returncode is not None
+          and stress.returncode is not None, "[17d] a child is still running")
+    check(stored == native_stored,
+          "[17d] stored pod values through the tier differ from 17a's native wire")
+    check(launches["fused_topk_by_stage"]["base"] > 0, f"[17d] no base launch: {launches}")
+    # A counter renders no sample until its first increment.
+    events_in = (m1.get("watchcache_events_in_total", 0.0)
+                 - m0.get("watchcache_events_in_total", 0.0))
+    delivered = (m1.get("watchcache_events_delivered_total", 0.0)
+                 - m0.get("watchcache_events_delivered_total", 0.0))
+    check(events_in == rev1 - rev0 == 2 * PARITY_PODS,
+          f"[17d] events in {events_in}, store revisions {rev1 - rev0}, "
+          f"want {2 * PARITY_PODS} (each pod's create and bind, once)")
+    check(delivered == events_in * (TIER_WATCHERS + 1),
+          f"[17d] delivered {delivered}, want {events_in} x {TIER_WATCHERS + 1} watches")
+    check(m1.get("watchcache_coalesced_events_total", 0) == 0
+          and m1.get("watchcache_invalidations_total", 0) == 0,
+          f"[17d] coalesced or invalidated: {m1}")
+    check(ws["watchers"] == TIER_WATCHERS and ws["stream_errors"] == 0
+          and ws["per_watcher_min"] == ws["per_watcher_max"] == events_in,
+          f"[17d] not every stress watch saw every pod event: {ws}")
+    binds_per_s = PARITY_PODS / run_s
+    log(f"[17d] coordinator on the card behind the secured tier (TLS + bearer, "
+        f"{TIER_WATCHERS} watches from watch_stress, --lag-budget {TIER_LAG_BUDGET}: the "
+        f"deployed default {deployed_lag_budget} and its latest-only coalescing not run on "
+        f"the card): {len(stored)} pods byte-identical to 17a's "
+        f"native wire, {binds_per_s:.1f} binds/s over {run_s:.2f} s, base launches "
+        f"{launches['fused_topk_by_stage']['base']}; tier prime {prime_s:.3f} s "
+        f"({m.group(1)} objects), relist through the tier {relist_s} s (17a native "
+        f"{native_relist_s} s), put p50/p99 through the tier {probe['put_p50_ms']}/"
+        f"{probe['put_p99_ms']} ms; events in {events_in:.0f} (one upstream stream), "
+        f"delivered {delivered:.0f}, each stress watch {ws['per_watcher_min']}; "
+        f"{'; '.join(auth)} ({time.perf_counter() - t0:.1f}s)")
+    return {"seconds": round(time.perf_counter() - t0, 3), "launches": launches,
+            "prime_s": prime_s, "relist_s": relist_s, "binds_per_s": round(binds_per_s, 1),
+            "run_s": round(run_s, 3), **probe, "events_in": events_in,
+            "events_delivered": delivered, "watch_stress": ws}
+
+
 # ---- phases 18, 18a: the shard set --------------------------------------------
 
 # 18: shard_bench with 1, 2 and 4 worker processes, each on the card
-# (BASELINE config 1's shape: D1's batch and 5% window), at 131,072 nodes
-# x 16,384 pods: cut from 1,048,576 x 32,768, then from 262,144 nodes, to
-# keep the script, phases 20-20b included, well inside its 1,200 s limit.
-SHARD_NODES, SHARD_PODS, SHARD_COUNTS = NODES // 8, 16384, (1, 2, 4)
+# (BASELINE config 1's shape: D1's batch and 5% window), at 65,536 nodes
+# x 8,192 pods: cut from 1,048,576 x 32,768, then from 262,144 nodes, then
+# (for phases 17d and 21-21a) from 131,072 x 16,384, to keep the script
+# well inside its 1,200 s limit.
+SHARD_NODES, SHARD_PODS, SHARD_COUNTS = NODES // 16, 8192, (1, 2, 4)
 # 18a: three ShardMembers on one in-process store at 8a's node count; 4,096
 # pods in 4 rounds of 1,024, the Rebalancer run after round 2 over a skewed
 # start (groups by g % 8: 0-4 on shard 0, 5-6 on shard 1, 7 on shard 2).
@@ -3762,7 +4079,9 @@ def phase_shard_parity(cpu_half=None) -> dict:
 
 # 19: the reference's 1M-node experiment (SURVEY §3.5; reference README's
 # make_nodes / make_pods procedure) over the wire, cut to 262,144 nodes for
-# the 1,200 s limit: make_nodes in 1,024-node PutFrames, make_pods at 8,192
+# the 1,200 s limit, then to 131,072 (and the Python store-stress lane from
+# 10,000 puts and 1,000 ranges to 5,000 and 500) for phases 17d and 21-21a:
+# make_nodes in 1,024-node PutFrames, make_pods at 8,192
 # per-put RPCs (cut from D1's 32,768 for the same limit; the tools' defaults,
 # --concurrency 100 --clients 4), a coordinator at D1's batch and window
 # binding them, the KWOK controller of group 0, the lease flood and the store
@@ -3770,8 +4089,8 @@ def phase_shard_parity(cpu_half=None) -> dict:
 # delete_pods.  19a: the same flow at 32,768 nodes with 2,048 pods, all
 # ten KWOK groups and one client at a time, coordinator on the card and on
 # the CPU.
-EXP_NODES, EXP_PODS, EXP_BULK = NODES // 4, COORD_PODS["D1"] // 4, 1024
-EXP_NATIVE_PUTS, EXP_PY_PUTS, EXP_PY_RANGES = 200_000, 10_000, 1_000
+EXP_NODES, EXP_PODS, EXP_BULK = NODES // 8, COORD_PODS["D1"] // 4, 1024
+EXP_NATIVE_PUTS, EXP_PY_PUTS, EXP_PY_RANGES = 200_000, 5_000, 500
 EXP_PARITY_NODES, EXP_PARITY_PODS = PARITY_NODES // 2, 2048
 EXP_TICKS = (10.0, 20.0)
 EXP_LEASES = b"/registry/leases/kube-node-lease/"
@@ -3980,7 +4299,7 @@ def _free_port() -> int:
 
 
 def phase_experiment() -> dict:
-    """19: the reference's experiment at 262,144 nodes: a fresh
+    """19: the reference's experiment at 131,072 nodes: a fresh
     ``server_main --metrics-port`` child; every tool a CLI child whose JSON
     line is read (a non-zero exit fails the phase); group 0's controller;
     the server reaped."""
@@ -4469,6 +4788,128 @@ def phase_mesh_bench() -> dict:
     return report
 
 
+# ---- phases 21, 21a: the composed steady drill with its failover lane ----------
+
+# 21 at 262,144 nodes: the JAX drill's 1,048,576 cut to fit the script's
+# limit beside phases 17d and 21a (PERF.md section 4).
+STEADY_NODES = NODES // 4
+# The drill's report keys that read the host clock (the warm takeover's
+# seconds, the run's stretches); every other key is the same on the card
+# and the CPU, as between two CPU runs of the JAX drill at one seed.
+STEADY_CLOCK_KEYS = ("recovery_s", "phase_s")
+
+
+def _scrub_steady(d):
+    if isinstance(d, dict):
+        return {k: _scrub_steady(v) for k, v in d.items()
+                if k not in STEADY_CLOCK_KEYS + DRILL_DEVICE_KEYS}
+    return d
+
+
+def _steady_gates(tag: str, rep: dict) -> None:
+    ev = rep["evidence"]
+    fo = ev["failover"]
+    tier = fo["watch_tier"]
+    check(rep["passed"], f"[{tag}] steady_drill did not pass: {json.dumps(ev)[:2000]}")
+    check(ev["lost"] == 0 and fo["kill_fired"] == 1 and fo["beta_leader"]
+          and fo["takeover_mode"] == "warm", f"[{tag}] failover lane: {fo}")
+    check(tier["resumes"] == 1 and tier["invalidations"] == 0 and tier["client_cancels"] == 0
+          and tier["client_errors"] == 0 and tier["events"] > 0,
+          f"[{tag}] the watch tier's lane: {tier}")
+
+
+# 21a's card half: the drill's CLI entry in a fresh process, its launch
+# counts set to 0 just before and read just after; its last stdout line is
+# {"report": ..., "launches": ...}.
+
+def _start_steady_parity() -> dict:
+    """21a's two halves, started now: ``steady_drill --smoke --failover`` on
+    the card and with ``--device cpu``, each in a fresh process."""
+    root, env = _child_env()
+    procs = {}
+    for dev, cmd, threads in (
+        ("cuda", ["-c", _CARD_TOOL, "steady_drill"], {}),
+        ("cpu", ["-m", "k8s1m_tpu_torch.tools.steady_drill", "--device", "cpu"],
+         {"OMP_NUM_THREADS": "1"}),
+    ):
+        with open(os.path.join(OUT_DIR, f"steady_drill_smoke_{dev}.log"), "w") as err:
+            procs[dev] = subprocess.Popen(
+                [sys.executable, *cmd, "--smoke", "--failover", "--out",
+                 os.path.join(OUT_DIR, f"steady_drill_smoke_{dev}.json")],
+                stdout=subprocess.PIPE, stderr=err, text=True, env={**env, **threads}, cwd=root)
+    return {"procs": procs, "t0": time.perf_counter()}
+
+
+def phase_steady(device: str = "cuda") -> dict:
+    """21: ``steady_drill --failover --nodes 262144 --chunk 4096`` on the
+    card (``STEADY_NODES``), every other flag at the JAX defaults (batch 256, depth 3, 6 zipf
+    tenants at skew 1.0, 24/16/60 steady/overload/recovery ticks at factor
+    5, 64 churned nodes a tick, a bind-CAS conflict every 37th, seed 5):
+    the HA pair with a mid-overload SIGKILL of the leader, and the
+    watch-cache tier over the same store with one client watch on the pods
+    prefix and an injected upstream break.  Gates: the drill's own
+    (``passed``), 0 lost, the warm standby leading, the tier resumed once
+    with 0 invalidations and 0 client cancels, fused base launches in the
+    run (counts set to 0 just before it)."""
+    from k8s1m_tpu_torch.tools import steady_drill
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rep = steady_drill.main(["--failover", "--nodes", str(STEADY_NODES), "--chunk",
+                                 str(CHUNK), "--device", device,
+                                 "--out", os.path.join(OUT_DIR, "steady_drill.json")])
+    launches = _launch_counts()
+    _steady_gates("21", rep)
+    check(rep["device"] == device, "[21] device")
+    check(launches["fused_topk_by_stage"]["base"] > 0, f"[21] no fused base launch: {launches}")
+    ev = rep["evidence"]
+    wall = time.perf_counter() - t0
+    log(f"[21] steady_drill --failover at {STEADY_NODES:,} nodes (chunk {CHUNK}): passed; "
+        f"admitted {ev['admitted']} (rejected {ev['rejected']}), lost 0, states "
+        f"{ev['states_seen']}, recovered at tick {ev['recovered_at_tick']}, in-flight depth "
+        f"{ev['sustained_inflight_depth']}, faults {ev['faults_injected']}; failover recovery "
+        f"{ev['failover']['recovery_s']:.4f} s ({ev['failover']['takeover_mode']}), tier "
+        f"{json.dumps(ev['failover']['watch_tier'])}; phases {json.dumps(ev['phase_s'])}; "
+        f"launches {launches} ({wall:.1f}s)")
+    return {"evidence": rep, "launches": launches, "seconds": round(wall, 3)}
+
+
+def phase_steady_parity(started: dict) -> dict:
+    """21a: ``steady_drill --smoke --failover`` on the card and with
+    ``--device cpu`` (started by ``_start_steady_parity``): both pass every
+    gate of 21 and their reports are equal once the host-clock keys
+    (``STEADY_CLOCK_KEYS``) and the device are removed."""
+    procs = started["procs"]
+    try:
+        outs = {dev: proc.communicate(timeout=600)[0] for dev, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for dev, proc in procs.items():
+        check(proc.returncode == 0 and outs[dev].strip(),
+              f"[21a] steady_drill on {dev} exited {proc.returncode} "
+              f"(steady_drill_smoke_{dev}.log)")
+    card_out = json.loads(outs["cuda"].strip().splitlines()[-1])
+    card, launches = card_out["report"], card_out["launches"]
+    cpu = json.loads(outs["cpu"].strip().splitlines()[-1])
+    _steady_gates("21a card", card)
+    _steady_gates("21a cpu", cpu)
+    check(card["device"] == "cuda" and cpu["device"] == "cpu", "[21a] devices")
+    check(launches["fused_topk_by_stage"]["base"] > 0, f"[21a] no base launch: {launches}")
+    check(_scrub_steady(card) == _scrub_steady(cpu), "[21a] card and CPU reports differ")
+    log(f"[21a] steady_drill --smoke --failover on the card and the CPU: both pass, reports "
+        f"equal without {list(STEADY_CLOCK_KEYS + DRILL_DEVICE_KEYS)} (admitted "
+        f"{card['evidence']['admitted']}, tier events "
+        f"{card['evidence']['failover']['watch_tier']['events']}); recovery card "
+        f"{card['evidence']['failover']['recovery_s']:.4f} s, cpu "
+        f"{cpu['evidence']['failover']['recovery_s']:.4f} s; launches {launches} "
+        f"({time.perf_counter() - started['t0']:.1f}s since both started)")
+    return {"cuda": {"evidence": card, "launches": launches}, "cpu": cpu}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="timed waves per layout (phase 4)")
@@ -4487,6 +4928,10 @@ def main(argv=None) -> int:
     ap.add_argument("--wire-asyncio-only", action="store_true",
                     help="run only the device and build phases, 17a's card run over the "
                          "native wire and phase 17c, and print their results")
+    ap.add_argument("--tier-only", action="store_true",
+                    help="run only the device and build phases, 17a's card run over the "
+                         "native wire, phase 17d (the secured watch-cache tier) and phases "
+                         "21-21a (the composed steady drill), and print their results")
     args = ap.parse_args(argv)
     if min(args.steps, args.path_steps, args.delta_steps, args.warmup) < 1:
         ap.error("--steps, --path-steps, --delta-steps and --warmup must be >= 1")
@@ -4512,6 +4957,16 @@ def main(argv=None) -> int:
                                  **probes},
                "17c": phase_wire_asyncio(stored)}
         _log_wire_probes(out)
+        log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
+        print(json.dumps(out, default=str), flush=True)
+        return 0
+    if args.tier_only:
+        stored, seconds, launches, probes = _wire_parity_run("cuda", True, probe=True)
+        out = {"17a cuda wire": {"seconds": round(seconds, 3), "launches": launches, **probes},
+               "17d": phase_tier(stored, probes["relist_s"])}
+        steady_parity = _start_steady_parity()  # 21a's halves, beside 21 (as in the full run)
+        out["21"] = phase_steady()
+        out["21a"] = phase_steady_parity(steady_parity)
         log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
         print(json.dumps(out, default=str), flush=True)
         return 0
@@ -4564,6 +5019,7 @@ def main(argv=None) -> int:
     wire = {"17": phase_wire("17")}
     wire_parity, wire_stored = phase_wire_parity()
     wire_parity["17c"] = phase_wire_asyncio(wire_stored)
+    tier = phase_tier(wire_stored, wire_parity["cuda wire"]["relist_s"])
     del wire_stored
     _log_wire_probes({"17a cuda wire": wire_parity["cuda wire"], "17c": wire_parity["17c"]})
     wire["17b"] = phase_wire("17b")
@@ -4579,10 +5035,13 @@ def main(argv=None) -> int:
     mesh = phase_mesh(device, steps=args.delta_steps, warmup=args.warmup)
     mesh_parity = phase_mesh_parity(mesh_cpu)
     mesh_bench = phase_mesh_bench()
+    steady_parity_started = _start_steady_parity()  # 21a's halves, beside 21
+    steady = phase_steady()
+    steady_parity = phase_steady_parity(steady_parity_started)
     log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
 
-    # Launches of the coordinator's paths (phases 8, 10-16a, 17-17c, 18a, 19
-    # and 19a, counts set to 0 just before each measured run and read just
+    # Launches of the coordinator's paths (phases 8, 10-16a, 17-17d, 18a, 19,
+    # 19a, 20a, 20b, 21 and 21a, counts set to 0 just before each measured run and read just
     # after it; 18's workers set theirs to 0 after their warm-up pod and
     # report them with their final status), per fused stage.
     runs = ([r["detail"]["launches"] for r in coord.values()]
@@ -4598,7 +5057,8 @@ def main(argv=None) -> int:
                experiment_parity["cuda"]["launches"]]
             + [r["report"]["detail"]["launches"] for t, r in mesh_parity["runs"].items()
                if t.endswith(" cuda")]
-            + [mesh_bench["detail"]["launches"]])
+            + [mesh_bench["detail"]["launches"], tier["launches"], steady["launches"],
+               steady_parity["cuda"]["launches"]])
     coord_launches = {
         stage: sum(r["fused_topk_by_stage"][stage] for r in runs)
         for stage in ("base", "aff", "cons")
@@ -4675,7 +5135,8 @@ def main(argv=None) -> int:
                        "wire": wire, "wire_parity": wire_parity, "shards": shards,
                        "shard_parity": shard_parity, "experiment": experiment,
                        "experiment_parity": experiment_parity, "mesh": mesh,
-                       "mesh_parity": mesh_parity, "mesh_bench": mesh_bench, **kernels},
+                       "mesh_parity": mesh_parity, "mesh_bench": mesh_bench, "tier": tier,
+                       "steady": steady, "steady_parity": steady_parity, **kernels},
                       f, indent=1, default=str)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

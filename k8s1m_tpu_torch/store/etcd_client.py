@@ -78,37 +78,60 @@ class EtcdClient:
         return resp_cls.decode(await self.channel.unary_async(path, req.encode()))
 
     # The raw calls, request message in and response message out (the JAX
-    # client's ``_txn``/``_put_frame`` multicallables).
+    # client's multicallables): every public call goes through one, and the
+    # watch-cache tier forwards its clients' requests upstream with them.
+    async def _range(self, req: pb.RangeRequest) -> pb.RangeResponse:
+        return await self._call(_RANGE, req, pb.RangeResponse)
+
+    async def _put(self, req: pb.PutRequest) -> pb.PutResponse:
+        return await self._call(_PUT, req, pb.PutResponse)
+
+    async def _delete(self, req: pb.DeleteRangeRequest) -> pb.DeleteRangeResponse:
+        return await self._call(_DELETE, req, pb.DeleteRangeResponse)
+
     async def _txn(self, req: pb.TxnRequest) -> pb.TxnResponse:
         return await self._call(_TXN, req, pb.TxnResponse)
+
+    async def _compact(self, req: pb.CompactionRequest) -> pb.CompactionResponse:
+        return await self._call(_COMPACT, req, pb.CompactionResponse)
+
+    async def _lease_grant(self, req: pb.LeaseGrantRequest) -> pb.LeaseGrantResponse:
+        return await self._call(_LEASE_GRANT, req, pb.LeaseGrantResponse)
+
+    async def _lease_revoke(self, req: pb.LeaseRevokeRequest) -> pb.LeaseRevokeResponse:
+        return await self._call(_LEASE_REVOKE, req, pb.LeaseRevokeResponse)
+
+    async def _status(self, req: pb.StatusRequest) -> pb.StatusResponse:
+        return await self._call(_STATUS, req, pb.StatusResponse)
 
     async def _put_frame(self, req: pb.PutFrameRequest) -> pb.PutFrameResponse:
         return await self._call(_PUT_FRAME, req, pb.PutFrameResponse)
 
+    async def _bind_frame(self, req: pb.BindFrameRequest) -> pb.BindFrameResponse:
+        return await self._call(_BIND_FRAME, req, pb.BindFrameResponse)
+
     # ---- KV ------------------------------------------------------------
 
     async def put(self, key: bytes, value: bytes, lease: int = 0) -> int:
-        resp = await self._call(_PUT, pb.PutRequest(key=key, value=value, lease=lease),
-                                pb.PutResponse)
+        resp = await self._put(pb.PutRequest(key=key, value=value, lease=lease))
         return _revision(resp)
 
     async def get(self, key: bytes):
-        resp = await self._call(_RANGE, pb.RangeRequest(key=key), pb.RangeResponse)
+        resp = await self._range(pb.RangeRequest(key=key))
         return resp.kvs[0] if resp.kvs else None
 
     async def range(self, key: bytes, range_end: bytes = b"", *, limit: int = 0,
                     revision: int = 0, count_only: bool = False,
                     keys_only: bool = False) -> pb.RangeResponse:
-        return await self._call(_RANGE, pb.RangeRequest(
+        return await self._range(pb.RangeRequest(
             key=key, range_end=range_end, limit=limit, revision=revision,
-            count_only=count_only, keys_only=keys_only), pb.RangeResponse)
+            count_only=count_only, keys_only=keys_only))
 
     async def prefix(self, prefix: bytes, **kwargs) -> pb.RangeResponse:
         return await self.range(prefix, prefix_end(prefix), **kwargs)
 
     async def delete(self, key: bytes, range_end: bytes = b"") -> int:
-        resp = await self._call(_DELETE, pb.DeleteRangeRequest(key=key, range_end=range_end),
-                                pb.DeleteRangeResponse)
+        resp = await self._delete(pb.DeleteRangeRequest(key=key, range_end=range_end))
         return resp.deleted
 
     async def txn_cas(self, key: bytes, value: bytes | None, *,
@@ -143,27 +166,24 @@ class EtcdClient:
     async def bind_batch(self, binds: list[tuple[bytes, int, bytes]]) -> list[int]:
         """Bind wave (key, required_mod, node_name) -> per-record revision,
         or -1 (CAS conflict) / -5 (not spliceable).  BatchKV extension."""
-        resp = await self._call(_BIND_FRAME, pb.BindFrameRequest(
-            frame=pack_bind_frame(binds), count=len(binds)), pb.BindFrameResponse)
+        resp = await self._bind_frame(pb.BindFrameRequest(
+            frame=pack_bind_frame(binds), count=len(binds)))
         return list(resp.revisions)
 
     async def compact(self, revision: int) -> None:
-        await self._call(_COMPACT, pb.CompactionRequest(revision=revision),
-                         pb.CompactionResponse)
+        await self._compact(pb.CompactionRequest(revision=revision))
 
     # ---- Lease / Maintenance ------------------------------------------
 
     async def lease_grant(self, ttl: int) -> int:
-        resp = await self._call(_LEASE_GRANT, pb.LeaseGrantRequest(TTL=ttl),
-                                pb.LeaseGrantResponse)
+        resp = await self._lease_grant(pb.LeaseGrantRequest(TTL=ttl))
         return resp.ID
 
     async def lease_revoke(self, lease_id: int) -> None:
-        await self._call(_LEASE_REVOKE, pb.LeaseRevokeRequest(ID=lease_id),
-                         pb.LeaseRevokeResponse)
+        await self._lease_revoke(pb.LeaseRevokeRequest(ID=lease_id))
 
     async def status(self) -> pb.StatusResponse:
-        return await self._call(_STATUS, pb.StatusRequest(), pb.StatusResponse)
+        return await self._status(pb.StatusRequest())
 
     # ---- Watch ---------------------------------------------------------
 
@@ -206,7 +226,7 @@ class WatchSession:
             hand(WireError(code, details or "watch stream ended"))
 
         self._queue = queue
-        self._stream = self._client.channel.stream(_WATCH, hand, on_close)
+        self._stream = await self._client.channel.stream_async(_WATCH, hand, on_close)
         try:
             self._stream.send(self._req.encode())
             first = await self._read(None)

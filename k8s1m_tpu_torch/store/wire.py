@@ -804,15 +804,29 @@ class Channel:
                 self._conn = c
             return c
 
+    async def connection_async(self) -> H2Connection:
+        """``connection()`` for a coroutine: a new connection (its connect
+        and TLS handshake) is made on a worker thread, so the loop goes on
+        running meanwhile, a server on the same loop included."""
+        c = self._conn
+        if c is not None and c.usable and not self._closed:
+            return c
+        return await asyncio.to_thread(self.connection)
+
     def unary(self, path: str, request: bytes) -> bytes:
         return self.connection().unary(path.encode(), request, self.metadata)
 
     async def unary_async(self, path: str, request: bytes) -> bytes:
-        return await self.connection().unary_async(path.encode(), request, self.metadata)
+        conn = await self.connection_async()
+        return await conn.unary_async(path.encode(), request, self.metadata)
 
     def stream(self, path: str, on_message, on_close) -> Stream:
         return self.connection().open_stream(path.encode(), self.metadata, on_message,
                                              on_close)
+
+    async def stream_async(self, path: str, on_message, on_close) -> Stream:
+        conn = await self.connection_async()
+        return conn.open_stream(path.encode(), self.metadata, on_message, on_close)
 
     def close(self) -> None:
         with self._lock:

@@ -25,21 +25,32 @@ reuses the client's HPACK decoder and encoder, its frame header and its
   unary-stream and stream-stream handlers; ``context.abort(code,
   details)``.
 
-No TLS: the etcd server binds insecure, as the JAX one does.
+- **TLS** (what ``grpc.ssl_server_credentials`` gives the JAX watch-cache
+  tier): ``add_secure_port`` serves a port through ``ssl`` with a context
+  from ``server_ssl_context`` (the PEM pair, ALPN ``h2``); a plaintext
+  client or one that does not trust the chain fails its handshake.
+- **Bearer auth** (the JAX tier's ``_BearerAuth`` interceptor):
+  ``Server(bearer_token=...)`` compares every call's ``authorization``
+  header with ``Bearer <token>`` (``hmac.compare_digest``); a call without
+  it never reaches its handler and ends trailers-only with
+  ``UNAUTHENTICATED``, unary and streaming alike.
 
-``Server`` mirrors the ``grpc.aio.Server`` calls the JAX server makes:
+``Server`` mirrors the ``grpc.aio.Server`` calls the JAX servers make:
 ``add_generic_rpc_handlers`` takes ``(service, {method: handler})`` pairs,
-``add_insecure_port`` binds (port 0 picks a free one) and returns the port,
-then ``start()`` and ``stop()``.  Every coroutine runs on the loop that
-called ``start()``.
+``add_insecure_port``/``add_secure_port`` bind (port 0 picks a free one) and
+return the port, then ``start()``, ``stop()`` and
+``wait_for_termination()``.  Every coroutine runs on the loop that called
+``start()``.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import hmac
 import logging
 import socket
+import ssl
 
 from k8s1m_tpu_torch.store.wire import (
     ACK,
@@ -124,6 +135,17 @@ class ServicerContext:
 
     async def abort(self, code, details: str = "") -> None:
         raise AbortError(code, details)
+
+
+UNAUTHENTICATED_DETAILS = "invalid or missing bearer token"
+
+
+def server_ssl_context(cert_pem: str, key_pem: str) -> ssl.SSLContext:
+    """A TLS server context from the PEM pair, offering ALPN ``h2`` only."""
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    ctx.load_cert_chain(cert_pem, key_pem)
+    ctx.set_alpn_protocols(["h2"])
+    return ctx
 
 
 def _percent_encode(details: str) -> bytes:
@@ -412,6 +434,10 @@ class _Connection(asyncio.Protocol):
             handler = None
         elif handler is None:
             st.error = (StatusCode.UNIMPLEMENTED, "Method not found!")
+        elif self.server._bearer is not None and not hmac.compare_digest(
+                h.get(b"authorization", b""), self.server._bearer):
+            st.error = (StatusCode.UNAUTHENTICATED, UNAUTHENTICATED_DETAILS)
+            handler = None
         timeout = h.get(b"grpc-timeout")
         st.task = asyncio.get_running_loop().create_task(self._run(st, handler))
         self.server._tasks.add(st.task)
@@ -604,12 +630,14 @@ class _Connection(asyncio.Protocol):
 class Server:
     """An asyncio gRPC server (see the module doc)."""
 
-    def __init__(self):
+    def __init__(self, bearer_token: str | None = None):
         self._handlers: dict[str, RpcMethodHandler] = {}
-        self._socks: list[socket.socket] = []
+        self._bearer = None if bearer_token is None else b"Bearer " + bearer_token.encode()
+        self._socks: list[tuple[socket.socket, ssl.SSLContext | None]] = []
         self._servers: list = []
         self._connections: set[_Connection] = set()
         self._tasks: set[asyncio.Task] = set()
+        self._stopped: asyncio.Event | None = None
 
     def add_generic_rpc_handlers(self, services) -> None:
         """``services``: ``(service_name, {method: RpcMethodHandler})`` pairs;
@@ -621,6 +649,14 @@ class Server:
     def add_insecure_port(self, address: str) -> int:
         """Bind ``host:port`` now (port 0 picks a free one); returns the
         port, or 0 if the address cannot be bound, as grpcio does."""
+        return self._bind(address, None)
+
+    def add_secure_port(self, address: str, ssl_context: ssl.SSLContext) -> int:
+        """``add_insecure_port`` for a port served through TLS with
+        ``ssl_context`` (``server_ssl_context``)."""
+        return self._bind(address, ssl_context)
+
+    def _bind(self, address: str, ssl_context: ssl.SSLContext | None) -> int:
         host, _, port = address.rpartition(":")
         host = host.strip("[]") or "0.0.0.0"
         try:
@@ -638,13 +674,19 @@ class Server:
         except OSError:
             sock.close()
             return 0
-        self._socks.append(sock)
+        self._socks.append((sock, ssl_context))
         return sock.getsockname()[1]
 
     async def start(self) -> None:
         loop = asyncio.get_running_loop()
-        for sock in self._socks:
-            self._servers.append(await loop.create_server(lambda: _Connection(self), sock=sock))
+        self._stopped = asyncio.Event()
+        for sock, ctx in self._socks:
+            self._servers.append(await loop.create_server(lambda: _Connection(self), sock=sock,
+                                                          ssl=ctx))
+
+    async def wait_for_termination(self) -> None:
+        """Return once ``stop()`` has run."""
+        await self._stopped.wait()
 
     async def stop(self) -> None:
         """Stop listening, send GOAWAY on every connection, cancel the calls
@@ -664,3 +706,5 @@ class Server:
             await srv.wait_closed()
         self._servers.clear()
         self._socks.clear()
+        if self._stopped is not None:
+            self._stopped.set()

@@ -15,7 +15,15 @@ write), or at SIGTERM/SIGINT, which stops the writers, waits up to 5 s for
 the events of the writes made so far, and reports.  The writers start
 once the server has confirmed every watch.  A stream that fails is
 counted in ``stream_errors``, never logged.  The report is one JSON line
-on stdout (``--quiet`` keeps stdout empty).
+on stdout (``--quiet`` keeps stdout empty), with the fewest and the most
+events one watcher saw.
+
+``--prefix`` watches another prefix (the writers write there too), and
+``--writes 0`` only watches: the watchers count what others write under
+the prefix until SIGTERM/SIGINT, then wait up to 30 s for every watcher to
+have seen ``--expect-events`` events, and report.  That is how a client
+population watches, say, ``/registry/pods/`` through a watch-cache tier
+while a scheduler writes there.
 """
 
 from __future__ import annotations
@@ -41,6 +49,11 @@ def parse_args(argv=None):
     ap.add_argument("--watchers", type=int, default=50)
     ap.add_argument("--writes", type=int, default=1000)
     ap.add_argument("--write-concurrency", type=int, default=50)
+    ap.add_argument("--prefix", default=PREFIX.decode(),
+                    help="the watched (and written) prefix")
+    ap.add_argument("--expect-events", type=int, default=0,
+                    help="with --writes 0: the events each watcher must see "
+                    "before the report, once stopped")
     ap.add_argument("--ca-pem", default=None, help="TLS: trust this CA for --target")
     ap.add_argument("--token", default=None, help="bearer token for --target")
     ap.add_argument("--quiet", action="store_true", help="print no report")
@@ -53,21 +66,29 @@ class _Tally:
     def __init__(self, want: int):
         self.want = want
         self.delivered = 0
+        self.per_watcher: list[int] = []
         self.created = 0
         self.stream_errors = 0
         self.closing = False
         self._lock = threading.Lock()
         self.done = threading.Event()
 
-    def on_message(self, data: bytes) -> None:
-        n = pb.count_watch_events(data)
-        with self._lock:
-            if n:
-                self.delivered += n
-                if self.delivered >= self.want:
-                    self.done.set()
-            elif pb.parse_watch_response(data).created:
-                self.created += 1
+    def on_message_for(self, i: int):
+        """The message callback of watcher ``i``."""
+        self.per_watcher.append(0)
+
+        def on_message(data: bytes) -> None:
+            n = pb.count_watch_events(data)
+            with self._lock:
+                if n:
+                    self.delivered += n
+                    self.per_watcher[i] += n
+                    if self.delivered >= self.want:
+                        self.done.set()
+                elif pb.parse_watch_response(data).created:
+                    self.created += 1
+
+        return on_message
 
     def on_close(self, code, _details: str) -> None:
         if not self.closing and code != StatusCode.OK:
@@ -77,7 +98,9 @@ class _Tally:
 
 def run(args, stop: threading.Event | None = None) -> dict:
     stop = stop or threading.Event()
-    tally = _Tally(args.watchers * args.writes)
+    prefix = args.prefix.encode()
+    watch_only = args.writes == 0
+    tally = _Tally(args.watchers * (args.expect_events if watch_only else args.writes))
     watch_ch = Channel(args.target, ca_pem=args.ca_pem, token=args.token)
     writer = RemoteStore(args.target, ca_pem=args.ca_pem, token=args.token)
     streams = []
@@ -85,10 +108,10 @@ def run(args, stop: threading.Event | None = None) -> dict:
     write_lock = threading.Lock()
     try:
         create = pb.WatchRequest(create_request=pb.WatchCreateRequest(
-            key=PREFIX, range_end=prefix_end(PREFIX))).encode()
-        for _ in range(args.watchers):
+            key=prefix, range_end=prefix_end(prefix))).encode()
+        for i in range(args.watchers):
             try:
-                s = watch_ch.stream(_WATCH, tally.on_message, tally.on_close)
+                s = watch_ch.stream(_WATCH, tally.on_message_for(i), tally.on_close)
                 s.send(create)
                 streams.append(s)
             except WireError:
@@ -102,13 +125,23 @@ def run(args, stop: threading.Event | None = None) -> dict:
             for i in range(wid, args.writes, args.write_concurrency):
                 if stop.is_set():
                     return
-                writer.put(PREFIX + b"key-%06d" % (i % 100), b"x" * 64)
+                writer.put(prefix + b"key-%06d" % (i % 100), b"x" * 64)
                 with write_lock:
                     writes += 1
 
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=write, args=(w,), daemon=True)
-                   for w in range(args.write_concurrency)]
+        if watch_only:
+            # Others write: count until stopped, then let every watcher
+            # reach --expect-events (30 s at most).
+            while not stop.wait(0.1):
+                pass
+            deadline = time.perf_counter() + 30.0
+            while (min(tally.per_watcher, default=0) < args.expect_events
+                   and time.perf_counter() < deadline):
+                time.sleep(0.01)
+        threads = [] if watch_only else [
+            threading.Thread(target=write, args=(w,), daemon=True)
+            for w in range(args.write_concurrency)]
         for t in threads:
             t.start()
         for t in threads:
@@ -135,6 +168,8 @@ def run(args, stop: threading.Event | None = None) -> dict:
         "events_per_sec": round(tally.delivered / total_s, 1) if total_s else 0.0,
         "amplification": args.watchers,
         "stream_errors": tally.stream_errors,
+        "per_watcher_min": min(tally.per_watcher, default=0),
+        "per_watcher_max": max(tally.per_watcher, default=0),
     }
 
 

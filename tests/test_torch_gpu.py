@@ -1023,6 +1023,58 @@ def test_sched_bench_over_the_wire_on_card(cuda):
     assert all(b'"nodeName"' in kv.value for kv in kvs)
 
 
+@pytest.mark.gpu
+def test_sched_bench_through_the_secured_tier_on_card(cuda, tmp_path, monkeypatch):
+    """The watch-cache tier in a child (``python -m
+    k8s1m_tpu_torch.store.watch_cache``) in front of the store server in
+    another, serving TLS from a chain the ``openssl`` command made
+    (``cryptography`` blocked) and requiring a bearer token; ``sched_bench
+    --target <tier> --ca-pem --token`` on the card through it: every pod
+    binds, the fused kernel launches; a wrong token is refused
+    ``UNAUTHENTICATED``; both children reaped."""
+    import sys
+
+    from k8s1m_tpu_torch.cluster.certs import provision
+    from k8s1m_tpu_torch.store.proto import codec
+    from k8s1m_tpu_torch.store.native import list_prefix
+    from k8s1m_tpu_torch.store.server_main import serve_subprocess
+    from k8s1m_tpu_torch.store.watch_cache import tier_subprocess
+    from k8s1m_tpu_torch.store.wire import Channel, StatusCode, WireError
+    from k8s1m_tpu_torch.tools import sched_bench
+
+    monkeypatch.setitem(sys.modules, "cryptography", None)
+    certs = provision(str(tmp_path / "certs"))
+    monkeypatch.delitem(sys.modules, "cryptography")
+    token = "card-token"
+    with serve_subprocess() as (sproc, upstream), tier_subprocess(
+            upstream, "--prefix", "/registry/", "--tls-cert", certs.cert_pem, "--tls-key",
+            certs.key_pem, "--auth-token", token) as (tproc, target):
+        args = sched_bench.parse_args(["--target", target, "--ca-pem", certs.ca_pem,
+                                       "--token", token, "--nodes", "16384", "--pods", "4096",
+                                       "--batch", "512", "--score-pct", "25",
+                                       "--packing", "packed"])
+        report, coord, store = sched_bench.run(args)
+        try:
+            coord.flush()
+            kvs, _ = list_prefix(store, b"/registry/pods/")
+        finally:
+            coord.close()
+            store.close()
+        ch = Channel(target, ca_pem=certs.ca_pem, token="wrong")
+        try:
+            with pytest.raises(WireError) as ei:
+                ch.unary("/etcdserverpb.KV/Range",
+                         codec.RangeRequest(key=b"/registry/pods/").encode())
+        finally:
+            ch.close()
+        assert ei.value.code == StatusCode.UNAUTHENTICATED
+    assert sproc.returncode is not None and tproc.returncode is not None
+    d = report["detail"]
+    assert d["device"] == "cuda" and d["launches"]["fused_topk"] > 0
+    assert d["bound"] == 4095 and len(kvs) == 4096
+    assert all(b'"nodeName"' in kv.value for kv in kvs)
+
+
 # ---- the shard set -------------------------------------------------------------
 
 

@@ -456,6 +456,8 @@ def test_port_imports_no_grpc_protobuf_or_jax():
     mods = set(out.stdout.split("\n")[-3].split())
     assert {f"k8s1m_tpu_torch.store.{m}" for m in ("wire_server", "etcd_server",
                                                    "wiretier")} <= mods
+    assert {"k8s1m_tpu_torch.store.watch_cache", "k8s1m_tpu_torch.cluster.certs",
+            "k8s1m_tpu_torch.tools.steady_drill"} <= mods
 
 
 _SERVE_BLOCKED = r"""
@@ -487,6 +489,49 @@ def test_blocked_child_serves_one_range():
     """With grpc, protobuf, JAX and the JAX package blocked, the port's
     asyncio server starts in a child and answers one Range."""
     out = subprocess.run([sys.executable, "-c", _SERVE_BLOCKED], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split("\n")[0] == "[(b'/registry/a', b'v')] 2"
+
+
+_TIER_BLOCKED = r"""
+import asyncio, sys, tempfile
+for name in ("grpc", "google.protobuf", "jax", "k8s1m_tpu", "cryptography"):
+    sys.modules[name] = None
+from k8s1m_tpu_torch.cluster.certs import provision
+from k8s1m_tpu_torch.store import etcd_server
+from k8s1m_tpu_torch.store.etcd_client import EtcdClient
+from k8s1m_tpu_torch.store.native import MemStore
+from k8s1m_tpu_torch.store.watch_cache import serve_watch_cache
+
+async def main():
+    certs = provision(tempfile.mkdtemp())
+    store = MemStore()
+    server, port = await etcd_server.serve(store, port=0)
+    tier = await serve_watch_cache(f"127.0.0.1:{port}", [b"/registry/"], port=0,
+                                   tls=certs, auth_token="t")
+    client = EtcdClient(f"127.0.0.1:{tier.port}", ca_pem=certs.ca_pem, token="t")
+    try:
+        await client.put(b"/registry/a", b"v")
+        resp = await client.prefix(b"/registry/")
+        print([(kv.key, kv.value) for kv in resp.kvs], resp.header.revision)
+    finally:
+        await client.close()
+        await tier.close()
+        await server.stop()
+        await asyncio.get_running_loop().shutdown_default_executor()
+        store.close()
+
+asyncio.run(main())
+"""
+
+
+def test_blocked_child_serves_the_secured_tier():
+    """With grpc, protobuf, JAX, the JAX package and ``cryptography``
+    blocked (the card's machine has no ``cryptography``), the port's tier
+    serves TLS with a bearer token from an ``openssl``-made chain in a
+    child, and a put and a read-your-write list go through it."""
+    out = subprocess.run([sys.executable, "-c", _TIER_BLOCKED], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split("\n")[0] == "[(b'/registry/a', b'v')] 2"
