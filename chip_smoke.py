@@ -32,7 +32,9 @@ coordinator, KWOK controllers, the lease flood and store stress,
 verify_cluster, /metrics and delete_pods (19), card vs CPU (19a) — and the
 dp x sp mesh (``parallel/``): the sharded waves against the single device
 (20), ``Coordinator(mesh=)`` card vs CPU (20a) and ``sched_bench --mesh``
-(20b).
+(20b) — the composed steady drill (21, 21a) — and the cluster harness
+``cluster/harness.py`` with a leader and a standby coordinator (22), card
+vs CPU behind the secured tier (22a), and ``tools/fidelity_ab.py`` (22b).
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device  — the card's name, and its name and power limit as
@@ -278,12 +280,12 @@ Phases (each raises on failure; the script then exits non-zero):
                the CPU: after every tick the masks are disjoint and every
                pod the tick bound sits on a row its member owned at launch;
                byte-identical stored pods;
-  19. experiment — the reference's 1M-node procedure at 131,072 nodes
+  19. experiment — the reference's 1M-node procedure at 65,536 nodes
                against a fresh
                ``server_main --metrics-port`` child, each tool a CLI child
                (``python -m k8s1m_tpu_torch.tools.<tool>``, its JSON line
                read, a non-zero exit fails the phase): ``make_nodes --count
-               131072 --bulk 1024`` (count, 0 errors, ``find_gaps`` none),
+               65536 --bulk 1024`` (count, 0 errors, ``find_gaps`` none),
                ``make_pods --count 8192`` (per-put RPCs at the tools'
                defaults), a ``Coordinator`` on the card over a
                ``RemoteStore`` at D1's shape (every pod bound once, base
@@ -291,10 +293,10 @@ Phases (each raises on failure; the script then exits non-zero):
                10 and 20: its tenth of the nodes adopted, every pod bound to them
                started, every lease renewed on each tick and stored, the
                lease-delay histogram rendered), ``lease_flood --nodes
-               131072 --rounds 1 --batch 1024``, ``store_stress
+               65536 --rounds 1 --batch 1024``, ``store_stress
                --native-client --puts 200000`` and the Python lane at 5,000
                puts and 500 ranges (0 errors), ``count_ready`` (nodes sum
-               to 131,072, Running = started, none unbound), one ``GET
+               to 65,536, Running = started, none unbound), one ``GET
                /metrics`` (200), ``delete_pods --prefix bench-pod`` (8,192
                deleted, the prefix empty).  Prints every tool's rate and
                each step's seconds;
@@ -344,25 +346,44 @@ Phases (each raises on failure; the script then exits non-zero):
   21a. steady drill parity — ``steady_drill --smoke --failover`` on the card
                and with ``--device cpu``, each in a fresh process beside 21:
                both pass 21's gates, and the reports are equal without the
-               host-clock keys and the device.
+               host-clock keys and the device;
+  22. harness — ``cluster/harness.py`` as ``cluster.up`` drives it:
+               ``ClusterSpec(nodes=131072, table 1,048,576 rows,
+               kwok_groups=2, coordinators=2, device="cuda",
+               backend="pallas")`` (waves of 256 pods, the JAX default),
+               the nodes in PutFrames, one tick, ``run_pods(16384)``
+               alone on the host: every pod bound once and Running,
+               no node over its slots, one leader and a standby without a
+               coordinator, fused base launches.  Prints binds/s, ticks and
+               the ticks' host seconds by coordinator, KWOK and compaction;
+  22a. harness parity — 512 nodes, 1,024 pods, KWOK behind the secured
+               watch-cache tier (TLS, bearer token), a watch barrier before
+               every tick, on the card and on the CPU, each in a child
+               beside 20a: the stored pods byte-identical, the binds per tick and the
+               leader equal, base launches on the card;
+  22b. fidelity A/B — ``fidelity_ab`` at its defaults (2,000 nodes x
+               2,000 pods, 60 simulated seconds) on the card, and on the CPU
+               in a child: the reports equal, both arms bind
+               every pod, base launches on the card.
 Phases 5 and 6 print the same group and bound figures as phase 4.  The
 parity phases 8a, 10a, 12a, 18a, 19a and 20a run their CPU half in a child
 process beside the card's half; 8a's CPU halves start beside phase 3,
 10a's and 12a's beside phase 9 (10a and 12a then run before phase 10);
 18a runs after 19a (the longer card half first), so that the CPU halves
-of each pair run together, and 20a's CPU half runs beside phase 20.  The
+of each pair run together, and 20a's CPU half runs beside phase 20; 22a's
+card and CPU halves run in children beside 20a, so that 22 runs alone.  The
 next-to-last line is ``{"kernels": [...]}`` (one entry per fused-kernel
 stage configuration and one for the delta kernel: times, bound, launches;
 the fused entries add ``bound_per_pair_ms``, ``groups`` and
 ``all_distinct_ms``; ``launches`` includes the coordinator's of phases 8,
 10-16a, 17-17d, 18 (each worker's window), 18a, 19, 19a, 20a (card), 20b,
-21 and 21a (card), which ``coordinator_launches`` also gives alone, per fused stage, and
+21, 21a (card) and 22-22b (card), which ``coordinator_launches`` also gives alone, per fused stage, and
 phase 20's mesh waves, which ``mesh_launches`` gives alone);
 the last is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--steps 4] [--path-steps 3] [--delta-steps 2] [--warmup 1]
                           [--out results.json] [--worst-case-only] [--mesh-only]
-                          [--wire-asyncio-only] [--tier-only]
+                          [--wire-asyncio-only] [--tier-only] [--harness-only]
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -2254,25 +2275,39 @@ def _portable(run: dict) -> dict:
 # the card's host) overlaps the phases between; each then waits on stdin for
 # its call.  10a and 12a run side by side, and so do 18a and 19a: both CPU
 # halves of a pair are handed their calls before the first card half runs.
-_CPU_CHILD = ("import json, sys, chip_smoke as cs, k8s1m_tpu_torch.tools.sched_bench; "
-              "func, args = json.loads(sys.stdin.readline()); "
-              "print(json.dumps(cs._portable(getattr(cs, func)('cpu', *args))), flush=True)")
+# A card half run in a child (22a's) is the same script on "cuda".
+_CHILD = ("import json, sys, chip_smoke as cs, k8s1m_tpu_torch.tools.sched_bench; "
+          "func, args = json.loads(sys.stdin.readline()); "
+          "print(json.dumps(cs._portable(getattr(cs, func)(sys.argv[1], *args))), flush=True)")
 _CPU_THREADS = [2, 2, 2, 4, 4, 4, 4, 4]
 _WARM: list = []
 _HANDED: list = []      # children given their work; reaped by _card_and_cpu or at exit
 
 
+def _child(device: str, **env) -> subprocess.Popen:
+    """A fresh ``_CHILD`` on ``device``, waiting on stdin for its call."""
+    root, env = _child_env(**env)
+    return subprocess.Popen([sys.executable, "-c", _CHILD, device], stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env, cwd=root)
+
+
 def _warm_cpu_children(n: int) -> None:
     """Start the next ``n`` CPU children of ``_CPU_THREADS``."""
-    root = os.path.dirname(os.path.abspath(__file__))
     for _ in range(n):
         threads = _CPU_THREADS.pop(0) if _CPU_THREADS else 2
-        env = dict(os.environ, OMP_NUM_THREADS=str(threads),
-                   PYTHONPATH=os.pathsep.join(
-                       p for p in (root, os.environ.get("PYTHONPATH")) if p))
-        _WARM.append(subprocess.Popen(
-            [sys.executable, "-c", _CPU_CHILD], stdin=subprocess.PIPE,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=root))
+        _WARM.append(_child("cpu", OMP_NUM_THREADS=str(threads)))
+
+
+def _hand(children: list, func: str, calls) -> list:
+    """Hands ``func(device, *args)`` for each ``args`` of ``calls`` to
+    ``children``; returns them."""
+    _HANDED.extend(children)
+    for child, args in zip(children, calls):
+        child.stdin.write(json.dumps([func, list(args)]) + "\n")
+        child.stdin.close()
+        child.stdin = None  # so that communicate() writes nothing
+    return children
 
 
 def _stop_cpu_children() -> None:
@@ -2292,43 +2327,54 @@ def _start_cpu_half(func: str, cpu_calls=((),)) -> list:
     warm CPU child; returns the children."""
     if len(_WARM) < len(cpu_calls):
         _warm_cpu_children(len(cpu_calls) - len(_WARM))
-    children = [_WARM.pop(0) for _ in cpu_calls]
-    _HANDED.extend(children)
-    for child, args in zip(children, cpu_calls):
-        child.stdin.write(json.dumps([func, list(args)]) + "\n")
-        child.stdin.close()
-        child.stdin = None  # so that communicate() writes nothing
-    return children
+    return _hand([_WARM.pop(0) for _ in cpu_calls], func, cpu_calls)
 
 
-def _card_and_cpu(tag: str, func: str, cpu_calls=((),), children=None) -> tuple[dict, dict]:
-    """``func("cuda")`` in this process while ``func("cpu", *args)`` runs in a
-    warm CPU child for each ``args`` of ``cpu_calls`` (or in ``children``,
-    from ``_start_cpu_half``): their log lines forwarded, their results
-    merged (``runs`` joined, other keys by name); both results in their
-    ``_portable`` form.  Every child must exit 0."""
-    children = children or _start_cpu_half(func, cpu_calls)
+def _start_card_half(func: str) -> list:
+    """Hands ``func("cuda")`` to a fresh child (its own launch counts);
+    returns it."""
+    return _hand([_child("cuda")], func, [()])
+
+
+def _collect(tag: str, children: list, half: str = "CPU") -> dict:
+    """The results of ``children`` once each has exited 0 (killed past 900
+    s): their log lines forwarded, their results merged (``runs`` joined,
+    other keys by name)."""
     try:
-        card = _portable(globals()[func]("cuda"))
         outs = [child.communicate(timeout=900) for child in children]
     finally:
         for child in children:
             if child.poll() is None:
                 child.kill()
                 child.communicate()
-    cpu: dict = {}
+    merged: dict = {}
     for child, (stdout, stderr) in zip(children, outs):
         lines = stdout.strip().splitlines()
         for line in lines[:-1]:
-            print(f"(cpu child) {line}", flush=True)
+            print(f"({half.lower()} child) {line}", flush=True)
         check(child.returncode == 0 and lines,
-              f"[{tag}] the CPU half exited {child.returncode}: {stderr[-2000:]}")
+              f"[{tag}] the {half} half exited {child.returncode}: {stderr[-2000:]}")
         part = json.loads(lines[-1])
-        cpu.setdefault("runs", {}).update(part.pop("runs", {}))
-        cpu.update(part)
-    if not cpu["runs"]:
-        del cpu["runs"]
-    return card, cpu
+        merged.setdefault("runs", {}).update(part.pop("runs", {}))
+        merged.update(part)
+    if not merged["runs"]:
+        del merged["runs"]
+    return merged
+
+
+def _card_and_cpu(tag: str, func: str, cpu_calls=((),), children=None) -> tuple[dict, dict]:
+    """``func("cuda")`` in this process while ``func("cpu", *args)`` runs in a
+    warm CPU child for each ``args`` of ``cpu_calls`` (or in ``children``,
+    from ``_start_cpu_half``): ``_collect``'s merge of the children; both
+    results in their ``_portable`` form.  Every child must exit 0."""
+    children = children or _start_cpu_half(func, cpu_calls)
+    try:
+        card = _portable(globals()[func]("cuda"))
+    except BaseException:
+        for child in children:
+            child.kill()
+        raise
+    return card, _collect(tag, children)
 
 
 # ---- phase 10: the megarow drill, composed parity, breaker ---------------------
@@ -4080,7 +4126,8 @@ def phase_shard_parity(cpu_half=None) -> dict:
 # 19: the reference's 1M-node experiment (SURVEY §3.5; reference README's
 # make_nodes / make_pods procedure) over the wire, cut to 262,144 nodes for
 # the 1,200 s limit, then to 131,072 (and the Python store-stress lane from
-# 10,000 puts and 1,000 ranges to 5,000 and 500) for phases 17d and 21-21a:
+# 10,000 puts and 1,000 ranges to 5,000 and 500) for phases 17d and 21-21a,
+# then to 65,536 for phases 22-22b:
 # make_nodes in 1,024-node PutFrames, make_pods at 8,192
 # per-put RPCs (cut from D1's 32,768 for the same limit; the tools' defaults,
 # --concurrency 100 --clients 4), a coordinator at D1's batch and window
@@ -4089,7 +4136,7 @@ def phase_shard_parity(cpu_half=None) -> dict:
 # delete_pods.  19a: the same flow at 32,768 nodes with 2,048 pods, all
 # ten KWOK groups and one client at a time, coordinator on the card and on
 # the CPU.
-EXP_NODES, EXP_PODS, EXP_BULK = NODES // 8, COORD_PODS["D1"] // 4, 1024
+EXP_NODES, EXP_PODS, EXP_BULK = NODES // 16, COORD_PODS["D1"] // 4, 1024
 EXP_NATIVE_PUTS, EXP_PY_PUTS, EXP_PY_RANGES = 200_000, 5_000, 500
 EXP_PARITY_NODES, EXP_PARITY_PODS = PARITY_NODES // 2, 2048
 EXP_TICKS = (10.0, 20.0)
@@ -4299,7 +4346,7 @@ def _free_port() -> int:
 
 
 def phase_experiment() -> dict:
-    """19: the reference's experiment at 131,072 nodes: a fresh
+    """19: the reference's experiment at 65,536 nodes: a fresh
     ``server_main --metrics-port`` child; every tool a CLI child whose JSON
     line is read (a non-zero exit fails the phase); group 0's controller;
     the server reaped."""
@@ -4910,6 +4957,231 @@ def phase_steady_parity(started: dict) -> dict:
     return {"cuda": {"evidence": card, "launches": launches}, "cpu": cpu}
 
 
+# ---- phase 22: the cluster harness, leader and standby on the card -------------
+
+# 22's live fleet: 262,144 nodes (phase 21's depth) cut to 131,072 to keep
+# the script inside its limit (PERF.md section 4); the table keeps its
+# 1,048,576 rows.
+HARNESS_NODES = NODES // 8
+HARNESS_PODS = 16384
+# 22a's smoke shape (card and CPU behind the secured tier).
+HARNESS_SMOKE = dict(nodes=512, kwok_groups=2, coordinators=2, pod_batch=256, chunk=256,
+                     wal_mode="none", watch_cache=True, tier_tls=True, backend="pallas")
+HARNESS_SMOKE_PODS = 1024
+PODS_PREFIX = b"/registry/pods/"
+NODES_PREFIX = b"/registry/minions/"
+
+
+def _put_nodes_in_frames(cluster) -> None:
+    """``Cluster.make_nodes``'s nodes, the same bytes under the same keys in
+    the same order, in PutFrames of ``CHUNK`` nodes (one revision per node)
+    where it makes one put per node: 22's registration, bulk as 19's
+    ``make_nodes --bulk``."""
+    from k8s1m_tpu_torch.control.objects import encode_node, node_key
+    from k8s1m_tpu_torch.tools.make_nodes import build_node
+
+    spec = cluster.spec
+    for lo in range(0, spec.nodes, CHUNK):
+        items = []
+        for i in range(lo, min(lo + CHUNK, spec.nodes)):
+            node = build_node(i, zones=spec.zones, regions=spec.regions)
+            node.labels["kwok-group"] = str(i % spec.kwok_groups)
+            items.append((node_key(node.name), encode_node(node)))
+        cluster._clients[0].put_batch(items)
+
+
+def phase_harness() -> dict:
+    """22: ``cluster/harness.py`` as ``cluster.up`` runs it: the port's store
+    child, two ``HACoordinator``s (leader and standby) and two KWOK
+    controllers over the wire, the webhook, ``ClusterSpec(nodes=131072,
+    table=TableSpec(max_nodes=1048576), kwok_groups=2, coordinators=2,
+    device="cuda", backend="pallas")`` and the JAX defaults otherwise
+    (waves of 256 pods, chunk 1024, buffered WAL); the nodes (in PutFrames,
+    ``_put_nodes_in_frames``), the first tick, then ``run_pods(16384)``
+    (one put per pod).  The live fleet cut from 262,144 (PERF.md §4).  It
+    runs alone on the host.  Gates: every pod bound once and Running, one
+    leader, the standby holds no coordinator, no node over its pod slots,
+    fused base launches (counts set to 0 just before the nodes' writes)."""
+    import tempfile
+
+    from k8s1m_tpu_torch.cluster.harness import Cluster, ClusterSpec
+    from k8s1m_tpu_torch.config import TableSpec
+    from k8s1m_tpu_torch.store.native import prefix_end
+
+    t0 = time.perf_counter()
+    res: dict = {"nodes": HARNESS_NODES, "pods": HARNESS_PODS, "steps_s": {}}
+    spec = ClusterSpec(nodes=HARNESS_NODES, table=TableSpec(max_nodes=NODES, max_zones=16,
+                                                            max_regions=8),
+                       kwok_groups=2, coordinators=2, device="cuda", backend="pallas")
+    with tempfile.TemporaryDirectory() as wal, Cluster(spec, wal_dir=wal) as cluster:
+        res["steps_s"]["start"] = round(time.perf_counter() - t0, 3)
+        _reset_launches()
+        t1 = time.perf_counter()
+        _put_nodes_in_frames(cluster)
+        res["steps_s"]["nodes"] = round(time.perf_counter() - t1, 3)
+        t1 = time.perf_counter()
+        cluster.tick(0.0)  # elect a leader, bootstrap KWOK and the snapshot
+        res["steps_s"]["first_tick"] = round(time.perf_counter() - t1, 3)
+        split0 = dict(cluster.tick_seconds)
+        now0 = cluster.now
+        stats = cluster.run_pods(HARNESS_PODS)
+        launches = _launch_counts()
+        res["run_pods"] = stats
+        res["ticks"] = int(round(cluster.now - now0))
+        res["tick_seconds"] = {k: round(v - split0[k], 3) for k, v in cluster.tick_seconds.items()}
+        leaders = [ha for ha in cluster.coordinators if ha.elector.is_leader]
+        standby = [ha for ha in cluster.coordinators if not ha.elector.is_leader]
+        objs = [json.loads(kv.value) for kv in cluster._clients[0].range(
+            PODS_PREFIX, prefix_end(PODS_PREFIX)).kvs]
+    check(stats["bound"] == HARNESS_PODS and stats["running"] == HARNESS_PODS,
+          f"[22] run_pods: {stats}")
+    check(len(objs) == HARNESS_PODS and all(o["spec"].get("nodeName")
+                                            and o["status"]["phase"] == "Running"
+                                            for o in objs),
+          "[22] a stored pod is unbound or not Running")
+    per_node: dict = {}
+    for o in objs:
+        per_node[o["spec"]["nodeName"]] = per_node.get(o["spec"]["nodeName"], 0) + 1
+    check(max(per_node.values()) <= 110, "[22] a node holds more pods than its slots")
+    check(len(leaders) == 1 and len(standby) == 1 and standby[0].coord is None,
+          "[22] one leader and a standby without a coordinator")
+    check(launches["fused_topk_by_stage"]["base"] > 0, f"[22] no fused base launch: {launches}")
+    res["launches"] = launches
+    res["leader"] = leaders[0].elector.identity
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    log(f"[22] harness at {HARNESS_NODES:,} nodes (table {NODES:,} rows), leader "
+        f"{res['leader']} + standby, 2 KWOK groups: {stats['bound']:,} pods bound once and "
+        f"Running in {res['ticks']} ticks, {stats['binds_per_sec']} binds/s (created "
+        f"{stats['created_s']} s, total {stats['total_s']} s); tick seconds "
+        f"{res['tick_seconds']}; steps {res['steps_s']}; launches {launches} "
+        f"({res['seconds']:.1f}s)")
+    return res
+
+
+def _harness_smoke_run(device: str) -> dict:
+    """22a's script on ``device``: the cluster of ``HARNESS_SMOKE`` (KWOK
+    behind the secured watch-cache tier), ``make_nodes``, the first tick,
+    ``HARNESS_SMOKE_PODS`` pods in one put each, then ticks, each behind a
+    barrier that waits until every component's watch has seen every event
+    of its prefix, until all are bound and Running.  Returns the stored
+    pods, the binds per tick, the leader and the launches."""
+    from k8s1m_tpu_torch.cluster.harness import Cluster, ClusterSpec
+    from k8s1m_tpu_torch.control.objects import encode_pod, pod_key
+    from k8s1m_tpu_torch.snapshot.pod_encoding import PodInfo
+    from k8s1m_tpu_torch.store.native import prefix_end
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    with Cluster(ClusterSpec(**HARNESS_SMOKE, device=device)) as cluster:
+        for client in cluster._clients:
+            def watch(*a, _orig=client.watch, **kw):
+                w = _orig(*a, **kw)
+                w.barrier_start = kw.get("start_revision", 0)
+                return w
+            client.watch = watch
+        store = cluster._clients[0]
+
+        def barrier():
+            want = {p: max((kv.mod_revision for kv in store.range(p, prefix_end(p)).kvs),
+                           default=0) for p in (NODES_PREFIX, PODS_PREFIX)}
+            watched = []
+            for k in cluster.kwoks:
+                watched += [(k._nodes_watch, NODES_PREFIX), (k._pods_watch, PODS_PREFIX)]
+            for ha in cluster.coordinators:
+                if ha.coord is not None:
+                    watched += [(ha.coord._nodes_watch, NODES_PREFIX),
+                                (ha.coord._pods_watch, PODS_PREFIX)]
+            deadline = time.monotonic() + 60
+            for w, p in watched:
+                while w is not None and w.seen_revision < want[p] and w.barrier_start <= want[p]:
+                    check(time.monotonic() < deadline, "[22a] a watch never caught up")
+                    time.sleep(0.002)
+
+        cluster.make_nodes()
+        cluster.tick(0.0)
+        for i in range(HARNESS_SMOKE_PODS):
+            store.put(pod_key("default", f"smoke-{i}"),
+                      encode_pod(PodInfo(f"smoke-{i}", cpu_milli=100, mem_kib=200 << 10)))
+        per_tick = []
+        for _ in range(200):
+            barrier()
+            per_tick.append(cluster.tick()["bound"])
+            if sum(per_tick) >= HARNESS_SMOKE_PODS and all(
+                    json.loads(kv.value)["status"]["phase"] == "Running"
+                    for kv in store.range(PODS_PREFIX, prefix_end(PODS_PREFIX)).kvs):
+                break
+        barrier()
+        while per_tick and per_tick[-1] == 0:  # ticks that only waited for KWOK
+            per_tick.pop()
+        leaders = [ha.elector.identity for ha in cluster.coordinators if ha.elector.is_leader]
+        stored = {kv.key: kv.value for kv in store.range(PODS_PREFIX, prefix_end(PODS_PREFIX)).kvs}
+    phases = {json.loads(v)["status"]["phase"] for v in stored.values()}
+    check(sum(per_tick) == HARNESS_SMOKE_PODS and len(stored) == HARNESS_SMOKE_PODS
+          and phases == {"Running"} and len(leaders) == 1,
+          f"[22a {device}] binds {sum(per_tick)}, stored {len(stored)}, phases {phases}, "
+          f"leaders {leaders}")
+    return {"device": device, "stored": stored, "per_tick": per_tick, "leaders": leaders,
+            "launches": _launch_counts(), "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def _start_harness_parity() -> dict:
+    """22a's two halves, started now: ``_harness_smoke_run`` on the card in
+    a fresh child and on the CPU in a warm one."""
+    return {"cuda": _start_card_half("_harness_smoke_run"),
+            "cpu": _start_cpu_half("_harness_smoke_run")}
+
+
+def phase_harness_parity(started: dict) -> dict:
+    """22a: ``_harness_smoke_run`` on the card and on the CPU, each in a
+    child (``_start_harness_parity``): the stored pods' bytes, the binds per
+    tick and the leader are equal; the card's run launched the fused base
+    stage (its counts set to 0 and read in its own process)."""
+    card = _collect("22a", started["cuda"], half="card")
+    cpu = _collect("22a", started["cpu"])
+    check(card["launches"]["fused_topk_by_stage"]["base"] > 0,
+          f"[22a] no base launch on the card: {card['launches']}")
+    _same_stored("22a", "card and CPU stored pods", card["stored"], cpu["stored"])
+    check(card["per_tick"] == cpu["per_tick"] and card["leaders"] == cpu["leaders"],
+          f"[22a] binds per tick {card['per_tick']} vs {cpu['per_tick']}")
+    log(f"[22a] harness smoke ({HARNESS_SMOKE['nodes']} nodes, {HARNESS_SMOKE_PODS} pods, KWOK "
+        f"behind the secured tier): card == CPU, {card['stored']['entries']} pods sha256 "
+        f"{card['stored']['sha256'][:16]}, {len(card['per_tick'])} binding ticks; card "
+        f"{card['seconds']:.1f}s, CPU {cpu['seconds']:.1f}s; launches {card['launches']}")
+    return {"cuda": _without_keys(card), "cpu": _without_keys(cpu),
+            "launches": card["launches"]}
+
+
+def _fidelity_run(device: str) -> dict:
+    """22b's run on ``device``: ``fidelity_ab --device <device>`` at its
+    defaults, its launch counts set to 0 just before and read just after."""
+    from k8s1m_tpu_torch.tools import fidelity_ab
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = fidelity_ab.main(["--device", device])
+    return {"report": report, "launches": _launch_counts(),
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def phase_fidelity(cpu_half) -> dict:
+    """22b: ``tools/fidelity_ab.py`` at its defaults (2,000 nodes x 2,000
+    pods, 60 simulated seconds) on the card in this process and on the CPU
+    in a warm child (``cpu_half``): the reports, which hold no clock, are
+    equal, and the card's run launched the fused base stage."""
+    card, cpu = _card_and_cpu("22b", "_fidelity_run", children=cpu_half)
+    launches, rep = card["launches"], card["report"]
+    check(launches["fused_topk_by_stage"]["base"] > 0, f"[22b] no base launch: {launches}")
+    check(rep == cpu["report"], f"[22b] card and CPU reports differ: {rep} vs {cpu['report']}")
+    for arm in ("kwok", "kubelet_sim"):
+        check(rep[arm]["bound"] == 2000, f"[22b] {arm} bound {rep[arm]['bound']}")
+    log(f"[22b] fidelity_ab (2,000 x 2,000, 60 s) card == CPU: ratios {rep['ratios']}, "
+        f"kwok writes {rep['kwok']['writes_total']}, kubelet_sim writes "
+        f"{rep['kubelet_sim']['writes_total']}; card {card['seconds']:.1f}s, CPU "
+        f"{cpu['seconds']:.1f}s; launches {launches}")
+    return {"report": rep, "launches": launches, "seconds": card["seconds"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="timed waves per layout (phase 4)")
@@ -4932,6 +5204,10 @@ def main(argv=None) -> int:
                     help="run only the device and build phases, 17a's card run over the "
                          "native wire, phase 17d (the secured watch-cache tier) and phases "
                          "21-21a (the composed steady drill), and print their results")
+    ap.add_argument("--harness-only", action="store_true",
+                    help="run only the device and build phases and phases 22-22b (the "
+                         "cluster harness, its card-vs-CPU smoke and fidelity_ab), and "
+                         "print their results")
     args = ap.parse_args(argv)
     if min(args.steps, args.path_steps, args.delta_steps, args.warmup) < 1:
         ap.error("--steps, --path-steps, --delta-steps and --warmup must be >= 1")
@@ -4967,6 +5243,15 @@ def main(argv=None) -> int:
         steady_parity = _start_steady_parity()  # 21a's halves, beside 21 (as in the full run)
         out["21"] = phase_steady()
         out["21a"] = phase_steady_parity(steady_parity)
+        log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
+        print(json.dumps(out, default=str), flush=True)
+        return 0
+    if args.harness_only:
+        out = {"22": phase_harness()}
+        harness_started = _start_harness_parity()  # 22a's halves and 22b's
+        fidelity_cpu = _start_cpu_half("_fidelity_run")  # CPU half, after 22
+        out["22a"] = phase_harness_parity(harness_started)
+        out["22b"] = phase_fidelity(fidelity_cpu)
         log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
         print(json.dumps(out, default=str), flush=True)
         return 0
@@ -5033,15 +5318,22 @@ def main(argv=None) -> int:
     shard_parity = phase_shard_parity(shard_cpu)
     mesh_cpu = _start_cpu_half("_mesh_parity_members")  # 20a's, beside 20
     mesh = phase_mesh(device, steps=args.delta_steps, warmup=args.warmup)
+    # 22a's halves run beside 20a (a parity phase with no clock gate), so that
+    # 22 runs alone on the host; 22b's CPU child starts its imports with them.
+    harness_started = _start_harness_parity()
+    _warm_cpu_children(1)
     mesh_parity = phase_mesh_parity(mesh_cpu)
     mesh_bench = phase_mesh_bench()
     steady_parity_started = _start_steady_parity()  # 21a's halves, beside 21
     steady = phase_steady()
     steady_parity = phase_steady_parity(steady_parity_started)
+    harness = phase_harness()  # alone on the host: its binds/s and tick split
+    harness_parity = phase_harness_parity(harness_started)
+    fidelity = phase_fidelity(_start_cpu_half("_fidelity_run"))
     log(f"[run] {time.perf_counter() - t_start:.1f}s in all, build included")
 
     # Launches of the coordinator's paths (phases 8, 10-16a, 17-17d, 18a, 19,
-    # 19a, 20a, 20b, 21 and 21a, counts set to 0 just before each measured run and read just
+    # 19a, 20a, 20b, 21-21a and 22-22b, counts set to 0 just before each measured run and read just
     # after it; 18's workers set theirs to 0 after their warm-up pod and
     # report them with their final status), per fused stage.
     runs = ([r["detail"]["launches"] for r in coord.values()]
@@ -5058,7 +5350,8 @@ def main(argv=None) -> int:
             + [r["report"]["detail"]["launches"] for t, r in mesh_parity["runs"].items()
                if t.endswith(" cuda")]
             + [mesh_bench["detail"]["launches"], tier["launches"], steady["launches"],
-               steady_parity["cuda"]["launches"]])
+               steady_parity["cuda"]["launches"], harness["launches"],
+               harness_parity["launches"], fidelity["launches"]])
     coord_launches = {
         stage: sum(r["fused_topk_by_stage"][stage] for r in runs)
         for stage in ("base", "aff", "cons")
@@ -5136,7 +5429,9 @@ def main(argv=None) -> int:
                        "shard_parity": shard_parity, "experiment": experiment,
                        "experiment_parity": experiment_parity, "mesh": mesh,
                        "mesh_parity": mesh_parity, "mesh_bench": mesh_bench, "tier": tier,
-                       "steady": steady, "steady_parity": steady_parity, **kernels},
+                       "steady": steady, "steady_parity": steady_parity,
+                       "harness": harness, "harness_parity": harness_parity,
+                       "fidelity": fidelity, **kernels},
                       f, indent=1, default=str)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -354,6 +354,11 @@ class Registry:
     def get(self, name: str) -> Metric | None:
         return self._metrics.get(name)
 
+    def metrics(self) -> list[Metric]:
+        """Every registered metric, in registration order."""
+        with self._lock:
+            return list(self._metrics.values())
+
     def render(self) -> str:
         """Every metric in the Prometheus text exposition format."""
         lines: list[str] = []

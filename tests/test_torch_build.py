@@ -2,6 +2,8 @@
 rebuilt when it is missing or older than any of its translation units or
 any file of ``csrc/`` they include (followed recursively)."""
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import os
 
 from k8s1m_tpu_torch.ops import _build

@@ -13,6 +13,8 @@ seeds agree because the port draws them from its threefry twin
 (``ops/priority.py``).  Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 
 import numpy as np

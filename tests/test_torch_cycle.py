@@ -15,6 +15,8 @@
 Tolerance everywhere: exact equality (integer outputs).
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 
 import jax

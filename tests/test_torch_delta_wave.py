@@ -20,6 +20,8 @@ seed, and its merged planes equal a fresh fill over the pre-wave table —
 the deltasched contract.  Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 
 import jax

@@ -21,6 +21,8 @@ controller vs the JAX package (``k8s1m_tpu/engine/deltacache.py`` and
 Inputs come from numpy with a seed.  Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 
 import jax.numpy as jnp

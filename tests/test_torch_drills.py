@@ -13,6 +13,8 @@ Tolerance: exact, apart from the wall-clock fields of hostpath_bench and
 latency_curve, which are only checked for presence.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import contextlib
 import io
 import json

@@ -18,6 +18,8 @@ each, and the native stress client's twin of
 Tolerance: exact equality everywhere.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import asyncio
 import json
 import types

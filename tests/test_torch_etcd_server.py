@@ -31,6 +31,8 @@
 Tolerance: exact equality everywhere.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import asyncio
 import collections
 import os

@@ -17,6 +17,8 @@ untouched.  Tolerance: exact.
 
 from __future__ import annotations
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import json
 
 import pytest

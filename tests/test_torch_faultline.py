@@ -11,6 +11,8 @@ scenario: both coordinators step together under the same seeded
 conflict plan with zero-delay retries.  Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import json
 
 import pytest

@@ -12,6 +12,8 @@ The CUDA kernel itself is held against this plain version on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 import functools
 

@@ -10,6 +10,8 @@ on a machine that has only PyTorch and the CUDA toolkit:
 Tolerance: exact equality — every output is an integer.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 
 import numpy as np

@@ -11,6 +11,8 @@ separate ``libmemstore.so`` files and keep two metric registries.
 Tolerance: exact equality throughout.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 import json
 

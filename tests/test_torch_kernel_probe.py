@@ -6,6 +6,8 @@ returns the JAX tool's keys and variant names (the times are this
 host's, not compared).
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import json
 
 import pytest

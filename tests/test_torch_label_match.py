@@ -10,6 +10,8 @@ Tolerance: exact equality (masks, integer ids, and f32 scores compared
 bit for bit).
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 
 import jax.numpy as jnp

@@ -15,6 +15,8 @@ file's own assertions are kept on the port's run.  Tolerance: exact.
 
 from __future__ import annotations
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import json
 import types
 import urllib.request

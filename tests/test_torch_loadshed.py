@@ -13,6 +13,8 @@ The fallback binds are also replayed against ``oracle_feasible`` /
 the JAX file wait for the port's webhook and drill.  Tolerance: exact.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import json
 
 import pytest

@@ -18,6 +18,8 @@
 Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import numpy as np
 import pytest
 

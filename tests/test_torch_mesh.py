@@ -11,6 +11,8 @@ back to a single device where the JAX test's 8 virtual devices split.
 Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import logging
 
 import jax

@@ -14,6 +14,8 @@ equals the port's single-device run.  ``list_prefix_sharded`` is held to
 equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 import json
 

@@ -15,6 +15,8 @@ index's refusal under a mesh (tests/test_deltasched.py:947-967).
 Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 
 import jax

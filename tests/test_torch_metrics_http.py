@@ -6,6 +6,8 @@ the same request, and ``server_main --metrics-port`` serving a scrape.
 Tolerance: exact equality (status codes, scrape counters, quantiles).
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import base64
 import os
 import socket

@@ -14,6 +14,8 @@ package.  Tolerance: exact equality (sha256 of the bytes).
 
 from __future__ import annotations
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import argparse
 import hashlib
 import json

@@ -13,6 +13,8 @@ every op and preferred terms.  Also ``class_key``, ``scatter_rows`` /
 with a seed.  Tolerance: exact equality (bool masks, integer scores).
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 
 import jax.numpy as jnp

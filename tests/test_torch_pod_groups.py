@@ -18,6 +18,8 @@ cross over through ``k8s1m_tpu_torch.interop``.  Tolerance: exact equality
 (integer outputs).
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 import functools
 

@@ -19,6 +19,8 @@ checked for contiguity and coverage only.
 
 from __future__ import annotations
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import json
 import logging
 import os

@@ -6,6 +6,8 @@ to 32 bits; every function must be bit-equal to ``k8s1m_tpu.ops.priority``
 the engine uses.  Tolerance: exact equality — every output is an integer.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

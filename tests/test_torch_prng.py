@@ -9,6 +9,8 @@ chained splits each, every key and every drawn seed must be equal.
 Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,8 @@ iteration``.  The port's report reads one snapshot taken under the lock the
 sampler holds around its inserts.  Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import collections
 import sys
 import threading

@@ -18,6 +18,8 @@ the store's revision queued), leave byte-identical stored pods.
 Tolerance: byte identity everywhere.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 import json
 import time

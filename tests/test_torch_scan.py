@@ -20,6 +20,8 @@ State is built with the JAX package's classes from numpy seeds and crosses
 over through ``k8s1m_tpu_torch.interop``.  Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 import functools
 

@@ -7,6 +7,8 @@ the measured window, the rest inside it), and the report must carry the
 fields the chip run reads.  Tolerance: exact counts.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import json
 
 import pytest

@@ -11,6 +11,8 @@ worker.  A paced case (``--rate``), a worker that cannot open the card, and
 the JAX-only ``--tpu-worker`` flag complete it.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import json
 import os
 import subprocess

@@ -16,6 +16,8 @@ ranks share takes each commit once.  Tolerance everywhere: exact
 equality (integer outputs).
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 
 import jax

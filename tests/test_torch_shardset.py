@@ -16,6 +16,8 @@ random inputs.  Tolerance: exact equality.
 
 from __future__ import annotations
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import json
 import types
 

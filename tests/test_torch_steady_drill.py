@@ -18,6 +18,8 @@ cancels and errors, resumes, invalidations).
 Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import pytest
 
 from k8s1m_tpu.tools import steady_drill as jax_drill

@@ -14,6 +14,8 @@ The webhook test and the two drill smokes of the JAX file wait for the
 port's webhook and drills.  Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import json
 
 import pytest

@@ -11,6 +11,8 @@ records (revisions, values, the store's watch count) must be equal.
 Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import asyncio
 
 import pytest

@@ -20,6 +20,8 @@ the load generator's report.  The records must be equal.  Besides:
 Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import asyncio
 import contextlib
 import dataclasses

@@ -19,6 +19,8 @@ controllers and coordinator, held to the JAX package's.
 Tolerance: exact bytes.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import asyncio
 import json
 import time
@@ -262,6 +264,9 @@ def test_watch_stress_counts_amplification():
              "--write-concurrency", "4"])))
         loop.run_until_complete(server.stop(None))
     finally:
+        # Drain the executor the server's watch pumps poll the store on
+        # before the store closes (``loop.close()`` does not wait).
+        loop.run_until_complete(loop.shutdown_default_executor())
         loop.close()
         store.close()
     for o in (out, jout):

@@ -21,6 +21,8 @@ stalled stream unregisters its watcher.
 Tolerance: exact equality everywhere.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import asyncio
 import dataclasses
 import threading

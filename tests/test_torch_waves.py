@@ -15,6 +15,8 @@ must be identical.  The port takes the i32 seed the JAX step derives from
 its key (``seed_of``).  Tolerance: exact equality.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 
 import jax

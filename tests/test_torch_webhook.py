@@ -14,6 +14,8 @@ Tolerance: exact.
 
 from __future__ import annotations
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import http.client
 import json
 import threading

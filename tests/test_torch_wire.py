@@ -22,6 +22,8 @@ codec (``store/proto/codec.py``), HPACK and the HTTP/2 + gRPC transport
 Tolerance: byte identity everywhere.
 """
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import asyncio
 import os
 import subprocess
@@ -66,8 +68,15 @@ class AsyncioServer:
     def run(self, coro, timeout: float = 30.0):
         return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
 
-    def close(self) -> None:
+    def stop_server(self) -> None:
         self.run(self.server.stop(None))
+
+    def close(self) -> None:
+        """Stop the server, then drain the loop's default executor before
+        the store closes: the server's watch pumps poll the store there,
+        and ``loop.close()`` alone does not wait for a poll in flight."""
+        self.stop_server()
+        self.run(self.loop.shutdown_default_executor())
         self.loop.call_soon_threadsafe(self.loop.stop)
         self.thread.join(timeout=10)
         assert not self.thread.is_alive()
@@ -99,14 +108,8 @@ class PortAsyncioServer(AsyncioServer):
         self.thread.start()
         self.server, self.port = self.run(port_etcd_server.serve(self.store, port=0))
 
-    def close(self) -> None:
+    def stop_server(self) -> None:
         self.run(self.server.stop())
-        self.run(self.loop.shutdown_default_executor())
-        self.loop.call_soon_threadsafe(self.loop.stop)
-        self.thread.join(timeout=10)
-        assert not self.thread.is_alive()
-        self.loop.close()
-        self.store.close()
 
 
 SERVERS = {"native": NativeServer, "asyncio": AsyncioServer, "port_asyncio": PortAsyncioServer}
@@ -458,6 +461,9 @@ def test_port_imports_no_grpc_protobuf_or_jax():
                                                    "wiretier")} <= mods
     assert {"k8s1m_tpu_torch.store.watch_cache", "k8s1m_tpu_torch.cluster.certs",
             "k8s1m_tpu_torch.tools.steady_drill"} <= mods
+    assert {f"k8s1m_tpu_torch.{m}" for m in (
+        "cluster.harness", "cluster.up", "cluster.kubelet_sim", "obs.logship",
+        "obs.dashboard", "obs.metrics", "tools.fidelity_ab")} <= mods
 
 
 _SERVE_BLOCKED = r"""
@@ -479,6 +485,7 @@ async def main():
     finally:
         await client.close()
         await server.stop()
+        await asyncio.get_running_loop().shutdown_default_executor()
         store.close()
 
 asyncio.run(main())

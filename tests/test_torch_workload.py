@@ -4,6 +4,8 @@ for the NodeAffinity pods of BASELINE config 2 and the spread / (anti-)
 affinity deployments of configs 3-4 (``bench.py --affinity`` and
 ``--constraints``)."""
 
+import _torch_cpu  # noqa: F401  (bounds torch's CPU threads first)
+
 import dataclasses
 
 import numpy as np
